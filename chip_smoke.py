@@ -5,14 +5,23 @@
 
 Phases, each of which fails the run (traceback, non-zero exit) on any fault:
 
-1. Build the CUDA kernels from ``lapha_tpu_torch/csrc`` and hold each one
-   against its plain PyTorch version at the served shapes (bf16 kernel vs
-   the plain version in f32 on the same bf16 inputs, max |diff| <= 3e-2),
-   timing both with CUDA events.
+1. Build the CUDA kernels from ``lapha_tpu_torch/csrc`` (one nvcc per
+   source, in parallel) and hold each forward kernel against its plain
+   PyTorch version at the served shapes (bf16 kernel vs the plain version
+   in f32 on the same bf16 inputs, max |diff| <= 3e-2), timing both with
+   CUDA events.
+1b. The flash backward kernels (dq; dk/dv) against the plain backward on
+   the same bf16 inputs and saved LSE, at B=4 T=1024 (ragged masks) and B=2
+   T=1000 (padded tails), 12/2 heads: max |diff| <= 1e-2 * max |plain| +
+   1e-3 for each of dq, dk, dv; timed in turns against the plain version.
 2. Check the kernel path against the plain path on a small input: two
    layers of the full-width model, prefill + one decode step, on the card
    (kernels, bf16) and on the CPU (plain versions, f32); relative error of
    the logits <= 5e-2.
+2b. The same two layers: gradients of the GRPO + value loss
+   (``losses.loss_and_metrics``) on the card (bf16, kernels) against the
+   CPU (f32, plain) on one packed batch; relative error per parameter leaf
+   and for the value head <= 5e-2.
 3. Drive the served path, through the entry points a user calls, at
    the full width of Qwen2.5-1.5B (28 layers, H 1536, 12/2 heads, dh 128,
    I 8960, V 151936, rope_theta 1e6) with random bf16 weights from a seed:
@@ -27,23 +36,47 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    no-cache kernel), relative error <= 5e-2.
 5. Time a second, warm round on fresh prompts (host clock; the engine
    synchronises the device at each phase boundary).
+6. Training through the normal entry at full width: ``MTPOTrainer`` on the
+   28-layer random bf16 model (gradient checkpointing, beta 1e-8 as
+   configs/lapha.yaml), PoorAgent's templates and a token-id chat tokenizer
+   over the whole vocabulary; one ``train_step`` on two questions with a
+   CoT anchor (depth 2, breadth 4, num_sim 4, 32 new tokens per step).
+   Random weights may leave no trainable group; that is printed, not hidden.
+7. The update at full width, always run: three update steps
+   (``losses.make_update_fn``, remat "full") on 8 packed rows of 512 prompt
+   + 512 completion tokens, launch counts zeroed just before and read just
+   after (both backward kernels must have run); finite loss and grad norm;
+   non-zero attention-projection gradients in every layer; moved params;
+   the engine generates after the update and the logits changed. Then one
+   warm step is timed at scripts/bench_train.py's shape (B=8, prompt 3072 +
+   completion 1024).
 
-Prints the card's name and power limit, each timing beside them, one JSON
-line of per-kernel results, and finally
+Launch counts are read per path (serve: phase 3; train_step: phase 6;
+update: phase 7). Prints the card's name and power limit, each timing
+beside them, one JSON line of per-kernel results, and finally
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 # bf16 kernel vs f32 plain on the same bf16 inputs: P is rounded to bf16
 # before P·V and the output to bf16, each <= 2^-9 relative of max|v| <= ~5
 KERNEL_ATOL = 3e-2
 REF_RTOL = 5e-2      # bf16 through two layers (or 28, for pooled h0) vs f32
+# backward kernels vs plain: P and dS are rounded to bf16 before each
+# product and the grads written in bf16 (2^-9 relative each); the floor
+# covers gradients that are pure cancellation
+BWD_RTOL, BWD_ATOL = 1e-2, 1e-3
+TRAIN_LR = 1e-3      # phase 7: large enough that Adam's ~lr steps move bf16 weights
 SEED = 0
 
 
@@ -149,24 +182,81 @@ def check_kernels(dev, card):
     return results
 
 
+def check_backward_kernels(dev, card):
+    """Phase 1b: the dq and dk/dv kernels vs the plain backward."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(SEED + 3)
+    nh, nkv, dh = 12, 2, 128
+    scale = dh ** -0.5
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
+
+    results = {"flash_attention_bwd_dq": [0.0, 0.0, 0.0], "flash_attention_bwd_dkv": [0.0, 0.0, 0.0]}
+    for B, T, lens in ((4, 1024, (1024, 700, 1000, 333)), (2, 1000, (1000, 871))):
+        q, do = bf16(B, T, nh, dh), bf16(B, T, nh, dh)
+        k, v = bf16(B, T, nkv, dh), bf16(B, T, nkv, dh)
+        mask = (torch.arange(T, device=dev)[None, :]
+                < torch.as_tensor(lens, device=dev)[:, None]).to(torch.int32)
+        mask[0, 100:140] = 0  # a hole of invalid keys
+        qs = torch.zeros(B, dtype=torch.int32, device=dev)
+        out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention")
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, mask, qs, lse, do, delta, scale)
+        got = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+        ref = fa.attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            a, b = a.float(), b.float()
+            check(torch.isfinite(a).all(), f"{name} finite")
+            err, top = float((a - b).abs().max()), float(b.abs().max())
+            check(err <= BWD_RTOL * top + BWD_ATOL,
+                  f"{name} B={B} T={T}: max|diff| {err} vs max|plain| {top}")
+            errs.append(err)
+            print(f"kernel flash_attention_bwd {name} B={B} T={T}: max|diff| {err:.3e} "
+                  f"(max|plain| {top:.3e}, bound {BWD_RTOL * top + BWD_ATOL:.3e})", flush=True)
+        ms_dq, pms_dq = _ab_ms(lambda: fa.attention_bwd_dq_cuda(*args),
+                               lambda: fa.attention_bwd_dq_plain(*args))
+        ms_kv, pms_kv = _ab_ms(lambda: fa.attention_bwd_dkv_cuda(*args),
+                               lambda: fa.attention_bwd_dkv_plain(*args))
+        print(f"kernel flash_attention_bwd_dq B={B} T={T}: {ms_dq:.4f} ms vs plain {pms_dq:.4f} ms; "
+              f"flash_attention_bwd_dkv: {ms_kv:.4f} ms vs plain {pms_kv:.4f} ms [{card}]", flush=True)
+        if B == 4:  # the table keeps the first shape's times
+            results["flash_attention_bwd_dq"][1:] = [ms_dq, pms_dq]
+            results["flash_attention_bwd_dkv"][1:] = [ms_kv, pms_kv]
+        results["flash_attention_bwd_dq"][0] = max(results["flash_attention_bwd_dq"][0], errs[0])
+        results["flash_attention_bwd_dkv"][0] = max(results["flash_attention_bwd_dkv"][0], *errs[1:])
+    return {k: tuple(v) for k, v in results.items()}
+
+
+def _two_layers(params, cfg):
+    """The first two layers of the model, on the card and as f32 on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from lapha_tpu_torch.train.losses import tree_map
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    sub = dict(params, layers=tree_map(lambda t: t[:2], params["layers"]))
+    cpu = tree_map(lambda t: t.detach().to("cpu", torch.float32), sub)
+    return sub, cfg2, cpu, dataclasses.replace(cfg2, dtype=torch.float32)
+
+
 def check_small_reference(params, cfg, dev):
     """Phase 2: two layers of the full-width model, kernels (card, bf16) vs
     plain versions (CPU, f32): cached prefill logits and one decode step."""
-    import dataclasses
-
     import numpy as np
     import torch
 
     from lapha_tpu_torch.models import qwen2
 
-    def tree_map(fn, node):
-        return ({k: tree_map(fn, v) for k, v in node.items()} if isinstance(node, dict)
-                else fn(node))
-
-    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
-    sub = dict(params, layers=tree_map(lambda t: t[:2], params["layers"]))
-    cpu = tree_map(lambda t: t.to("cpu", torch.float32), sub)
-    cfg_cpu = dataclasses.replace(cfg2, dtype=torch.float32)
+    sub, cfg2, cpu, cfg_cpu = _two_layers(params, cfg)
     rng = np.random.default_rng(SEED + 1)
     B, T, S = 2, 96, 128
     ids = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, T)))
@@ -201,6 +291,71 @@ def check_small_reference(params, cfg, dev):
           f"reference rel err prefill {e_prefill} decode {e_decode}")
 
 
+def _packed_batch(rng, vocab, prompt_lens, comp_lens, dev):
+    """A packed training batch (losses.pack_samples) of random rows, with
+    random advantages and value targets (scripts/bench_train.py's recipe)."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.train import losses
+
+    samples = [dict(prompt_ids=rng.integers(2, vocab, lp).tolist(),
+                    completion_ids=rng.integers(2, vocab, lc).tolist())
+               for lp, lc in zip(prompt_lens, comp_lens)]
+    packed = losses.pack_samples(samples, pad_id=0, eos_id=1,
+                                 max_prompt_length=max(prompt_lens), pad_multiple=128,
+                                 batch_multiple=1)
+    batch = losses.batch_to_device(packed, dev)
+    B = batch["ids"].shape[0]
+    batch["advantages"] = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(dev)
+    batch["v_target"] = torch.from_numpy(rng.uniform(size=B).astype(np.float32)).to(dev)
+    return batch
+
+
+LOSS_KW = dict(temperature=1.0, eps_low=0.2, eps_high=0.2, loss_type="grpo",
+               importance_level="token", value_w=1.0, beta=0.0)
+
+
+def check_gradient_reference(params, head, cfg, dev):
+    """Phase 2b: loss_and_metrics gradients of two full-width layers, card
+    (bf16, kernels) vs CPU (f32, plain), on one packed batch."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.train import losses
+
+    sub, cfg2, cpu, cfg_cpu = _two_layers(params, cfg)
+    rng = np.random.default_rng(SEED + 4)
+    batch = _packed_batch(rng, cfg.vocab_size, (90, 40), (30, 60), dev)
+    kw = dict(LOSS_KW, max_completion_length=64, remat="full")
+
+    def grads(p, h, c, b):
+        p = losses.tree_map(lambda t: t.detach().clone(), p)
+        h = losses.tree_map(lambda t: t.detach().clone(), h)
+        leaves = losses._trainable(p, h)
+        loss, _ = losses.loss_and_metrics(p, h, b, c, **kw)
+        return float(loss.detach()), [g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    head_cpu = losses.tree_map(lambda t: t.detach().cpu(), head)
+    g_loss, g_card = grads(sub, head, cfg2, batch)
+    c_loss, g_cpu = grads(cpu, head_cpu, cfg_cpu, losses.batch_to_device(batch, "cpu"))
+    names = [n for n, _ in losses.tree_paths((sub, head))]
+    ref_qb = g_cpu[names.index("0.layers.attn.q_proj.b")].norm()
+    worst = 0.0
+    for name, a, b in zip(names, g_card, g_cpu):
+        if name.endswith("k_proj.b"):
+            # zero analytically (softmax is shift-invariant along a row): both
+            # sides hold rounding noise; bounded against the q bias gradient
+            err = float((a - b).norm() / ref_qb)
+        else:
+            err = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        worst = max(worst, err)
+        check(np.isfinite(err) and err <= REF_RTOL, f"gradient {name}: rel err {err}")
+    print(f"gradient reference (2 layers, card kernels bf16 vs CPU plain f32): loss "
+          f"{g_loss:.6f} vs {c_loss:.6f}; worst leaf rel err {worst:.3e} over {len(names)} "
+          f"leaves (params + value head)", flush=True)
+
+
 class IdTok:
     """Prompts are space-separated token ids (the bench.py tokenizer stub)."""
 
@@ -212,6 +367,184 @@ class IdTok:
 
     def decode(self, ids, **kw):
         return " ".join(str(int(i)) for i in ids)
+
+
+class ChatIdTok:
+    """A chat tokenizer over the whole vocabulary: a word <i> is token i and
+    any other word hashes to an id, so decode -> encode round-trips every
+    generated token. No tokenizer files are needed."""
+
+    eos_token_id = 1
+    pad_token_id = 0
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def _id(self, w):
+        m = re.fullmatch(r"<(\d+)>", w)
+        return int(m.group(1)) if m else 2 + int(zlib.crc32(w.encode())) % (self.vocab - 2)
+
+    def __call__(self, text, add_special_tokens=True, **kw):
+        return {"input_ids": [self._id(w) for w in text.split()]}
+
+    def decode(self, ids, skip_special_tokens=True, **kw):
+        return " ".join(f"<{int(i)}>" for i in ids
+                        if not (skip_special_tokens and int(i) in (0, 1)))
+
+    def apply_chat_template(self, conversation, tools=None, tokenize=False,
+                            add_generation_prompt=True, **kw):
+        text = "\n".join(f"<|{m['role']}|> {m.get('content', '')}" for m in conversation)
+        return text + ("\n<|assistant|>\n" if add_generation_prompt else "\n")
+
+
+# run_dapo.py's PoorAgent templates
+POOR_SYSTEM = """\
+SOLVE THE PROBLEM STEP-BY-STEP. PRESENT THE ANSWER TO EXIT THE LOOP.
+
+
+# Guidelines
+→ Each assistant response must contain exactly one "<think>...</think>" block.
+  · If the final answer is ready, use "<answer>...</answer>" block to terminate the loop.
+  · No content other than whitespace may appear outside these tags.
+→ Begin every response with "STEP-(\\d+):\\n<think>...", 1 step per response."""
+POOR_USER = """
+{support_material_str}
+# Please answer:
+{question}
+"""
+
+
+def train_through_the_trainer(params, cfg, card, tmpdir):
+    """Phase 6: one MTPOTrainer.train_step at full width."""
+    import torch
+
+    from lapha_tpu_torch.search import MCTSAgent
+    from lapha_tpu_torch.train import MTPOConfig, MTPOTrainer
+
+    class PoorAgent(MCTSAgent):
+        TOOLS = {}
+        TOOLS_DESCRIPTION = ""
+        SYSTEM_TEMPLATE = POOR_SYSTEM
+        USER_TEMPLATE = POOR_USER
+
+    args = MTPOConfig(output_dir=tmpdir, seed=SEED, depth=2, breadth=4, num_sim=4,
+                      leaves_per_sim=2, num_pos_sim=1, max_completion_length=32,
+                      max_model_len=1024, max_prompt_length=1024, num_groups=8,
+                      bf16=True, gradient_checkpointing=True, beta=1e-8, save_steps=0,
+                      debug_print=False)
+    dataset = [{"question": "What is 17 * 23?", "ground_truth": "391",
+                "support_material_path": [],
+                "cot": "<think>17 * 23 = 17 * 20 + 17 * 3 = 340 + 51 = 391</think>"
+                       "<answer>391</answer>"},
+               {"question": "What is the sum of the first 10 positive integers?",
+                "ground_truth": "55", "support_material_path": [],
+                "cot": "<think>10 * 11 / 2 = 55</think><answer>55</answer>"}]
+    trainer = MTPOTrainer(
+        model=(params, cfg), agent_cls_list=[PoorAgent], args=args,
+        reward_fns=[lambda c, gt: 1.0 if f"<answer>{gt}</answer>" in (c or "") else 0.0],
+        train_dataset=dataset, tokenizer=ChatIdTok(cfg.vocab_size))
+    m = trainer.train_step(dataset)
+    torch.cuda.synchronize()
+    check(trainer.global_step == 1, "train_step advanced the step")
+    if m["n_samples"]:
+        check(all(math.isfinite(m[k]) for k in ("loss", "grad_norm")), f"phase 6 metrics {m}")
+    shown = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in m.items()}
+    print(f"train_step (28 layers, depth 2, breadth 4, num_sim 4, 32 new tokens): "
+          f"n_samples {m['n_samples']}, num_groups {m['num_groups']}, "
+          f"skipped {m.get('skipped')}, rollout {m['rollout_s']:.2f} s, update "
+          f"{m.get('update_s', 0.0):.2f} s [{card}]; metrics {shown}", flush=True)
+    del trainer
+
+
+def update_at_full_width(params, head, cfg, eng, card):
+    """Phase 7: three update steps at full width, counted, then one warm step
+    timed at scripts/bench_train.py's shape. Returns the update window's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine import SamplingParams
+    from lapha_tpu_torch.models import qwen2
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.train import losses, optim
+
+    rng = np.random.default_rng(SEED + 5)
+    B, Lp, Lc = 8, 512, 512
+    dev = params["embed"]["weight"].device
+    batch = _packed_batch(rng, cfg.vocab_size, [Lp] * B, [Lc] * B, dev)
+    opt = optim.AdamChain(optim.constant_schedule(TRAIN_LR), max_grad_norm=1.0)
+    update = losses.make_update_fn(cfg, opt, loss_kwargs=dict(
+        LOSS_KW, max_completion_length=Lc, remat="full"))
+    opt_state = opt.init(losses.tree_leaves((params, head)))
+
+    # the regression check of the autograd Function: every layer's
+    # attention projections get a gradient through the flash backward
+    attn = params["layers"]["attn"]
+    proj = [attn[n]["w"] for n in ("q_proj", "k_proj", "v_proj", "o_proj")]
+    for t in proj:
+        t.requires_grad_(True)
+    loss, _ = losses.loss_and_metrics(params, head, batch, cfg, max_completion_length=Lc,
+                                      remat="full", **LOSS_KW)
+    for name, g in zip(("q", "k", "v", "o"), torch.autograd.grad(loss, proj)):
+        per_layer = g.float().flatten(1).abs().amax(1)
+        check(bool(torch.isfinite(per_layer).all()) and bool((per_layer > 0).all()),
+              f"{name}_proj gradient zero or non-finite in some layer: {per_layer.tolist()}")
+    del loss
+
+    probe = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 64))).to(dev)
+    with torch.inference_mode():
+        logits0 = qwen2.forward(params, cfg, probe)[0][0, -1].float().clone()
+    w0 = attn["q_proj"]["w"].detach()[0, :64, :64].clone()
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    losses_seen, gnorms = [], []
+    for _ in range(3):
+        _, _, opt_state, m = update(params, head, opt_state, batch)
+        losses_seen.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+
+    for name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        check(launches[name] > 0, f"{name} never launched in the update window")
+    check(all(map(math.isfinite, losses_seen + gnorms)), f"loss {losses_seen} gnorm {gnorms}")
+    moved = float((attn["q_proj"]["w"].detach()[0, :64, :64].float() - w0.float()).abs().max())
+    check(moved > 0, "params did not move")
+    eng.update_params(params)
+    with torch.inference_mode():
+        logits1 = qwen2.forward(params, cfg, probe)[0][0, -1].float()
+    dlog = float((logits1 - logits0).abs().max())
+    check(dlog > 0 and bool(torch.isfinite(logits1).all()), f"logits after update: {dlog}")
+    out = eng.generate([" ".join(str(int(t)) for t in probe[0].tolist())],
+                       SamplingParams(n=2, temperature=1.0, max_tokens=16, seed=3))
+    check(all(len(o.token_ids) == 16 and np.isfinite(o.token_logprobs).all()
+              for o in out[0].outputs), "generate after the update")
+    print(f"update x3 (B={B}, {Lp}+{Lc} tokens, remat full, lr {TRAIN_LR}): loss {losses_seen}, "
+          f"grad_norm {gnorms}; max |dW| {moved:.3e}; max |d logits| after {dlog:.3e}; "
+          f"launches {launches}", flush=True)
+
+    # one warm step at the bench_train.py shape
+    del batch, opt_state
+    torch.cuda.empty_cache()
+    Lp, Lc = 3072, 1024
+    batch = _packed_batch(rng, cfg.vocab_size, [Lp] * B, [Lc] * B, dev)
+    update = losses.make_update_fn(cfg, opt, loss_kwargs=dict(
+        LOSS_KW, max_completion_length=Lc, remat="full"))
+    opt_state = opt.init(losses.tree_leaves((params, head)))
+    update(params, head, opt_state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, opt_state, m = update(params, head, opt_state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ntok = int(batch["attn"].sum())
+    check(math.isfinite(float(m["loss"])), "bench-shape loss finite")
+    print(f"update step at bench_train.py's shape (B={B}, {Lp}+{Lc} tokens, remat full, "
+          f"AdamW chain): {dt:.3f} s/step, {ntok / dt:.1f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -241,6 +574,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip(), flush=True)
     kernels = check_kernels(dev, card)
+    kernels.update(check_backward_kernels(dev, card))
 
     cfg = qwen2.Qwen2Config(
         vocab_size=151936, hidden_size=1536, intermediate_size=8960,
@@ -250,6 +584,7 @@ def main() -> int:
     params = qwen2.init_params(cfg, gen)
     head = value_model.init_value_head(cfg.hidden_size, gen)
     check_small_reference(params, cfg, dev)
+    check_gradient_reference(params, head, cfg, dev)
 
     P, n, plen, new = 4, 6, 512, 64
     eng = Engine(params, cfg, IdTok(), max_model_len=plen + 2 * new + 128, max_batch=P * n,
@@ -293,11 +628,11 @@ def main() -> int:
     torch.cuda.synchronize()
     _cuda.reset_launches()
     run = serve()
-    launches = dict(_cuda.LAUNCHES)
+    launches = {"serve": dict(_cuda.LAUNCHES)}
 
     # ---------------- checks on what came out
-    for name, count in launches.items():
-        check(count > 0, f"{name} never launched on the served path")
+    for name in ("flash_attention", "flash_attention_cached", "ragged_decode_attention"):
+        check(launches["serve"][name] > 0, f"{name} never launched on the served path")
     check(run["hits"] == P, f"expected {P} prefix-cache hits, got {run['hits']}")
     for outs in (run["parents"], run["kids"]):
         check(len(outs) == P and all(len(r.outputs) == n for r in outs), "request/sample count")
@@ -324,7 +659,7 @@ def main() -> int:
     e_fused = float(np.linalg.norm(run["pooled"][0] - h_ref[0]) / np.linalg.norm(h_ref[0]))
     print(f"fused value check: engine pooled h0 vs value forward rel err {e_fused:.3e}", flush=True)
     check(e_fused <= REF_RTOL, f"fused value rel err {e_fused}")
-    print(f"launches on the served path: {launches}; first (cold) round "
+    print(f"launches on the served path: {launches['serve']}; first (cold) round "
           f"{run['t_all']:.2f} s [{card}]", flush=True)
 
     # ---------------- timings: a second, warm round on fresh prompts
@@ -340,6 +675,16 @@ def main() -> int:
     print(f"warm root value forward (4 x 512): {warm['t_value'] * 1e3:.1f} ms; whole round "
           f"{warm['t_all']:.2f} s [{card}]", flush=True)
 
+    # ---------------- training: the trainer's entry, then the update, counted
+    with tempfile.TemporaryDirectory() as tmpdir:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        train_through_the_trainer(params, cfg, card, tmpdir)
+        launches["train_step"] = dict(_cuda.LAUNCHES)
+    print(f"launches in train_step: {launches['train_step']}", flush=True)
+    torch.cuda.empty_cache()
+    launches["update"] = update_at_full_width(params, head, cfg, eng, card)
+
     replaces = {
         "flash_attention": ("lapha_tpu_torch/csrc/flash_attention.cu",
                             "lapha_tpu/ops/flash_attention.py:46"),
@@ -347,13 +692,18 @@ def main() -> int:
                                    "lapha_tpu/ops/flash_attention.py:395"),
         "ragged_decode_attention": ("lapha_tpu_torch/csrc/ragged_decode_attention.cu",
                                     "lapha_tpu/ops/ragged_decode_attention.py:68"),
+        "flash_attention_bwd_dq": ("lapha_tpu_torch/csrc/flash_attention_bwd.cu",
+                                   "lapha_tpu/ops/flash_attention.py:108"),
+        "flash_attention_bwd_dkv": ("lapha_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "lapha_tpu/ops/flash_attention.py:165"),
     }
     rows = []
     for name, (src, rep) in replaces.items():
         err, ms, plain_ms = kernels[name]
+        by_path = {path: counts[name] for path, counts in launches.items()}
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": launches[name], "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "launches": sum(by_path.values()), "launches_by_path": by_path,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,17 +4,21 @@
 subpackage layout so each module has an obvious partner; it imports
 ``torch`` and neither ``jax`` nor anything of ``lapha_tpu``. What is ported
 so far is the serving path — value-guided generation, i.e. what one
-expansion of value-mode MCTS costs on the device:
+expansion of value-mode MCTS costs on the device — and the training step
+on top of it (MCTS rollout, hyperbolic shaping, GRPO + value update):
 
 - ``ops.hyperbolic``       — all ten Poincaré-ball functions
 - ``ops.latent``           — pool_mask, masked_mean, latent_project,
                              value_head_apply, potential_v
 - ``ops.flash_attention``  — causal + cached (rectangular) flash forward:
-                             CUDA kernel ``csrc/flash_attention.cu``
+                             CUDA kernel ``csrc/flash_attention.cu``; the
+                             causal one is an autograd Function whose
+                             backward is ``csrc/flash_attention_bwd.cu``
 - ``ops.ragged_decode_attention`` — bf16 ragged decode attention: CUDA
                              kernel ``csrc/ragged_decode_attention.cu``
 - ``models.qwen2``         — the dense Qwen2/Llama decoder: forward with and
-                             without a cache, decode_step
+                             without a cache (training: remat "full"),
+                             decode_step
 - ``models.value_model``   — linear value head + value_forward
 - ``models.loader``        — HF bf16 load, value-head load, params_from_numpy
 - ``engine.adapter``       — SamplingParams / CompletionOutput / RequestOutput
@@ -23,6 +27,16 @@ expansion of value-mode MCTS costs on the device:
 - ``engine.engine``        — Engine.generate: prefill, prefix-hit suffix
                              prefill, n-fan-out, decode, collect_h0
 - ``search.value_fn``      — ValueFunction (bucketed) with from_pooled
+- ``search.mcts``, ``node``, ``tool_parse``, ``support``, ``latent_bank``,
+  ``cluster``              — MCTSAgent and its host-side pieces; clustering
+                             on the port's Poincaré distances
+- ``train.config``         — MTPOConfig
+- ``train.shaping``        — tree rewards, V-map over the port's potential_v
+- ``train.losses``         — packing, chunked log-probs, GRPO + value MSE,
+                             the update step
+- ``train.optim``          — the JAX trainer's optax chain, written out
+- ``train.trainer``        — MTPOTrainer: rollout_batch, train_step, train,
+                             checkpoints
 - ``native``               — the prefix trie: the repo's C++ extension from
                              ``native/`` when built, else pure Python
 

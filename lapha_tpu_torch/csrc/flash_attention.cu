@@ -30,6 +30,7 @@
 namespace {
 
 using lapha::NEG;
+using lapha::mma_bf16_16816;  // fragment layout: common.cuh
 
 constexpr int BQ = 64;          // query rows per CTA (4 warps x 16)
 constexpr int BK = 64;          // keys per tile
@@ -40,20 +41,6 @@ constexpr int KS_QK = DH / 16;  // k-steps of Q·K^T
 constexpr int NT_O = DH / 8;    // n-tiles of the output
 constexpr int KS_PV = BK / 16;  // k-steps of P·V
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layout of mma m16n8k16 (PTX ISA), lane = 4*g + t4:
-//   A (16x16, row-major): reg0 = (row g,   cols 2t4..+1), reg1 = (row g+8, cols 2t4..+1),
-//                         reg2 = (row g,   cols 2t4+8..+9), reg3 = (row g+8, cols 2t4+8..+9)
-//   B (16x8,  "col"):     reg0 = (k 2t4..+1, col g), reg1 = (k 2t4+8..+9, col g)
-//   C (16x8, f32):        c0,c1 = (row g, cols 2t4, 2t4+1), c2,c3 = (row g+8, same cols)
 __global__ void __launch_bounds__(128)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // (B, T, nh, DH)
                  const __nv_bfloat16* __restrict__ k,   // (B, S, nkv, DH)

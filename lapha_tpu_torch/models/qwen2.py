@@ -1,14 +1,15 @@
-"""Dense Qwen2/Llama decoder in PyTorch — the served subset of
+"""Dense Qwen2/Llama decoder in PyTorch — the served and trained subset of
 ``lapha_tpu/models/qwen2.py``.
 
 The model is a set of functions over a parameter dict with the JAX pytree's
 stacked layout and key names (``layers.attn.q_proj.w`` is (L, H, nh·dh),
 weights are (in, out)), so JAX weights convert one to one
 (``loader.params_from_numpy``). The layer loop is a Python loop over static
-per-layer views (``_layer_params``), the eager counterpart of ``lax.scan``.
+per-layer views (``_layer_stack``), the eager counterpart of ``lax.scan``.
 
 Attention goes through the port's kernels: the no-cache forward through
-``flash_attention`` (the value forward), the cache-threaded forward through
+``flash_attention`` (the value forward and the training forward, whose
+backward is the flash backward pair), the cache-threaded forward through
 ``flash_attention_cached`` (every engine prefill) and ``decode_step``
 through ``ragged_decode_attention``. On the CPU those are their plain
 PyTorch versions.
@@ -19,9 +20,15 @@ model keeps the MLP's gate/up products in f32 before the activation; here
 they are rounded to the working dtype first, which only matters in bf16.
 The LM head is computed in f32, as in JAX.
 
+Training: ``forward(..., remat=True | "full")`` recomputes each layer in
+the backward (``torch.utils.checkpoint``, saving nothing inside the layer),
+the JAX model's ``remat_policy``; gradients reach the stacked parameters
+through one ``unbind`` per leaf (``_layer_stack``).
+
 Not ported yet: sliding windows, softcaps, sinks, q/k norms, MoE, the other
-norm/MLP styles, quantized weights, int8 KV, windowed decode caches and
-``decode_step_multi``.
+norm/MLP styles, quantized weights, int8 KV, windowed decode caches,
+``decode_step_multi`` and the named remat policies (``save_qkv``,
+``save_attn``, ``save_qkv_attn``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention, flash_attention_cached
 from ..ops.ragged_decode_attention import ragged_decode_attention, ragged_decode_plain
@@ -250,15 +258,37 @@ def _dispatch_attend_cached(cfg: Qwen2Config, q, k, v, key_mask, qstart):
     return flash_attention_cached(q, k, v, key_mask, qstart, scale=cfg.attn_scale_)
 
 
-def _layer_params(params: dict, l: int) -> dict:
-    """Per-layer views of the stacked layer dict (zero-copy)."""
+def _layer_stack(params: dict) -> list[dict]:
+    """Per-layer views of the stacked layer dict, one ``unbind`` per leaf:
+    the backward then stacks each leaf's L per-layer gradients once, where
+    L indexing views would each add a full-size (L, ...) buffer."""
 
-    def slice_node(node):
+    def unbind(node):
         if isinstance(node, dict):
-            return {k: slice_node(v) for k, v in node.items()}
-        return node[l]
+            return {k: unbind(v) for k, v in node.items()}
+        return node.unbind(0)
 
-    return slice_node(params["layers"])
+    def pick(node, l):
+        return {k: pick(v, l) for k, v in node.items()} if isinstance(node, dict) else node[l]
+
+    views = unbind(params["layers"])
+    return [pick(views, l) for l in range(len(views["input_layernorm"]["scale"]))]
+
+
+def remat_policy(remat) -> bool:
+    """The JAX model's remat knob: False/None = no recompute; True/"full" =
+    recompute the whole layer in the backward. The named policies keep
+    chosen intermediates, which the port has not ported."""
+    if remat is True or remat == "full":
+        return True
+    if not remat:
+        return False
+    if remat in ("save_qkv", "save_attn", "save_qkv_attn"):
+        raise NotImplementedError(
+            f"remat={remat!r}: the named remat policies are not ported yet "
+            "(ROADMAP A7); use 'full'")
+    raise ValueError(f"unknown remat policy {remat!r} (expected True, 'full', "
+                     "'save_qkv', 'save_attn', 'save_qkv_attn')")
 
 
 def _layer_body(cfg: Qwen2Config, p: dict, x, cos, sin, key_mask,
@@ -302,11 +332,14 @@ def forward(
     kv_valid: torch.Tensor | None = None,
     return_hidden: bool = False,
     compute_logits: bool = True,
+    remat=False,
 ):
     """Full forward pass.
 
     * ``kv_cache=None``: causal attention over input_ids (B,T) with optional
-      padding ``attention_mask`` (B,T).
+      padding ``attention_mask`` (B,T). ``remat`` (True/"full") recomputes
+      each layer in the backward when gradients are being recorded; under
+      it the forward kernel runs twice per layer.
     * ``kv_cache=(k, v)`` of shape (L,B,S,nkv,dh): the T new tokens are
       written at ``cache_pos`` (in place) and attend over cache columns
       where ``kv_valid`` (B,S) holds, causally by slot.
@@ -323,18 +356,20 @@ def forward(
             positions = torch.arange(T, device=dev)[None, :].expand(B, T)
     cos, sin = rope_freqs(positions, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling)
 
-    L = cfg.num_hidden_layers
     if kv_cache is None:
         key_mask = (attention_mask if attention_mask is not None
                     else torch.ones((B, T), dtype=torch.int32, device=dev))
-        for l in range(L):
-            x = _layer_body(cfg, _layer_params(params, l), x, cos, sin, key_mask)
+        recompute = remat_policy(remat) and torch.is_grad_enabled()
+        for p in _layer_stack(params):
+            if recompute:
+                x = checkpoint(_layer_body, cfg, p, x, cos, sin, key_mask, use_reentrant=False)
+            else:
+                x = _layer_body(cfg, p, x, cos, sin, key_mask)
     else:
         ck, cv = kv_cache
         key_mask = cached_key_mask(kv_valid, cache_pos, T, B, ck.shape[2], dev)
-        for l in range(L):
-            x = _layer_body(cfg, _layer_params(params, l), x, cos, sin, key_mask,
-                            ck[l], cv[l], cache_pos)
+        for l, p in enumerate(_layer_stack(params)):
+            x = _layer_body(cfg, p, x, cos, sin, key_mask, ck[l], cv[l], cache_pos)
 
     x = rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps)
     logits = _lm_head(params, cfg, x) if compute_logits else None
@@ -384,14 +419,12 @@ def decode_step(
         raise ValueError("decode_step(ragged=False) is the CPU reference; CUDA "
                          "decode attention runs the ragged kernel")
     attend = ragged_decode_attention if ragged else ragged_decode_plain
-    L = cfg.num_hidden_layers
     nh, nkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     B = tok.shape[0]
     x = _embed(params, cfg, tok)  # (B, H)
     cos, sin = rope_freqs(positions, dh, cfg.rope_theta, cfg.rope_scaling)
     cos, sin = cos[:, None], sin[:, None]  # (B, 1, dh/2): one "time" step
-    for l in range(L):
-        p = _layer_params(params, l)
+    for l, p in enumerate(_layer_stack(params)):
         a = p["attn"]
         h = rms_norm(x, p["input_layernorm"]["scale"], cfg.rms_norm_eps)
         q = apply_rope(_proj(h, a["q_proj"]["w"], a["q_proj"]["b"]).reshape(B, 1, nh, dh), cos, sin)

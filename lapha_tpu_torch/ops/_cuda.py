@@ -1,11 +1,11 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources in ``lapha_tpu_torch/csrc/*.cu`` have a plain C interface. On
-first use they are compiled together by ``nvcc`` for ``sm_90a`` into one
-shared library under ``lapha_tpu_torch/_build/`` (named by a hash of the
-sources and flags, so an edit rebuilds) and loaded with ``ctypes``. Nothing
-here runs at import time: the CPU tests import every module on machines
-that have no ``nvcc``.
+first use each is compiled by its own ``nvcc`` process for ``sm_90a``, all
+started together, and the objects are linked into one shared library under
+``lapha_tpu_torch/_build/`` (named by a hash of the sources and flags, so an
+edit rebuilds), loaded with ``ctypes``. Nothing here runs at import time:
+the CPU tests import every module on machines that have no ``nvcc``.
 
 ``LAUNCHES`` counts, per wrapper, the kernel launches it made; a wrapper adds
 one right after its launch and nowhere else, so a run can show that its main
@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 
 import torch
 
@@ -27,10 +28,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_cached": 0,
-            "ragged_decode_attention": 0}
+            "ragged_decode_attention": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
 
 _lib = None
 build_log = ""  # nvcc's output of the build this process ran (ptxas register/smem report)
@@ -71,15 +73,26 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    build_log = res.stdout + res.stderr
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{os.path.basename(s)}.o") for s in srcs]
+        build_log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs)])
+        build_log += _run([[nvcc, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]])
+        os.replace(os.path.join(tmp, "lib.so"), so)
     return so
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands together; their joined output, or raise with it
+    once all have ended if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed with code {p.returncode}:\n{' '.join(c)}\n{out}"
+              for c, p, out in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
 
 
 def lib() -> ctypes.CDLL:
@@ -93,6 +106,11 @@ def lib() -> ctypes.CDLL:
         dll.lapha_ragged_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                                             _I, _I, _I, _I, _I, _F, _P]
         dll.lapha_ragged_decode.restype = _I
+        bwd = [_P, _P, _P, _P, _P, _P, _P, _P]  # q k v dout lse delta kv_valid qstart
+        dll.lapha_flash_bwd_dq.argtypes = bwd + [_P, _I, _I, _I, _I, _I, _I, _F, _P]
+        dll.lapha_flash_bwd_dq.restype = _I
+        dll.lapha_flash_bwd_dkv.argtypes = bwd + [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+        dll.lapha_flash_bwd_dkv.restype = _I
         dll.lapha_error_string.argtypes = [_I]
         dll.lapha_error_string.restype = ctypes.c_char_p
         _lib = dll

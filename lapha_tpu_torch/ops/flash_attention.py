@@ -1,15 +1,23 @@
-"""Causal GQA flash attention (forward) — Hopper kernel + plain version.
+"""Causal GQA flash attention, forward and backward — Hopper kernels + plain versions.
 
-Port of the forward half of ``lapha_tpu/ops/flash_attention.py``:
-``flash_attention`` (the no-cache causal forward, Pallas ``_flash_kernel``)
-and ``flash_attention_cached`` (the rectangular cache-threaded prefill,
-Pallas ``_flash_cached_kernel``). Both run one CUDA kernel,
-``csrc/flash_attention.cu``: the no-cache forward is the cached one with
-S = T, qstart = 0 and kv_valid = the key-padding mask.
+Port of ``lapha_tpu/ops/flash_attention.py``: ``flash_attention`` (the
+no-cache causal forward, Pallas ``_flash_kernel``, differentiable through
+the backward pair ``_dq_kernel``/``_dkv_kernel``) and
+``flash_attention_cached`` (the rectangular cache-threaded prefill, Pallas
+``_flash_cached_kernel``, forward only as in JAX). Both forwards run one
+CUDA kernel, ``csrc/flash_attention.cu``: the no-cache forward is the cached
+one with S = T, qstart = 0 and kv_valid = the key-padding mask. The backward
+runs two, ``csrc/flash_attention_bwd.cu`` (dq; dk/dv summed over the GQA
+group), from the forward's saved LSE.
+
+``flash_attention`` is a ``torch.autograd.Function``: its forward saves
+(q, k, v, mask, out, lse) and its backward runs the kernels, so a loss taken
+through the model on the card reaches q, k and v of every layer.
 
 Dispatch goes by the tensors' device: a CPU tensor takes the plain PyTorch
-version below (dense masked attention written from the JAX semantics), a
-CUDA tensor launches the kernel or raises. There is no fallback between them.
+version below (dense masked attention written from the JAX semantics, and
+the FlashAttention-2 backward formulas from the saved LSE), a CUDA tensor
+launches the kernel or raises. There is no fallback between them.
 
 Semantics: query t of row b sits at absolute position qstart[b] + t and sees
 key j iff kv_valid[b, j] and j <= qstart[b] + t. A row that sees no key
@@ -17,9 +25,8 @@ gives 0 and LSE -1e30 here, never NaN. The JAX versions give a finite
 average of V there (their masked probabilities are exp(0) = 1); such rows
 are padding that nothing reads.
 
-Not on the served path yet: sliding windows, logit softcap, attention sinks,
-a V narrower than Q/K on the card, and the backward (Pallas
-``_dq_kernel``/``_dkv_kernel``).
+Not ported yet: sliding windows, logit softcap, attention sinks and a V
+narrower than Q/K on the card.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from . import _cuda
 
 NEG_INF = -1e30
 
-__all__ = ["flash_attention", "flash_attention_cached", "attention_plain"]
+__all__ = ["flash_attention", "flash_attention_cached", "attention_plain",
+           "attention_bwd_plain"]
 
 
 def attention_plain(q, k, v, kv_valid, qstart, scale):
@@ -89,27 +97,174 @@ def _forward(q, k, v, kv_valid, qstart, scale, name):
     raise ValueError(f"{name}: no kernel for device {q.device}")
 
 
+def _visible(q, kv_valid, qstart, S):
+    """(B, T, S) bool: query t of row b sees key j."""
+    T = q.shape[1]
+    qpos = qstart.reshape(-1, 1).long() + torch.arange(T, device=q.device)[None, :]
+    kpos = torch.arange(S, device=q.device)
+    return (kv_valid[:, None, :] > 0) & (kpos[None, None, :] <= qpos[:, :, None])
+
+
+def _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale):
+    """P and dS (B, nkv, group, T, S) in f32, recomputed from the LSE as the
+    kernels do. Rows whose LSE is the -1e30 sentinel saw no key: P = 0."""
+    B, T, nh, dh = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    group = nh // nkv
+    s = torch.einsum("btkgd,bskd->bkgts", q.float().reshape(B, T, nkv, group, dh),
+                     k.float()) * scale
+    lse_g = lse.float().reshape(B, nkv, group, T, 1)
+    ok = _visible(q, kv_valid, qstart, S)[:, None, None] & (lse_g > 0.5 * NEG_INF)
+    p = torch.where(ok, torch.exp(s - lse_g), 0.0)
+    dp = torch.einsum("btkgd,bskd->bkgts", do.float().reshape(B, T, nkv, group, -1),
+                      v.float())
+    d = delta.reshape(B, T, nkv, group).permute(0, 2, 3, 1)[..., None]
+    return p, p * (dp - d)
+
+
+def _dq_from(ds, q, k, scale):
+    B, T, nh, dh = q.shape
+    dq = torch.einsum("bkgts,bskd->btkgd", ds, k.float()) * scale
+    return dq.reshape(B, T, nh, dh).to(q.dtype)
+
+
+def _dkv_from(p, ds, q, k, v, do, scale):
+    B, T, nh, dh = q.shape
+    nkv = k.shape[2]
+    dk = torch.einsum("bkgts,btkgd->bskd", ds, q.float().reshape(B, T, nkv, nh // nkv, dh))
+    dv = torch.einsum("bkgts,btkgd->bskd", p, do.float().reshape(B, T, nkv, nh // nkv, -1))
+    return (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_dq_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale):
+    """dQ = scale·dS·K (B,T,nh,dh) in q.dtype: the plain version of the dq kernel."""
+    _, ds = _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale)
+    return _dq_from(ds, q, k, scale)
+
+
+def attention_bwd_dkv_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale):
+    """(dK = scale·dSᵀ·Q, dV = Pᵀ·dO), each summed over the GQA group, in
+    k.dtype/v.dtype: the plain version of the dk/dv kernel."""
+    p, ds = _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale)
+    return _dkv_from(p, ds, q, k, v, do, scale)
+
+
+def attention_bwd_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale):
+    """FlashAttention-2 backward from the saved LSE, float32 inside; mirrors
+    the Pallas ``_dq_kernel``/``_dkv_kernel``. ``delta`` = rowsum(dO∘O)
+    (B,T,nh) f32. Returns (dq, dk, dv) in the inputs' dtypes."""
+    p, ds = _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale)
+    return (_dq_from(ds, q, k, scale), *_dkv_from(p, ds, q, k, v, do, scale))
+
+
+def _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta):
+    """Checks and converts the kernels' arguments; (kv_valid, qstart, lse,
+    delta (B,nh,T)) as the kernels take them."""
+    B, T, nh, dh = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    dev = q.device
+    _cuda.require_cuda_bf16(name, dev, q=q, k=k, v=v, do=do)
+    _cuda.require(dh == 128, name, f"head dim {dh} (the kernel takes 128)")
+    _cuda.require(tuple(v.shape) == tuple(k.shape) and tuple(do.shape) == tuple(q.shape),
+                  name, "v must have k's shape and dout q's")
+    _cuda.require(k.dim() == 4 and k.shape[0] == B and k.shape[3] == dh and nh % nkv == 0,
+                  name, f"shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    for key, t, shape in (("lse", lse, (B, nh, T)), ("delta", delta, (B, T, nh))):
+        _cuda.require(t.device == dev and t.dtype == torch.float32
+                      and tuple(t.shape) == shape, name,
+                      f"{key} must be f32 {shape} on {dev}")
+    return (_cuda.int32_on(kv_valid, dev, (B, S)), _cuda.int32_on(qstart, dev, (B,)),
+            lse.contiguous(), delta.transpose(1, 2).contiguous())
+
+
+def attention_bwd_dq_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale):
+    """The dq kernel (csrc/flash_attention_bwd.cu); arguments as the plain version's."""
+    name = "flash_attention_bwd_dq"
+    B, T, nh, dh = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    kv_valid, qstart, lse, delta_t = _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta)
+    dq = torch.empty_like(q)
+    err = _cuda.lib().lapha_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta_t.data_ptr(), kv_valid.data_ptr(), qstart.data_ptr(), dq.data_ptr(),
+        B, T, S, nh, nkv, dh, float(scale), _cuda.stream_of(q))
+    _cuda.check_launch(err, name)
+    _cuda.LAUNCHES[name] += 1
+    return dq
+
+
+def attention_bwd_dkv_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale):
+    """The dk/dv kernel (csrc/flash_attention_bwd.cu); arguments as the plain version's."""
+    name = "flash_attention_bwd_dkv"
+    B, T, nh, dh = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    kv_valid, qstart, lse, delta_t = _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _cuda.lib().lapha_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta_t.data_ptr(), kv_valid.data_ptr(), qstart.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, T, S, nh, nkv, dh, float(scale), _cuda.stream_of(q))
+    _cuda.check_launch(err, name)
+    _cuda.LAUNCHES[name] += 1
+    return dk, dv
+
+
+def _backward(q, k, v, kv_valid, qstart, out, lse, do, scale):
+    """(dq, dk, dv): the kernels for CUDA tensors, the plain version for CPU
+    ones. D = rowsum(dO∘O) in f32 is a torch op on both, as JAX computes
+    it outside Pallas."""
+    do = do.contiguous()  # autograd may hand over a strided view
+    delta = (do.float() * out.float()).sum(-1)  # (B, T, nh)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale)
+    if q.device.type == "cuda":
+        args = (q, k, v, kv_valid, qstart, lse, do, delta, scale)
+        dq = attention_bwd_dq_cuda(*args)
+        dk, dv = attention_bwd_dkv_cuda(*args)
+        return dq, dk, dv
+    raise ValueError(f"flash_attention backward: no kernel for device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The no-cache forward with its backward pair (JAX ``_flash_attention_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, qstart, scale):
+        out, lse = _forward(q, k, v, kv_valid, qstart, scale, "flash_attention")
+        ctx.save_for_backward(q, k, v, kv_valid, qstart, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, kv_valid, qstart, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, kv_valid, qstart, out, lse, dout, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def _not_ported(name, window, softcap, sinks):
     if window or softcap or sinks is not None:
         raise NotImplementedError(f"{name}: window/softcap/sinks are not ported yet")
 
 
 def flash_attention_lse(q, k, v, mask=None, *, causal=True, scale=None):
-    """Returns (out (B,T,nh,dh), lse (B,nh,T) f32); see :func:`flash_attention`."""
+    """Returns (out (B,T,nh,dh), lse (B,nh,T) f32); see :func:`flash_attention`.
+    Differentiable in q, k and v (lse is not)."""
     B, T = q.shape[0], q.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if mask is None:
         mask = torch.ones((B, T), dtype=torch.int32, device=q.device)
     # non-causal: a query offset at T puts every key behind the frontier
     qstart = torch.full((B,), 0 if causal else T, dtype=torch.int32, device=q.device)
-    return _forward(q, k, v, mask, qstart, scale, "flash_attention")
+    return _FlashAttention.apply(q, k, v, mask, qstart, scale)
 
 
 def flash_attention(q, k, v, mask=None, *, causal=True, scale=None, window=0,
                     softcap=0.0, sinks=None):
-    """Causal GQA attention. q (B,T,nh,dh); k, v (B,T,nkv,dh); mask (B,T)
-    key validity. ``scale`` overrides 1/sqrt(dh). Returns (B,T,nh,dh) in
-    q.dtype."""
+    """Causal GQA attention, differentiable in q, k and v. q (B,T,nh,dh);
+    k, v (B,T,nkv,dh); mask (B,T) key validity. ``scale`` overrides
+    1/sqrt(dh). Returns (B,T,nh,dh) in q.dtype."""
     _not_ported("flash_attention", window, softcap, sinks)
     return flash_attention_lse(q, k, v, mask, causal=causal, scale=scale)[0]
 

@@ -10,6 +10,13 @@ gets the same bf16 inputs, computes in f32 and is compared in f32. Outputs
 are weighted averages of N(0,1) values (|v| <= ~5); the kernel rounds P to
 bf16 before P·V and the result to bf16, each at most 2^-9 of max|v|:
 max |diff| <= 3e-2, LSE to 1e-3.
+
+The backward kernels (dq; dk/dv) are held against the plain backward on the
+same bf16 inputs and the same saved LSE. They round P and dS to bf16 before
+each product and write bf16, each at most 2^-9 relative, so the tolerance
+is relative to the largest gradient entry, with a floor for gradients that
+are pure cancellation (T=1: dS = P·(dP - D) is 0 up to rounding):
+max |diff| <= 1e-2 · max |plain| + 1e-3.
 """
 
 import numpy as np
@@ -21,6 +28,7 @@ from lapha_tpu_torch.ops import flash_attention as fa
 from lapha_tpu_torch.ops import ragged_decode_attention as rda
 
 ATOL = 3e-2
+BWD_RTOL = 1e-2
 
 
 @pytest.fixture
@@ -164,3 +172,95 @@ def test_ragged_kernel_groups_and_edges(dev, nh, nkv):
     ref = rda.ragged_decode_plain(q, kc, vc, 1, lens, dstart, S - 1, pstart).float()
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= ATOL
+
+
+def _bwd_pair(q, k, v, mask, qstart, do):
+    """Kernel and plain (dq, dk, dv) from the kernel forward's out and LSE."""
+    B = q.shape[0]
+    qs = torch.as_tensor(qstart, device=q.device).reshape(-1).expand(B).to(torch.int32)
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention")
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, mask, qs, lse, do, delta, scale)
+    before = dict(_cuda.LAUNCHES)
+    dq = fa.attention_bwd_dq_cuda(*args)
+    dk, dv = fa.attention_bwd_dkv_cuda(*args)
+    ref = fa.attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    assert _cuda.LAUNCHES["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    return (dq, dk, dv), ref
+
+
+def _assert_bwd_close(got, ref):
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), name
+        err = (a - b).abs().max().item()
+        assert err <= BWD_RTOL * b.abs().max().item() + 1e-3, (name, err, b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,nkv", [(8, 8), (12, 2), (16, 2)])
+@pytest.mark.parametrize("T", [1, 63, 128, 1000])
+def test_flash_bwd_kernels_match_plain(dev, nh, nkv, T):
+    """GQA groups 1, 6 and 8; T=1, a ragged last tile, one exact block, and
+    T=1000 (not a multiple of any tile); a right-padded row and a hole."""
+    rng = np.random.default_rng(nh * 7 + T)
+    B, dh = 2, 128
+    q, do = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dh), dev)
+    k, v = _bf16(rng, (B, T, nkv, dh), dev), _bf16(rng, (B, T, nkv, dh), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, (3 * T) // 4 + 1:] = 0
+    mask[0, T // 3:T // 3 + T // 10] = 0
+    got, ref = _bwd_pair(q, k, v, mask, 0, do)
+    _assert_bwd_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_left_padding_and_noncausal(dev):
+    """Left padding leaves query rows that see no key (LSE -1e30: they
+    contribute nothing); a non-causal call (qstart = T) sees every valid key."""
+    rng = np.random.default_rng(5)
+    B, T, nh, nkv, dh = 3, 200, 12, 2, 128
+    q, do = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dh), dev)
+    k, v = _bf16(rng, (B, T, nkv, dh), dev), _bf16(rng, (B, T, nkv, dh), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, :70] = 0
+    mask[2, 150:] = 0
+    got, ref = _bwd_pair(q, k, v, mask, 0, do)
+    _assert_bwd_close(got, ref)
+    assert (got[0][1, :70] == 0).all() and (got[1][1, :70] == 0).all()
+    got, ref = _bwd_pair(q, k, v, mask, T, do)
+    _assert_bwd_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_bf16_loss_through_the_model_reaches_attention(dev):
+    """A bf16 loss through qwen2.forward on the card: the backward runs the
+    K2 kernels and every layer's q/k/v projections get a non-zero gradient."""
+    from lapha_tpu_torch.models import qwen2
+
+    cfg = qwen2.Qwen2Config(vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                            num_hidden_layers=2, num_attention_heads=4,
+                            num_key_value_heads=2, rope_theta=1e6, dtype=torch.bfloat16)
+    params = qwen2.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    attn = params["layers"]["attn"]
+    leaves = [attn[n]["w"] for n in ("q_proj", "k_proj", "v_proj")]
+    for t in leaves:
+        t.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 300))).to(dev)
+    mask = torch.ones((2, 300), dtype=torch.int32, device=dev)
+    mask[1, 250:] = 0
+    before = dict(_cuda.LAUNCHES)
+    logits, _, _ = qwen2.forward(params, cfg, ids, attention_mask=mask)
+    loss = torch.log_softmax(logits, -1)[..., 0].mean()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert _cuda.LAUNCHES[name] == before[name] + cfg.num_hidden_layers
+    for g in grads:
+        assert torch.isfinite(g.float()).all()
+        for layer in range(cfg.num_hidden_layers):
+            assert g[layer].float().abs().max().item() > 0
