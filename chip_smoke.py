@@ -14,10 +14,25 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    the same bf16 inputs and saved LSE, at B=4 T=1024 (ragged masks) and B=2
    T=1000 (padded tails), 12/2 heads: max |diff| <= 1e-2 * max |plain| +
    1e-3 for each of dq, dk, dv; timed in turns against the plain version.
+1c. The quantized-serving kernels against their plain versions at the
+   path's shapes, timed in turns: the int8-cache ragged decode (K5) at B=48,
+   S=768, prompts of 512, 12/2 heads, caches from ``_quantize_kv`` of random
+   bf16 (|diff| <= 5e-3 + 2^-7 |plain| per element), and two faults planted
+   through its inputs (the V scales of the next slot; a dropped prompt slot)
+   must break that check; the int4 dequant-matmul (K6) at 48 rows for each
+   projection of the model (1536->1536, 1536->256, 1536->8960, 8960->1536)
+   and at 512 rows (max |diff| <= 1e-3 * max |plain|: the same exact bf16 x
+   nibble products, f32 sums in another order), timed beside
+   ``torch._weight_int4pack_mm`` on the same weights.
 2. Check the kernel path against the plain path on a small input: two
    layers of the full-width model, prefill + one decode step, on the card
    (kernels, bf16) and on the CPU (plain versions, f32); relative error of
    the logits <= 5e-2.
+2c. The same two layers with int4 projections, int8 embed/head and an int8
+   KV cache (``quantize_params(bits=4)``, ``decode_step(cache_scale=)``),
+   card (kernels, bf16) against CPU (plain versions, f32), relative error of
+   the logits <= 5e-2; then the same with int8 weights (the dequantized
+   matmul, no weight kernel).
 2b. The same two layers: gradients of the GRPO + value loss
    (``losses.loss_and_metrics``) on the card (bf16, kernels) against the
    CPU (f32, plain) on one packed batch; relative error per parameter leaf
@@ -36,6 +51,22 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    no-cache kernel), relative error <= 5e-2.
 5. Time a second, warm round on fresh prompts (host clock; the engine
    synchronises the device at each phase boundary).
+8. Quantized serving at bench.py's shape: the phase-3 weights quantized on
+   the card (``quantize_params(bits=4)``: int4 projections, int8 embed/head)
+   and ``Engine(kv_quant="int8")``; a round is 8 parents x 512 tokens with
+   n=6 and 256 new tokens (48 decode rows, S=768), 4 prefix-hit children,
+   the root value forward and ``from_pooled`` + V. Launch counts are zeroed
+   before the first round and read after it: the int4 kernel and the int8
+   decode kernel ran, the bf16 decode kernel did not. Phase 4's checks
+   follow, the fused-h0 check with a tolerance for the int8 cache. A warm
+   round is timed; then the same two rounds with bf16 weights + int8 KV
+   (bench.py's default configuration).
+9. Where one decode step's time goes at bench.py's shape (48 rows, prompts
+   of 512, S=768), for bf16 weights with a bf16 cache, bf16 weights with an
+   int8 cache and int4 weights with an int8 cache: host-clock time per step
+   (device synchronised after each), device time per step (``torch.profiler``,
+   the CUDA kernels' own time summed), launches per step and the largest
+   kernels.
 6. Training through the normal entry at full width: ``MTPOTrainer`` on the
    28-layer random bf16 model (gradient checkpointing, beta 1e-8 as
    configs/lapha.yaml), PoorAgent's templates and a token-id chat tokenizer
@@ -51,9 +82,13 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    warm step is timed at scripts/bench_train.py's shape (B=8, prompt 3072 +
    completion 1024).
 
-Launch counts are read per path (serve: phase 3; train_step: phase 6;
-update: phase 7). Prints the card's name and power limit, each timing
-beside them, one JSON line of per-kernel results, and finally
+Launch counts are read per path (serve: phase 3; serve_quantized: phase 8;
+train_step: phase 6; update: phase 7). Prints the card's name and power
+limit, each timing beside them, one JSON line of per-kernel results (each
+row with its time, the plain version's, the time of one PyTorch call that
+computes the same function where there is one, and its bound: the larger
+of the bytes it must move at 3.35 TB/s and its operations at 989 TFLOP/s,
+for the timed shape), and finally
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -77,6 +112,19 @@ REF_RTOL = 5e-2      # bf16 through two layers (or 28, for pooled h0) vs f32
 # covers gradients that are pure cancellation
 BWD_RTOL, BWD_ATOL = 1e-2, 1e-3
 TRAIN_LR = 1e-3      # phase 7: large enough that Adam's ~lr steps move bf16 weights
+# int4 kernel vs plain: exact bf16 x nibble products, f32 sums in another order
+INT4_RTOL = 1e-3
+# K5 vs plain: both round the output to bf16 (at most one ulp apart, <=
+# 2^-7 |out|) and the kernel rounds P to bf16 (<= 2^-9 of the p-weighted
+# |v|); the floor is 10x the 4.9e-4 read at the served shape on an H100
+Q8_ATOL = 5e-3
+# phase 8's fused-h0 check: the pooled h0 of decode over an int8 KV cache
+# (each K/V vector rounded to amax/254) against a value forward that never
+# quantizes K/V; ~14x the 1.4e-3 read on an H100
+FUSED_Q8_RTOL = 2e-2
+# the bound's peaks: H100 SXM device memory and dense bf16 tensor cores
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
 SEED = 0
 
 
@@ -107,11 +155,50 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _ab_ms(kernel_fn, plain_fn) -> tuple[float, float]:
-    """Kernel and plain times, measured in turns (kernel, plain, plain,
-    kernel) and averaged, so drift in clocks hits both alike."""
-    k1, p1, p2, k2 = (_time_ms(f) for f in (kernel_fn, plain_fn, plain_fn, kernel_fn))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def _ab_ms(kernel_fn, plain_fn, library_fn=None) -> tuple[float, float, float | None]:
+    """Kernel, plain and library times, measured in turns (kernel, plain,
+    library, library, plain, kernel) and averaged, so drift in clocks hits
+    all alike. The library time is None without a library call."""
+    k1, p1 = _time_ms(kernel_fn), _time_ms(plain_fn)
+    lib = None
+    if library_fn is not None:
+        lib = (_time_ms(library_fn) + _time_ms(library_fn)) / 2
+    p2, k2 = _time_ms(plain_fn), _time_ms(kernel_fn)
+    return (k1 + k2) / 2, (p1 + p2) / 2, lib
+
+
+def _row(err, ms, plain_ms, library_ms, nbytes, flops) -> dict:
+    """A kernel's results at its timed shape, with its bound: the larger of
+    the bytes it must move over the memory rate and its operations over the
+    bf16 tensor-core rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _sdpa(q, k, v, allowed, scale):
+    """One PyTorch call computing the same attention: q (B,T,nh,dh), k/v
+    (B,S,nkv,dh) in the kernels' layout, allowed (B,T,S) bool."""
+    import torch.nn.functional as F
+
+    qt, kt, vt, m = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), allowed[:, None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, scale=scale,
+                                                  enable_gqa=True)
+
+
+def _allowed(kv_valid, qstart, T: int):
+    """(B, T, S) bool: key j is seen by query t of row b."""
+    import torch
+
+    S = kv_valid.shape[1]
+    ar = torch.arange(S, device=kv_valid.device)
+    frontier = qstart.reshape(-1, 1, 1) + torch.arange(T, device=kv_valid.device)[None, :, None]
+    return (kv_valid[:, None, :] > 0) & (ar[None, None, :] <= frontier)
 
 
 def _rel(a, b) -> float:
@@ -147,17 +234,24 @@ def check_kernels(dev, card):
         seen = ref_lse > -1e29
         check(err <= KERNEL_ATOL, f"{name} B={B} T={T} S={S} max|diff| {err}")
         check(float((lse[seen] - ref_lse[seen]).abs().max()) <= 1e-3, f"{name} LSE")
-        ms, plain_ms = _ab_ms(lambda: fa._attention_cuda(q, k, v, kv_valid, qs, scale, name),
-                              lambda: fa.attention_plain(q, k, v, kv_valid, qs, scale))
+        allowed = _allowed(kv_valid, qs, T)
+        ms, plain_ms, lib_ms = _ab_ms(
+            lambda: fa._attention_cuda(q, k, v, kv_valid, qs, scale, name),
+            lambda: fa.attention_plain(q, k, v, kv_valid, qs, scale),
+            _sdpa(q, k, v, allowed, scale))
         print(f"kernel {name} B={B} T={T} S={S} qstart={qstart}: max|diff| {err:.3e}, "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]", flush=True)
-        return err, ms, plain_ms
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms [{card}]", flush=True)
+        # reads q, k, v, the mask and qstart; writes out and the LSE
+        nbytes = _nbytes(q, k, v, kv_valid, qs, out, lse)
+        return _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh * nh * int(allowed.sum()))
 
     results = {}
     # K3: fresh prefill of 4 ragged prompts; suffix prefill on a prefix hit
-    e1, ms1, pms1 = flash_case("flash_attention_cached", 4, 512, 640, 0, (512, 300, 450, 77))
-    e2, ms2, pms2 = flash_case("flash_attention_cached", 4, 128, 768, 512, (576, 576, 560, 576))
-    results["flash_attention_cached"] = (max(e1, e2), ms1, pms1)
+    results["flash_attention_cached"] = flash_case("flash_attention_cached", 4, 512, 640, 0,
+                                                   (512, 300, 450, 77))
+    e2 = flash_case("flash_attention_cached", 4, 128, 768, 512, (576, 576, 560, 576))["max_abs_err"]
+    results["flash_attention_cached"]["max_abs_err"] = max(
+        results["flash_attention_cached"]["max_abs_err"], e2)
     # K1: value forward of 4 rows of 512 with padded rows (S = T, qstart = 0)
     results["flash_attention"] = flash_case("flash_attention", 4, 512, 512, 0, (512, 400, 512, 130))
 
@@ -174,11 +268,142 @@ def check_kernels(dev, card):
         torch.cuda.synchronize()
         err = max(err, float((out.float() - ref.float()).abs().max()))
     check(err <= KERNEL_ATOL, f"ragged_decode_attention max|diff| {err}")
-    ms, plain_ms = _ab_ms(lambda: rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, 580),
-                          lambda: rda.ragged_decode_plain(q, kc, vc, 1, lens, dstart, 580))
+    valid = _decode_valid(lens, dstart, 580, S)
+    ms, plain_ms, lib_ms = _ab_ms(
+        lambda: rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, 580),
+        lambda: rda.ragged_decode_plain(q, kc, vc, 1, lens, dstart, 580),
+        _sdpa(q[:, None], kc[1].transpose(1, 2), vc[1].transpose(1, 2), valid[:, None, :],
+              dh ** -0.5))
     print(f"kernel ragged_decode_attention B={B} S={S} slot=580: max|diff| {err:.3e}, "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms [{card}]", flush=True)
+    n_valid = int(valid.sum())  # the valid slots of one layer, summed over rows
+    # K and V of the valid slots for each KV head; q, the lengths and out
+    nbytes = 2 * n_valid * nkv * dh * 2 + 2 * _nbytes(q) + _nbytes(lens, dstart)
+    results["ragged_decode_attention"] = _row(err, ms, plain_ms, lib_ms, nbytes,
+                                              4 * dh * nh * n_valid)
+    return results
+
+
+def _q8_excess(out, ref) -> float:
+    """How far K5's output exceeds its tolerance (> 0: the check fails)."""
+    d = (out.float() - ref.float()).abs() - 2.0 ** -7 * ref.float().abs()
+    return float(d.max()) - Q8_ATOL
+
+
+def _int4_library(x, leaf, group: int):
+    """One PyTorch call computing K6's product: ``torch._weight_int4pack_mm``
+    (tinygemm, bf16 x, w = (u - 8) * scale + zero per group) on the same
+    nibbles, converted once outside the timed call, zeros 0. Its scales are
+    rounded to bf16 and its output is bf16."""
+    import torch
+
+    from lapha_tpu_torch.models.quant import _unpack_int4
+
+    u = (_unpack_int4(leaf["q"]).to(torch.int32) + 8).T.contiguous()  # (OUT, IN) in [1, 15]
+    w = torch._convert_weight_to_int4pack(((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), 8)
+    s = leaf["s4"].to(torch.bfloat16)
+    sz = torch.stack([s, torch.zeros_like(s)], dim=-1).contiguous()  # (IN/G, OUT, 2)
+    xb = x.to(torch.bfloat16)
+    return lambda: torch._weight_int4pack_mm(xb, w, group, sz)
+
+
+def _decode_valid(lens, dstart, slot: int, S: int):
+    """(B, S) bool: the slots a decode row attends, [0, lens) ∪ [dstart, slot]."""
+    import torch
+
+    ar = torch.arange(S, device=lens.device)[None, :]
+    return (ar < lens[:, None]) | ((ar >= dstart[:, None]) & (ar <= slot))
+
+
+def check_quant_kernels(dev, card):
+    """Phase 1c: K5 (int8-cache ragged decode) and K6 (int4 dequant-matmul)
+    vs their plain versions at the quantized serving path's shapes."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.models import quant
+    from lapha_tpu_torch.models.qwen2 import _quantize_kv
+    from lapha_tpu_torch.ops import int4_matmul as i4
+    from lapha_tpu_torch.ops import ragged_decode_attention as rda
+
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    nh, nkv, dh = 12, 2, 128
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    results = {}
+    # K5: 48 decode rows over S=768, prompts of 512, decode columns 512..slot
+    L, B, S, slot = 2, 48, 768, 700
+    q = bf16(B, nh, dh)
+    kq, ks = _quantize_kv(bf16(L, B, nkv, S, dh))
+    vq, vs = _quantize_kv(bf16(L, B, nkv, S, dh))
+    lens = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    dstart = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    lens[:6] = torch.from_numpy(rng.integers(64, 512, 6).astype(np.int32)).to(dev)
+    err = 0.0
+    for layer, sl in ((0, 512), (1, slot)):
+        out = rda.ragged_decode_attention(q, kq, vq, layer, lens, dstart, sl, cache_scale=(ks, vs))
+        ref = rda.ragged_decode_plain(q, kq, vq, layer, lens, dstart, sl, cache_scale=(ks, vs))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out.float()).all()), "ragged_decode_attention_q8 finite")
+        check(_q8_excess(out, ref) <= 0, f"ragged_decode_attention_q8 slot {sl}")
+        err = max(err, float((out.float() - ref.float()).abs().max()))
+    # the check sees the faults it is there for: each, planted through the
+    # kernel's inputs, must fail it
+    ref = rda.ragged_decode_plain(q, kq, vq, 1, lens, dstart, slot, cache_scale=(ks, vs))
+    planted = {
+        "V scales of the next slot": rda.ragged_decode_attention(
+            q, kq, vq, 1, lens, dstart, slot, cache_scale=(ks, vs.roll(-1, dims=-1))),
+        "the last prompt slot dropped": rda.ragged_decode_attention(
+            q, kq, vq, 1, lens - 1, dstart, slot, cache_scale=(ks, vs)),
+    }
+    for what, bad in planted.items():
+        excess = _q8_excess(bad, ref)
+        check(excess > 0, f"ragged_decode_attention_q8 check missed a planted fault: {what}")
+        print(f"planted K5 fault ({what}): max|diff| "
+              f"{float((bad.float() - ref.float()).abs().max()):.3e}, caught", flush=True)
+    ms, plain_ms, _ = _ab_ms(
+        lambda: rda.ragged_decode_attention(q, kq, vq, 1, lens, dstart, slot, cache_scale=(ks, vs)),
+        lambda: rda.ragged_decode_plain(q, kq, vq, 1, lens, dstart, slot, cache_scale=(ks, vs)))
+    print(f"kernel ragged_decode_attention_q8 B={B} S={S} slot={slot}: max|diff| {err:.3e}, "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]", flush=True)
-    results["ragged_decode_attention"] = (err, ms, plain_ms)
+    n_valid = int(_decode_valid(lens, dstart, slot, S).sum())
+    # int8 K and V of the valid slots plus their two f32 scales, per KV head;
+    # q, the lengths and out
+    nbytes = n_valid * nkv * (2 * dh + 8) + 2 * _nbytes(q) + _nbytes(lens, dstart)
+    results["ragged_decode_attention_q8"] = _row(err, ms, plain_ms, None, nbytes,
+                                                 4 * dh * nh * n_valid)
+
+    # K6: every projection of the model at 48 decode rows, and 512 rows
+    for B, IN, OUT in ((48, 1536, 1536), (48, 1536, 256), (48, 1536, 8960), (48, 8960, 1536),
+                       (512, 1536, 8960)):
+        x = bf16(B, IN)
+        leaf = quant.quantize_weight_int4(torch.randn((IN, OUT), generator=gen, device=dev), 128)
+        out = i4.int4_matmul(x, leaf["q"], leaf["s4"])
+        ref = i4.int4_matmul_plain(x, leaf["q"], leaf["s4"])
+        lib = _int4_library(x, leaf, 128)
+        lib_out = lib()
+        torch.cuda.synchronize()
+        err, top = float((out - ref).abs().max()), float(ref.abs().max())
+        check(bool(torch.isfinite(out).all()) and err <= INT4_RTOL * top,
+              f"int4_matmul {B}x{IN}->{OUT}: max|diff| {err} vs max|plain| {top}")
+        # the library call computes the same product up to its bf16 scales
+        # and bf16 output (2^-9 relative each)
+        lib_err = float((lib_out.float() - ref).abs().max())
+        check(lib_err <= 1e-2 * top, f"_weight_int4pack_mm {B}x{IN}->{OUT}: max|diff| {lib_err}")
+        ms, plain_ms, lib_ms = _ab_ms(lambda: i4.int4_matmul(x, leaf["q"], leaf["s4"]),
+                                      lambda: i4.int4_matmul_plain(x, leaf["q"], leaf["s4"]), lib)
+        # packed bytes, scales, x once; out once
+        nbytes = _nbytes(leaf["q"], leaf["s4"], x, out)
+        row = _row(err, ms, plain_ms, lib_ms, nbytes, 2 * B * IN * OUT)
+        print(f"kernel int4_matmul {B}x{IN}->{OUT}: max|diff| {err:.3e} (max|plain| {top:.3e}), "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, _weight_int4pack_mm {lib_ms:.4f} ms "
+              f"(max|diff| {lib_err:.3e}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+              f"[{card}]", flush=True)
+        if (B, IN, OUT) == (48, 1536, 8960):  # the table keeps the decode gate/up shape
+            results["int4_matmul"] = row
     return results
 
 
@@ -196,7 +421,7 @@ def check_backward_kernels(dev, card):
     def bf16(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
 
-    results = {"flash_attention_bwd_dq": [0.0, 0.0, 0.0], "flash_attention_bwd_dkv": [0.0, 0.0, 0.0]}
+    results, errs_all = {}, {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
     for B, T, lens in ((4, 1024, (1024, 700, 1000, 333)), (2, 1000, (1000, 871))):
         q, do = bf16(B, T, nh, dh), bf16(B, T, nh, dh)
         k, v = bf16(B, T, nkv, dh), bf16(B, T, nkv, dh)
@@ -220,18 +445,35 @@ def check_backward_kernels(dev, card):
             errs.append(err)
             print(f"kernel flash_attention_bwd {name} B={B} T={T}: max|diff| {err:.3e} "
                   f"(max|plain| {top:.3e}, bound {BWD_RTOL * top + BWD_ATOL:.3e})", flush=True)
-        ms_dq, pms_dq = _ab_ms(lambda: fa.attention_bwd_dq_cuda(*args),
-                               lambda: fa.attention_bwd_dq_plain(*args))
-        ms_kv, pms_kv = _ab_ms(lambda: fa.attention_bwd_dkv_cuda(*args),
-                               lambda: fa.attention_bwd_dkv_plain(*args))
+        errs_all["flash_attention_bwd_dq"] = max(errs_all["flash_attention_bwd_dq"], errs[0])
+        errs_all["flash_attention_bwd_dkv"] = max(errs_all["flash_attention_bwd_dkv"], *errs[1:])
+        # the library yardstick: SDPA's backward (dq, dk and dv in one call)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        allowed = _allowed(mask, qs, T)
+        lib_out = _sdpa(*leaves, allowed, scale)()
+
+        def lib():
+            return torch.autograd.grad(lib_out, leaves, do.transpose(1, 2), retain_graph=True)
+
+        ms_dq, pms_dq, lib_ms = _ab_ms(lambda: fa.attention_bwd_dq_cuda(*args),
+                                       lambda: fa.attention_bwd_dq_plain(*args), lib)
+        ms_kv, pms_kv, _ = _ab_ms(lambda: fa.attention_bwd_dkv_cuda(*args),
+                                  lambda: fa.attention_bwd_dkv_plain(*args))
         print(f"kernel flash_attention_bwd_dq B={B} T={T}: {ms_dq:.4f} ms vs plain {pms_dq:.4f} ms; "
-              f"flash_attention_bwd_dkv: {ms_kv:.4f} ms vs plain {pms_kv:.4f} ms [{card}]", flush=True)
+              f"flash_attention_bwd_dkv: {ms_kv:.4f} ms vs plain {pms_kv:.4f} ms; sdpa backward "
+              f"(dq, dk, dv) {lib_ms:.4f} ms [{card}]", flush=True)
         if B == 4:  # the table keeps the first shape's times
-            results["flash_attention_bwd_dq"][1:] = [ms_dq, pms_dq]
-            results["flash_attention_bwd_dkv"][1:] = [ms_kv, pms_kv]
-        results["flash_attention_bwd_dq"][0] = max(results["flash_attention_bwd_dq"][0], errs[0])
-        results["flash_attention_bwd_dkv"][0] = max(results["flash_attention_bwd_dkv"][0], *errs[1:])
-    return {k: tuple(v) for k, v in results.items()}
+            pairs = nh * int(allowed.sum())
+            reads = _nbytes(q, k, v, do, mask, qs, lse, delta)
+            # dq recomputes S and dP and forms dq: 3 products; dk/dv: S, dP, dV, dK
+            results["flash_attention_bwd_dq"] = _row(0.0, ms_dq, pms_dq, lib_ms,
+                                                     reads + _nbytes(got[0]), 6 * dh * pairs)
+            results["flash_attention_bwd_dkv"] = _row(0.0, ms_kv, pms_kv, lib_ms,
+                                                      reads + _nbytes(got[1], got[2]), 8 * dh * pairs)
+        del leaves, lib_out
+    for name, err in errs_all.items():
+        results[name]["max_abs_err"] = err
+    return results
 
 
 def _two_layers(params, cfg):
@@ -248,15 +490,21 @@ def _two_layers(params, cfg):
     return sub, cfg2, cpu, dataclasses.replace(cfg2, dtype=torch.float32)
 
 
-def check_small_reference(params, cfg, dev):
+def check_small_reference(params, cfg, dev, bits=None):
     """Phase 2: two layers of the full-width model, kernels (card, bf16) vs
-    plain versions (CPU, f32): cached prefill logits and one decode step."""
+    plain versions (CPU, f32): cached prefill logits and one decode step.
+    Phase 2c (``bits`` 4 or 8): the same with ``quantize_params(bits=)``
+    weights and an int8 KV cache for the decode step."""
     import numpy as np
     import torch
 
-    from lapha_tpu_torch.models import qwen2
+    from lapha_tpu_torch.engine.engine import Engine
+    from lapha_tpu_torch.models import quant, qwen2
 
     sub, cfg2, cpu, cfg_cpu = _two_layers(params, cfg)
+    if bits is not None:
+        sub = quant.quantize_params(sub, bits=bits)
+        cpu = quant.tree_to(sub, "cpu", torch.float32)
     rng = np.random.default_rng(SEED + 1)
     B, T, S = 2, 96, 128
     ids = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, T)))
@@ -275,9 +523,13 @@ def check_small_reference(params, cfg, dev):
                                              kv_valid=kv_valid.to(device))
             ck = cache[0].permute(0, 1, 3, 2, 4).contiguous()
             cv = cache[1].permute(0, 1, 3, 2, 4).contiguous()
-            step, _, _, _ = qwen2.decode_step(
+            scl = None
+            if bits is not None:
+                ck, cv, scl = Engine._quantize_cache(ck, cv)
+            step = qwen2.decode_step(
                 p, c, nxt.to(device), lens.to(device), ck, cv, T,
-                lens.to(device, torch.int32), torch.full((B,), T, dtype=torch.int32, device=device))
+                lens.to(device, torch.int32), torch.full((B,), T, dtype=torch.int32, device=device),
+                cache_scale=scl)[0]
         return logits.float().cpu(), step.float().cpu()
 
     g_logits, g_step = run(sub, cfg2, dev)
@@ -285,10 +537,12 @@ def check_small_reference(params, cfg, dev):
     real = mask > 0
     e_prefill = _rel(g_logits[real], c_logits[real])
     e_decode = _rel(g_step, c_step)
-    print(f"reference check (2 layers, card kernels bf16 vs CPU plain f32): prefill logits "
+    what = ("" if bits is None else
+            f", int{bits} weights (int8 embed/head), int8 KV cache for the decode step")
+    print(f"reference check (2 layers{what}; card kernels bf16 vs CPU plain f32): prefill logits "
           f"rel err {e_prefill:.3e}, decode logits rel err {e_decode:.3e}", flush=True)
     check(e_prefill <= REF_RTOL and e_decode <= REF_RTOL,
-          f"reference rel err prefill {e_prefill} decode {e_decode}")
+          f"reference rel err prefill {e_prefill} decode {e_decode} (bits {bits})")
 
 
 def _packed_batch(rng, vocab, prompt_lens, comp_lens, dev):
@@ -547,6 +801,200 @@ def update_at_full_width(params, head, cfg, eng, card):
     return launches
 
 
+def _text(ids) -> str:
+    return " ".join(str(int(t)) for t in ids)
+
+
+def _serve_round(eng, vf, sp, rng, vocab: int, P: int, plen: int, n_kids: int, kid_extra: int):
+    """One expansion round: P parents of plen random tokens, the first
+    n_kids of them extended by kid_extra tokens as prefix-hit children, the
+    root value forward, the children scored from their pooled h0, and the
+    potential V."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.ops.latent import potential_v
+
+    dev = vf.device
+    roots = [rng.integers(2, vocab, plen) for _ in range(P)]
+    children = [np.concatenate([r, rng.integers(2, vocab, kid_extra)]) for r in roots[:n_kids]]
+    out = {"roots": roots, "children": children}
+    t0 = time.perf_counter()
+    out["parents"] = eng.generate([_text(r) for r in roots], sp)
+    out["t_par"] = dict(eng.last_timings)
+    hits0 = eng.prefix_cache.hits
+    out["kids"] = eng.generate([_text(c) for c in children], sp)
+    out["t_kid"] = dict(eng.last_timings)
+    out["hits"] = eng.prefix_cache.hits - hits0
+    t1 = time.perf_counter()
+    out["y_root"], out["v_root"], out["h0_root"] = vf(
+        np.stack(roots), np.ones((P, plen), np.int32), return_h0=True)
+    out["t_value"] = time.perf_counter() - t1
+    out["pooled"] = np.stack([o.pooled_hidden for r in out["kids"] for o in r.outputs])
+    out["y_kids"], out["v_kids"] = vf.from_pooled(out["pooled"], root_h0=out["h0_root"][0])
+    y_t = torch.from_numpy(out["y_kids"]).to(dev)
+    anchor = y_t[int(np.argmax(out["v_kids"]))][None, :]  # best-valued child as goal
+    out["V"] = potential_v(y_t, torch.zeros(y_t.shape[1], device=dev), anchor).cpu().numpy()
+    torch.cuda.synchronize()
+    out["t_all"] = time.perf_counter() - t0
+    return out
+
+
+def _check_round(run, vf, vocab: int, H: int, P: int, n: int, n_kids: int, new: int,
+                 fused_rtol: float) -> float:
+    """Phase 4's checks on a round's outputs; returns the fused-h0 error."""
+    import numpy as np
+
+    check(run["hits"] == n_kids, f"expected {n_kids} prefix-cache hits, got {run['hits']}")
+    for outs, count in ((run["parents"], P), (run["kids"], n_kids)):
+        check(len(outs) == count and all(len(r.outputs) == n for r in outs),
+              "request/sample count")
+        for r in outs:
+            for o in r.outputs:
+                check(len(o.token_ids) == new, f"{len(o.token_ids)} tokens, expected {new}")
+                check(all(0 <= t < vocab for t in o.token_ids), "token ids in vocab")
+                check(np.isfinite(o.token_logprobs).all() and max(o.token_logprobs) <= 0.0,
+                      "logprobs finite and <= 0")
+                check(o.pooled_hidden.shape == (H,), "pooled_hidden shape")
+    check(run["y_root"].shape == (P, H) and run["v_root"].shape == (P,), "root value shapes")
+    check(run["y_kids"].shape == (n_kids * n, H) and run["V"].shape == (n_kids * n,),
+          "child value shapes")
+    for key in ("y_root", "v_root", "h0_root", "pooled", "y_kids", "v_kids", "V"):
+        check(np.isfinite(run[key]).all(), f"{key} finite")
+    check((run["V"] >= 0).all() and (run["V"] <= 1).all(), f"V in [0, 1]: {run['V']}")
+    check((run["v_root"] >= 0).all() and (run["v_root"] <= 1).all(), "root values in [0, 1]")
+    check((np.linalg.norm(run["y_kids"], axis=-1) < 1).all(), "ball points inside the ball")
+    # fused value: the engine's pooled h0 of child sample 0 == a value forward
+    # over the same prompt + completion (no-cache kernel vs prefill/decode kernels)
+    full = np.concatenate([run["children"][0],
+                           np.asarray(run["kids"][0].outputs[0].token_ids)])[None]
+    _, _, h_ref = vf(full, np.ones_like(full, dtype=np.int32), return_h0=True)
+    e_fused = float(np.linalg.norm(run["pooled"][0] - h_ref[0]) / np.linalg.norm(h_ref[0]))
+    print(f"fused value check: engine pooled h0 vs value forward rel err {e_fused:.3e} "
+          f"(limit {fused_rtol})", flush=True)
+    check(e_fused <= fused_rtol, f"fused value rel err {e_fused}")
+    return e_fused
+
+
+def serve_quantized(params, head, cfg, card):
+    """Phase 8: quantized serving at bench.py's shape. Returns the launch
+    counts of the first int4 round."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine import Engine, SamplingParams
+    from lapha_tpu_torch.models import quant
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.search import ValueFunction
+
+    P, n, plen, new, n_kids, kid_extra = 8, 6, 512, 256, 4, 64
+    kw = dict(max_model_len=plen + new + 128, max_batch=P * n, decode_chunk=32, pad_multiple=128,
+              batch_bucket=1, eos_token_ids=[], seed=SEED, collect_h0=True, kv_quant="int8")
+    sp = SamplingParams(n=n, temperature=0.8, top_p=0.95, top_k=20, max_tokens=new, seed=1)
+    rng = np.random.default_rng(SEED + 7)
+    t0 = time.perf_counter()
+    qparams = quant.quantize_params(params, bits=4)
+    torch.cuda.synchronize()
+    print(f"quantize_params(bits=4) on the card: {time.perf_counter() - t0:.2f} s; weights "
+          f"{quant.params_nbytes(qparams) / 2**30:.2f} GiB (bf16: "
+          f"{quant.params_nbytes(params) / 2**30:.2f} GiB)", flush=True)
+    counted = None
+    for label, p in (("int4 weights + int8 KV", qparams), ("bf16 weights + int8 KV", params)):
+        eng = Engine(p, cfg, IdTok(), **kw)
+        vf = ValueFunction(p, head, cfg, max_model_len=1024, pad_multiple=128, batch_bucket=P)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        run = _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, n_kids, kid_extra)
+        launches = dict(_cuda.LAUNCHES)
+        for name in ("flash_attention", "flash_attention_cached", "ragged_decode_attention_q8"):
+            check(launches[name] > 0, f"{name} never launched ({label})")
+        check(launches["ragged_decode_attention"] == 0,
+              f"the bf16 decode kernel ran on the int8-KV path ({label})")
+        if p is qparams:
+            check(launches["int4_matmul"] > 0, "int4_matmul never launched on the int4 path")
+            counted = launches
+        else:
+            check(launches["int4_matmul"] == 0, "int4_matmul ran with bf16 weights")
+        _check_round(run, vf, cfg.vocab_size, cfg.hidden_size, P, n, n_kids, new, FUSED_Q8_RTOL)
+        print(f"{label}: launches {launches}; first (cold) round {run['t_all']:.2f} s [{card}]",
+              flush=True)
+        warm = _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, n_kids, kid_extra)
+        tp, tk = warm["t_par"], warm["t_kid"]
+        print(f"{label}, warm parents: prefill {tp['prefill_s'] * 1e3:.1f} ms ({P} x {plen} "
+              f"tokens), decode {tp['decode_s'] * 1e3:.1f} ms for {tp['decode_steps']} steps x "
+              f"{P * n} rows = {P * n * new / tp['decode_s']:.1f} tok/s [{card}]", flush=True)
+        print(f"{label}, warm children: prefix-hit prefill {tk['prefill_s'] * 1e3:.1f} ms "
+              f"({n_kids} x {kid_extra}-token suffix at qstart {plen}), decode "
+              f"{tk['decode_s'] * 1e3:.1f} ms = {n_kids * n * new / tk['decode_s']:.1f} tok/s; "
+              f"root value forward ({P} x {plen}) {warm['t_value'] * 1e3:.1f} ms; whole round "
+              f"{warm['t_all']:.2f} s [{card}]", flush=True)
+        del eng, vf, run, warm
+        torch.cuda.empty_cache()
+    del qparams
+    torch.cuda.empty_cache()
+    return counted
+
+
+def profile_decode_step(params, cfg, card):
+    """Phase 9: one decode step at bench.py's shape, in three configurations,
+    on the host clock and in the profiler's device time."""
+    from collections import defaultdict
+
+    import torch
+
+    from lapha_tpu_torch.engine.engine import Engine
+    from lapha_tpu_torch.models import quant, qwen2
+
+    B, prompt, S, steps = 48, 512, 768, 5
+    dev = params["norm"]["scale"].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    shape = (cfg.num_hidden_layers, B, cfg.num_key_value_heads, S, cfg.head_dim_)
+    ck = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    cv = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    tok = torch.randint(2, cfg.vocab_size, (B,), generator=gen, device=dev)
+    lens = torch.full((B,), prompt, dtype=torch.int32, device=dev)
+    kq, vq, scl = Engine._quantize_cache(ck, cv)
+    runs = (("bf16 weights, bf16 KV", params, (ck, cv), None),
+            ("bf16 weights, int8 KV", params, (kq, vq), scl),
+            ("int4 weights, int8 KV", quant.quantize_params(params, bits=4), (kq, vq), scl))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, p, cache, cache_scale in runs:
+        slot = prompt
+
+        def step():
+            nonlocal slot
+            qwen2.decode_step(p, cfg, tok, lens.long() + (slot - prompt), cache[0], cache[1],
+                              slot, lens, lens, cache_scale=cache_scale)
+            slot += 1
+
+        with torch.inference_mode():
+            step()  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / steps * 1e3
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+        by_kernel, n_launch = defaultdict(float), 0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_kernel[ev.name] += ev.device_time_total / 1e3 / steps  # us -> ms per step
+                n_launch += 1
+        dev_ms = sum(by_kernel.values())
+        check(dev_ms > 0, f"the profiler saw no device time ({label})")
+        print(f"decode step profile, {label} (B={B}, S={S}, prompts {prompt}): {wall_ms:.2f} ms "
+              f"host clock, {dev_ms:.2f} ms device busy ({100 * dev_ms / wall_ms:.1f}%), "
+              f"{n_launch / steps:.0f} kernel launches per step [{card}]", flush=True)
+        for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {ms:8.3f} ms  {name[:110]}", flush=True)
+    del runs, ck, cv, kq, vq, scl
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -564,17 +1012,17 @@ def main() -> int:
     from lapha_tpu_torch.engine import Engine, SamplingParams
     from lapha_tpu_torch.models import qwen2, value_model
     from lapha_tpu_torch.ops import _cuda
-    from lapha_tpu_torch.ops.latent import potential_v
     from lapha_tpu_torch.search import ValueFunction
 
     t0 = time.perf_counter()
     _cuda.build()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
     for line in _cuda.build_log.splitlines():  # ptxas: registers, smem, spills per kernel
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip(), flush=True)
     kernels = check_kernels(dev, card)
     kernels.update(check_backward_kernels(dev, card))
+    kernels.update(check_quant_kernels(dev, card))
 
     cfg = qwen2.Qwen2Config(
         vocab_size=151936, hidden_size=1536, intermediate_size=8960,
@@ -584,6 +1032,8 @@ def main() -> int:
     params = qwen2.init_params(cfg, gen)
     head = value_model.init_value_head(cfg.hidden_size, gen)
     check_small_reference(params, cfg, dev)
+    for bits in (4, 8):
+        check_small_reference(params, cfg, dev, bits=bits)
     check_gradient_reference(params, head, cfg, dev)
 
     P, n, plen, new = 4, 6, 512, 64
@@ -594,76 +1044,21 @@ def main() -> int:
     sp = SamplingParams(n=n, temperature=0.8, top_p=0.95, top_k=20, max_tokens=new, seed=1)
     rng = np.random.default_rng(SEED + 2)
 
-    def text(ids):
-        return " ".join(str(int(t)) for t in ids)
-
-    def serve():
-        """One expansion round: parents, prefix-hit children, root value
-        forward, children scored from their pooled h0, potential V."""
-        roots = [rng.integers(2, cfg.vocab_size, plen) for _ in range(P)]
-        children = [np.concatenate([r, rng.integers(2, cfg.vocab_size, new)]) for r in roots]
-        out = {"roots": roots, "children": children}
-        t0 = time.perf_counter()
-        out["parents"] = eng.generate([text(r) for r in roots], sp)
-        out["t_par"] = dict(eng.last_timings)
-        hits0 = eng.prefix_cache.hits
-        out["kids"] = eng.generate([text(c) for c in children], sp)
-        out["t_kid"] = dict(eng.last_timings)
-        out["hits"] = eng.prefix_cache.hits - hits0
-        t1 = time.perf_counter()
-        out["y_root"], out["v_root"], out["h0_root"] = vf(
-            np.stack(roots), np.ones((P, plen), np.int32), return_h0=True)
-        out["t_value"] = time.perf_counter() - t1
-        out["pooled"] = np.stack([o.pooled_hidden for r in out["kids"] for o in r.outputs])
-        out["y_kids"], out["v_kids"] = vf.from_pooled(out["pooled"], root_h0=out["h0_root"][0])
-        y_t = torch.from_numpy(out["y_kids"]).to(dev)
-        anchor = y_t[int(np.argmax(out["v_kids"]))][None, :]  # best-valued child as goal
-        out["V"] = potential_v(y_t, torch.zeros(cfg.hidden_size, device=dev),
-                               anchor).cpu().numpy()
-        torch.cuda.synchronize()
-        out["t_all"] = time.perf_counter() - t0
-        return out
-
     # ---------------- the served path, counted
     torch.cuda.synchronize()
     _cuda.reset_launches()
-    run = serve()
+    run = _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, P, new)
     launches = {"serve": dict(_cuda.LAUNCHES)}
 
     # ---------------- checks on what came out
     for name in ("flash_attention", "flash_attention_cached", "ragged_decode_attention"):
         check(launches["serve"][name] > 0, f"{name} never launched on the served path")
-    check(run["hits"] == P, f"expected {P} prefix-cache hits, got {run['hits']}")
-    for outs in (run["parents"], run["kids"]):
-        check(len(outs) == P and all(len(r.outputs) == n for r in outs), "request/sample count")
-        for r in outs:
-            for o in r.outputs:
-                check(len(o.token_ids) == new, f"{len(o.token_ids)} tokens, expected {new}")
-                check(all(0 <= t < cfg.vocab_size for t in o.token_ids), "token ids in vocab")
-                check(np.isfinite(o.token_logprobs).all() and max(o.token_logprobs) <= 0.0,
-                      "logprobs finite and <= 0")
-                check(o.pooled_hidden.shape == (cfg.hidden_size,), "pooled_hidden shape")
-    check(run["y_root"].shape == (P, cfg.hidden_size) and run["v_root"].shape == (P,),
-          "root value shapes")
-    check(run["y_kids"].shape == (P * n, cfg.hidden_size) and run["V"].shape == (P * n,),
-          "child value shapes")
-    for key in ("y_root", "v_root", "h0_root", "pooled", "y_kids", "v_kids", "V"):
-        check(np.isfinite(run[key]).all(), f"{key} finite")
-    check((run["V"] >= 0).all() and (run["V"] <= 1).all(), f"V in [0, 1]: {run['V']}")
-    check((np.linalg.norm(run["y_kids"], axis=-1) < 1).all(), "ball points inside the ball")
-    # fused value: the engine's pooled h0 of child sample 0 == a value forward
-    # over the same prompt + completion (no-cache kernel vs prefill/decode kernels)
-    full = np.concatenate([run["children"][0],
-                           np.asarray(run["kids"][0].outputs[0].token_ids)])[None]
-    _, _, h_ref = vf(full, np.ones_like(full, dtype=np.int32), return_h0=True)
-    e_fused = float(np.linalg.norm(run["pooled"][0] - h_ref[0]) / np.linalg.norm(h_ref[0]))
-    print(f"fused value check: engine pooled h0 vs value forward rel err {e_fused:.3e}", flush=True)
-    check(e_fused <= REF_RTOL, f"fused value rel err {e_fused}")
+    _check_round(run, vf, cfg.vocab_size, cfg.hidden_size, P, n, P, new, REF_RTOL)
     print(f"launches on the served path: {launches['serve']}; first (cold) round "
           f"{run['t_all']:.2f} s [{card}]", flush=True)
 
     # ---------------- timings: a second, warm round on fresh prompts
-    warm = serve()
+    warm = _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, P, new)
     tp, tk = warm["t_par"], warm["t_kid"]
     rows_tok = P * n * new
     print(f"warm parents: prefill {tp['prefill_s'] * 1e3:.1f} ms (4 x 512 tokens), decode "
@@ -674,6 +1069,11 @@ def main() -> int:
           f"{rows_tok / tk['decode_s']:.1f} tok/s [{card}]", flush=True)
     print(f"warm root value forward (4 x 512): {warm['t_value'] * 1e3:.1f} ms; whole round "
           f"{warm['t_all']:.2f} s [{card}]", flush=True)
+    del run, warm
+
+    # ---------------- quantized serving at bench.py's shape, counted
+    launches["serve_quantized"] = serve_quantized(params, head, cfg, card)
+    profile_decode_step(params, cfg, card)
 
     # ---------------- training: the trainer's entry, then the update, counted
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -696,14 +1096,17 @@ def main() -> int:
                                    "lapha_tpu/ops/flash_attention.py:108"),
         "flash_attention_bwd_dkv": ("lapha_tpu_torch/csrc/flash_attention_bwd.cu",
                                     "lapha_tpu/ops/flash_attention.py:165"),
+        "ragged_decode_attention_q8": ("lapha_tpu_torch/csrc/ragged_decode_attention.cu",
+                                       "lapha_tpu/ops/ragged_decode_attention.py:86"),
+        "int4_matmul": ("lapha_tpu_torch/csrc/int4_matmul.cu",
+                        "lapha_tpu/ops/int4_matmul.py:83"),
     }
     rows = []
     for name, (src, rep) in replaces.items():
-        err, ms, plain_ms = kernels[name]
         by_path = {path: counts[name] for path, counts in launches.items()}
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     **kernels[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

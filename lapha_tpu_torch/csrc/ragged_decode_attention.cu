@@ -1,11 +1,22 @@
-// Ragged one-token decode attention over the stacked bf16 cache, for Hopper.
+// Ragged one-token decode attention over the stacked decode cache, for Hopper.
 //
-// Replaces the bf16 entry of the Pallas kernel in
-// lapha_tpu/ops/ragged_decode_attention.py (_kernel :68 -> _kernel_impl
-// :108, called from ragged_decode_attention :270). Row b's query group
-// attends only to cache slots [pstart[b], lens[b]) ∪ [dstart[b], slot] of
-// layer `layer` in the (L, B, nkv, S, dh) decode cache; nothing else of the
-// cache is read.
+// Replaces two entries of the Pallas kernel in
+// lapha_tpu/ops/ragged_decode_attention.py (called from
+// ragged_decode_attention :270): the bf16 cache, _kernel :68 -> _kernel_impl
+// :108, and the int8 cache, _kernel_q8 :86 (template flag kQ8). Row b's
+// query group attends only to cache slots [pstart[b], lens[b]) ∪
+// [dstart[b], slot] of layer `layer` in the (L, B, nkv, S, dh) decode cache;
+// nothing else of the cache is read.
+//
+// int8 cache (kQ8): K/V are int8 with one f32 scale per (layer, row, head,
+// slot) in (L, B, nkv, S) planes. The values go to bf16 in shared memory
+// (exact: |v| <= 127), the K scale multiplies each logit after q·k·scale,
+// the softmax denominator is summed from the unscaled p, and P·V uses
+// p·vs — the Pallas kernel's order (:221-222, :239-246). Its bound is the
+// int8 K+V bytes of the valid slots plus their 8 bytes of scales at
+// 3.35 TB/s, half the bf16 cache's bytes. The sink entries (_kernel_sink,
+// _kernel_q8_sink: m0 = sink, l0 = 1) would be a second flag on the same
+// template; they are not ported yet.
 //
 // What bounds it on an H100: one query token per row does 2 FLOP per byte
 // of K/V read, far below the card's ~295 FLOP/byte ridge, so it is bound by
@@ -31,13 +42,30 @@ constexpr int DH = 128;       // head dim = threads per CTA
 constexpr int GMAX = 8;       // query heads per KV head
 constexpr int KLDS = DH + 2;  // padded K row: thread j reads row j conflict-free
 
+// 16 int8 values (one 16-byte load) -> 8 words of bf16 pairs, in order.
+__device__ __forceinline__ void int8x16_to_bf16(const uint4& v, uint32_t (&w)[8]) {
+  const uint32_t in[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float b0 = static_cast<float>(static_cast<int8_t>(in[i] & 0xffu));
+    const float b1 = static_cast<float>(static_cast<int8_t>((in[i] >> 8) & 0xffu));
+    const float b2 = static_cast<float>(static_cast<int8_t>((in[i] >> 16) & 0xffu));
+    const float b3 = static_cast<float>(static_cast<int8_t>(in[i] >> 24));
+    w[2 * i] = lapha::pack_f32(b0, b1);
+    w[2 * i + 1] = lapha::pack_f32(b2, b3);
+  }
+}
+
+template <bool kQ8>
 __global__ void __launch_bounds__(DH)
-ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, nh, DH)
-                     const __nv_bfloat16* __restrict__ kc,  // (L, B, nkv, S, DH)
-                     const __nv_bfloat16* __restrict__ vc,  // (L, B, nkv, S, DH)
+ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, nh, DH)
+                     const void* __restrict__ kc_,         // (L, B, nkv, S, DH) bf16 or int8
+                     const void* __restrict__ vc_,
+                     const float* __restrict__ ks,         // (L, B, nkv, S) scales (kQ8)
+                     const float* __restrict__ vs,
                      const int* __restrict__ lens, const int* __restrict__ dstart,
                      const int* __restrict__ pstart, int layer, int slot,
-                     __nv_bfloat16* __restrict__ out,       // (B, nh, DH)
+                     __nv_bfloat16* __restrict__ out,      // (B, nh, DH)
                      int nh, int nkv, int S, float scale) {
   __shared__ __align__(16) __nv_bfloat16 sK[CH * KLDS];
   __shared__ __align__(16) __nv_bfloat16 sV[CH * DH];
@@ -45,6 +73,8 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, nh, DH)
   __shared__ float sP[GMAX * CH];
   __shared__ float sAlpha[GMAX];
   __shared__ float sL[GMAX];
+  __shared__ float sKS[CH];  // kQ8: the chunk's K and V scales
+  __shared__ float sVS[CH];
 
   const int b = blockIdx.x, hk = blockIdx.y, B = gridDim.x;
   const int G = nh / nkv;
@@ -54,8 +84,6 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, nh, DH)
   for (int i = tid; i < G * DH; i += DH) sQ[i] = __bfloat162float(qg[i]) * scale;
 
   const size_t panel = (static_cast<size_t>(layer) * B + b) * nkv + hk;
-  const __nv_bfloat16* kp = kc + panel * S * DH;
-  const __nv_bfloat16* vp = vc + panel * S * DH;
 
   float acc[GMAX];
 #pragma unroll
@@ -71,17 +99,45 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, nh, DH)
   for (int seg = 0; seg < 2; ++seg) {
     for (int c0 = seg_lo[seg]; c0 < seg_hi[seg]; c0 += CH) {
       const int n = min(CH, seg_hi[seg] - c0);
-      for (int i = tid; i < CH * (DH / 8); i += DH) {
-        const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-        uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-        if (r < n) {
-          kk = *reinterpret_cast<const uint4*>(kp + static_cast<size_t>(c0 + r) * DH + c);
-          vv = *reinterpret_cast<const uint4*>(vp + static_cast<size_t>(c0 + r) * DH + c);
+      if constexpr (kQ8) {
+        const int8_t* kp = static_cast<const int8_t*>(kc_) + panel * S * DH;
+        const int8_t* vp = static_cast<const int8_t*>(vc_) + panel * S * DH;
+        for (int i = tid; i < CH * (DH / 16); i += DH) {
+          const int r = i / (DH / 16), c = (i % (DH / 16)) * 16;
+          uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
+          if (r < n) {
+            kk = *reinterpret_cast<const uint4*>(kp + static_cast<size_t>(c0 + r) * DH + c);
+            vv = *reinterpret_cast<const uint4*>(vp + static_cast<size_t>(c0 + r) * DH + c);
+          }
+          uint32_t kw[8], vw[8];
+          int8x16_to_bf16(kk, kw);
+          int8x16_to_bf16(vv, vw);
+          uint32_t* kd = reinterpret_cast<uint32_t*>(sK + r * KLDS + c);
+#pragma unroll
+          for (int w = 0; w < 8; ++w) kd[w] = kw[w];
+          uint4* vd = reinterpret_cast<uint4*>(sV + r * DH + c);
+          vd[0] = make_uint4(vw[0], vw[1], vw[2], vw[3]);
+          vd[1] = make_uint4(vw[4], vw[5], vw[6], vw[7]);
         }
-        // K rows are 260 B apart (4-byte aligned only): store as 32-bit words
-        uint32_t* kd = reinterpret_cast<uint32_t*>(sK + r * KLDS + c);
-        kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
-        *reinterpret_cast<uint4*>(sV + r * DH + c) = vv;
+        if (tid < CH) {
+          sKS[tid] = tid < n ? ks[panel * S + c0 + tid] : 0.f;
+          sVS[tid] = tid < n ? vs[panel * S + c0 + tid] : 0.f;
+        }
+      } else {
+        const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(kc_) + panel * S * DH;
+        const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(vc_) + panel * S * DH;
+        for (int i = tid; i < CH * (DH / 8); i += DH) {
+          const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+          uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
+          if (r < n) {
+            kk = *reinterpret_cast<const uint4*>(kp + static_cast<size_t>(c0 + r) * DH + c);
+            vv = *reinterpret_cast<const uint4*>(vp + static_cast<size_t>(c0 + r) * DH + c);
+          }
+          // K rows are 260 B apart (4-byte aligned only): store as 32-bit words
+          uint32_t* kd = reinterpret_cast<uint32_t*>(sK + r * KLDS + c);
+          kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
+          *reinterpret_cast<uint4*>(sV + r * DH + c) = vv;
+        }
       }
       __syncthreads();
 
@@ -104,7 +160,8 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, nh, DH)
 #pragma unroll
         for (int u = 0; u < GMAX / 2; ++u) {
           const int g = gsub + 2 * u;
-          if (g < G) sP[g * CH + j] = j < n ? dot[u] : NEG;
+          // kQ8: the K scale folds into the logit (q already carries `scale`)
+          if (g < G) sP[g * CH + j] = j < n ? (kQ8 ? dot[u] * sKS[j] : dot[u]) : NEG;
         }
       }
       __syncthreads();
@@ -122,8 +179,9 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, nh, DH)
           const float alpha = __expf(m_run[i] - m_new);
           l_run[i] = l_run[i] * alpha + sum;
           m_run[i] = m_new;
-          sP[g * CH + lane] = p0;
-          sP[g * CH + lane + 32] = p1;
+          // kQ8: the V scale folds into p after the denominator is summed
+          sP[g * CH + lane] = kQ8 ? p0 * sVS[lane] : p0;
+          sP[g * CH + lane + 32] = kQ8 ? p1 * sVS[lane + 32] : p1;
           if (lane == 0) sAlpha[g] = alpha;
         }
       }
@@ -155,18 +213,35 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, nh, DH)
     if (g < G) og[g * DH + tid] = __float2bfloat16(sL[g] > 0.f ? acc[g] / sL[g] : 0.f);
 }
 
+template <bool kQ8>
+int launch(const void* q, const void* k_cache, const void* v_cache, const float* k_scale,
+           const float* v_scale, const int* lens, const int* dstart, const int* pstart,
+           int layer, int slot, void* out, int B, int nh, int nkv, int S, int dh, float scale,
+           void* stream) {
+  if (dh != DH || nkv <= 0 || nh % nkv != 0 || nh / nkv > GMAX || B <= 0 || slot < 0 || slot >= S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B, nkv);
+  ragged_decode_kernel<kQ8><<<grid, DH, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, k_scale, v_scale, lens, dstart,
+      pstart, layer, slot, static_cast<__nv_bfloat16*>(out), nh, nkv, S, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int lapha_ragged_decode(const void* q, const void* k_cache, const void* v_cache,
                                    const int* lens, const int* dstart, const int* pstart,
                                    int layer, int slot, void* out, int B, int nh, int nkv, int S,
                                    int dh, float scale, void* stream) {
-  if (dh != DH || nkv <= 0 || nh % nkv != 0 || nh / nkv > GMAX || B <= 0 || slot < 0 || slot >= S)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B, nkv);
-  ragged_decode_kernel<<<grid, DH, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache), lens, dstart, pstart, layer, slot,
-      static_cast<__nv_bfloat16*>(out), nh, nkv, S, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, k_cache, v_cache, nullptr, nullptr, lens, dstart, pstart, layer, slot,
+                       out, B, nh, nkv, S, dh, scale, stream);
+}
+
+extern "C" int lapha_ragged_decode_q8(const void* q, const void* k_cache, const void* v_cache,
+                                      const float* k_scale, const float* v_scale,
+                                      const int* lens, const int* dstart, const int* pstart,
+                                      int layer, int slot, void* out, int B, int nh, int nkv,
+                                      int S, int dh, float scale, void* stream) {
+  return launch<true>(q, k_cache, v_cache, k_scale, v_scale, lens, dstart, pstart, layer, slot,
+                      out, B, nh, nkv, S, dh, scale, stream);
 }

@@ -14,10 +14,16 @@
   are those of the JAX engine's per-step ``while_loop`` exit.
 - ``collect_h0``: the final-hidden sum over prompt + emitted tokens is
   accumulated during generation, so value scoring needs no extra forward.
+- ``kv_quant="int8"``: the decode cache is int8 with per-vector f32 scales.
+  Prefill and the prefix cache stay in the working dtype; the cache is
+  quantized once, when it is installed in the decode layout (after the
+  fan-out gather and the transpose), and decode writes and reads it
+  through ``decode_step(cache_scale=)``. Quantized weights
+  (``models/quant.py``) need nothing of the engine.
 
 Not ported yet (they raise ``ValueError("... not yet ported")``):
-``kv_quant``, ``seq_mesh``, ``spec_decode``, ``auto_continuous``;
-sliding-window checkpoints are refused by ``Qwen2Config.from_hf``.
+``seq_mesh``, ``spec_decode``, ``auto_continuous``; sliding-window
+checkpoints are refused by ``Qwen2Config.from_hf``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from ..models import qwen2
+from ..models.quant import leaf_device
 from . import sampling
 from .adapter import CompletionOutput, RequestOutput, SamplingParams
 from .prefix_cache import PrefixCacheStore
@@ -61,16 +68,18 @@ class Engine:
         spec_decode: str | None = None,
         auto_continuous: bool = False,
     ):
-        for name, val in (("kv_quant", kv_quant), ("seq_mesh", seq_mesh),
-                          ("spec_decode", spec_decode),
+        for name, val in (("seq_mesh", seq_mesh), ("spec_decode", spec_decode),
                           ("auto_continuous", auto_continuous)):
             if val:
                 raise ValueError(f"{name}: not yet ported")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unsupported kv_quant={kv_quant!r}")
+        self.kv_quant = kv_quant
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = (torch.device(device) if device is not None
-                       else params["embed"]["weight"].device)
+                       else leaf_device(params["embed"]["weight"]))
         self.max_model_len = int(max_model_len)
         self.max_batch = int(max_batch)
         self.decode_chunk = int(decode_chunk)
@@ -143,13 +152,23 @@ class Engine:
         last, h_sum = self._last_and_hsum(hidden, mask, real_lens - 1)
         return last, cache, h_sum
 
+    @staticmethod
+    def _quantize_cache(ck, cv):
+        """Decode-layout caches (L,B,nkv,S,dh) -> int8 + per-vector f32 scales
+        (L,B,nkv,S): the JAX engine's ``_quantize_cache_impl`` (empty slots
+        quantize to 0 with the 1e-12 floor scale)."""
+        kq, ks = qwen2._quantize_kv(ck)
+        vq, vs = qwen2._quantize_kv(cv)
+        return kq, vq, (ks, vs)
+
     def _decode_impl(self, cache_k, cache_v, presence, last_logits, lens, dstart,
                      positions, slot: int, finished, row_budget, generator,
                      temperature, top_k, top_p, min_p, rep_pen, T: int,
-                     static_top_k: int = 0, use_presence: bool = True):
+                     static_top_k: int = 0, use_presence: bool = True, cache_scale=None):
         """Generate up to T tokens for all B rows over the slot-uniform cache
-        (L, B, nkv, S, dh). A row finishes on EOS or when it has emitted
-        ``row_budget`` tokens; finished rows emit token 0 with logprob 0.
+        (L, B, nkv, S, dh), int8 with ``cache_scale`` = (ks, vs). A row
+        finishes on EOS or when it has emitted ``row_budget`` tokens;
+        finished rows emit token 0 with logprob 0.
         Returns (tokens (B,T), logprobs (B,T), finished, h_sum (B,H), steps)."""
         dev = self.device
         B = last_logits.shape[0]
@@ -179,9 +198,10 @@ class Engine:
             emitted += live.long()
             if use_presence:
                 presence[rows, tok] = torch.maximum(presence[rows, tok], live.to(presence.dtype))
-            logits, hidden, cache_k, cache_v = qwen2.decode_step(
+            logits, hidden, cache_k, cache_v, *_ = qwen2.decode_step(
                 self.params, self.cfg, tok, positions, cache_k, cache_v, slot,
-                lens, dstart, return_hidden=self.collect_h0, ragged=True)
+                lens, dstart, return_hidden=self.collect_h0, ragged=True,
+                cache_scale=cache_scale)
             if self.collect_h0:
                 # the token sampled this step is forwarded this step; pool it
                 # iff it was emitted (live on entry — includes the EOS)
@@ -382,13 +402,17 @@ class Engine:
             # (L, B, nkv, S, dh)
             ck = ck[:, row_of_t].permute(0, 1, 3, 2, 4).contiguous()
             cv = cv[:, row_of_t].permute(0, 1, 3, 2, 4).contiguous()
+            cache_scale = None
+            if self.kv_quant == "int8":
+                ck, cv, cache_scale = self._quantize_cache(ck, cv)
             toks_d, lps_d, finished, hs, steps = self._decode_impl(
                 ck, cv, presence, last_logits, self._t(lens.astype(np.int32)),
                 torch.full((B,), Lp, dtype=torch.int32, device=dev),
                 self._t(lens), Lp, finished,
                 torch.full((B,), budget, dtype=torch.int64, device=dev), generator,
                 temperature, top_k, top_p, min_p, rep_pen, T=budget,
-                static_top_k=static_top_k, use_presence=use_presence)
+                static_top_k=static_top_k, use_presence=use_presence,
+                cache_scale=cache_scale)
             toks = toks_d.cpu().numpy()
             lps = lps_d.cpu().numpy()
             if self.collect_h0:

@@ -1,9 +1,14 @@
 """HF checkpoint -> parameter dict, and numpy trees -> tensors.
 
-Port of the bf16 part of ``lapha_tpu/models/loader.py`` (dense qwen2/llama
-checkpoints, no quantization), plus ``params_from_numpy``, which turns the
-JAX package's parameter pytree after ``tree_map(np.asarray)`` into this
-package's tensors (the conversion from jax to numpy is the caller's).
+Port of the dense qwen2/llama part of ``lapha_tpu/models/loader.py``, with
+its load-time quantization (``quantize="int8"|"int4"``, done on the host by
+``quant.quantize_weight``/``quantize_weight_int4``, bit-equal to the JAX
+loader's numpy code, so only the quantized weights reach the card), plus ``params_from_numpy``, which turns the JAX package's
+parameter pytree after ``tree_map(np.asarray)`` into this package's tensors
+(the conversion from jax to numpy is the caller's).
+
+``load_params`` and ``load_value_head`` put the tensors on the card unless
+the caller passes ``device="cpu"``; without a card they raise.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import re
 import numpy as np
 import torch
 
+from .quant import int4_fits, is_quantized, quantize_weight, quantize_weight_int4
 from .qwen2 import Qwen2Config
 
 # wrapper checkpoints (base_lm.model.layers...) load too
@@ -32,7 +38,10 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
 
 def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
     """Nested dict of numpy arrays -> the same dict of tensors on ``device``.
-    Floating leaves are cast to ``dtype`` when it is given."""
+    Floating leaves are cast to ``dtype`` when it is given, except inside a
+    quantized leaf (int8/uint8 values and f32 scales are kept as they are)."""
+    if is_quantized(tree):
+        return {k: _to_tensor(np.asarray(v)).to(device) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     t = _to_tensor(np.asarray(tree))
@@ -71,23 +80,56 @@ class _Tensors:
         raise KeyError(f"{name} not found (tried prefixes {_PREFIXES})")
 
 
+def _device(device, name: str) -> torch.device:
+    """The target device; a CUDA target without a card raises (no silent
+    fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: no CUDA device; pass device='cpu' to load on the CPU")
+    return device
+
+
 def load_params(model_dir: str, cfg: Qwen2Config | None = None,
-                dtype: torch.dtype = torch.bfloat16, device="cpu") -> tuple[dict, Qwen2Config]:
+                dtype: torch.dtype = torch.bfloat16, device="cuda",
+                quantize: str | None = None) -> tuple[dict, Qwen2Config]:
     """Load a dense HF qwen2/llama checkpoint into the stacked parameter dict
-    (linear weights transposed to (in, out), a leading layer axis)."""
+    (linear weights transposed to (in, out), a leading layer axis).
+
+    ``quantize="int8"`` stores the projections and the embedding (and an
+    untied LM head) as per-channel int8; ``quantize="int4"`` packs each
+    projection whose in-dim splits into whole group-128 halves as int4 and
+    keeps the others, the embedding and the head int8 — the JAX loader's
+    rules. Quantization runs on the host; only its result is moved."""
+    if quantize not in (None, "int8", "int4"):
+        raise ValueError(f"unsupported quantize={quantize!r}")
+    device = _device(device, "load_params")
     if cfg is None:
         cfg = load_config(model_dir)
     cfg = Qwen2Config(**{**cfg.__dict__, "dtype": dtype})
     ts = _Tensors(model_dir)
     L = cfg.num_hidden_layers
     nh, nkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    q4 = quantize == "int4"
+    q8 = quantize is not None  # int4 mode keeps int8 where int4 does not fit
 
     def put(t: torch.Tensor) -> torch.Tensor:
         return t.to(dtype).contiguous().to(device)
 
-    def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
+    def put_quant(leaf: dict) -> dict:
+        return {k: v.contiguous().to(device) for k, v in leaf.items()}
+
+    def stack(fmt: str, transpose: bool = False):
         t = torch.stack([ts.get(fmt.format(i=i)) for i in range(L)])
+        if q8 and transpose:  # the big matmul weights, (L, in, out) on the host
+            host = t.float().transpose(-1, -2)
+            if q4 and int4_fits(host.shape[-2], 128):
+                return put_quant(quantize_weight_int4(host, 128))
+            return put_quant(quantize_weight(host))
         return put(t.transpose(-1, -2) if transpose else t)
+
+    def table(name: str):
+        t = ts.get(name)
+        return put_quant(quantize_weight(t, axis=0)) if q8 else put(t)
 
     def bias(fmt: str, dim: int) -> torch.Tensor:
         # llama has no q/k/v bias: zeros keep the dict uniform
@@ -97,7 +139,7 @@ def load_params(model_dir: str, cfg: Qwen2Config | None = None,
 
     sa = "layers.{i}.self_attn."
     params = {
-        "embed": {"weight": put(ts.get("embed_tokens.weight"))},
+        "embed": {"weight": table("embed_tokens.weight")},
         "layers": {
             "input_layernorm": {"scale": stack("layers.{i}.input_layernorm.weight")},
             "post_attention_layernorm": {"scale": stack("layers.{i}.post_attention_layernorm.weight")},
@@ -117,17 +159,18 @@ def load_params(model_dir: str, cfg: Qwen2Config | None = None,
     }
     if not cfg.tie_word_embeddings:
         if ts.has("lm_head.weight"):
-            params["lm_head"] = {"weight": put(ts.get("lm_head.weight"))}
+            params["lm_head"] = {"weight": table("lm_head.weight")}
         else:  # no separate head in the checkpoint: tie
             cfg = Qwen2Config(**{**cfg.__dict__, "tie_word_embeddings": True})
     return params, cfg
 
 
-def load_value_head(path: str, hidden_size: int, device="cpu") -> dict:
+def load_value_head(path: str, hidden_size: int, device="cuda") -> dict:
     """Load a value-head artifact: a torch state dict with ``weight``/``bias``
     (optionally ``value_head.``/``module.``-prefixed, or a full wrapper
     checkpoint), a .npz or a .safetensors file. Returns {"w": (H,), "b": ()}
-    float32."""
+    float32 on ``device``."""
+    device = _device(device, "load_value_head")
     if path.endswith(".npz"):
         z = np.load(path)
         w, b = z["weight"], z["bias"] if "bias" in z else np.zeros(1)

@@ -20,15 +20,25 @@ model keeps the MLP's gate/up products in f32 before the activation; here
 they are rounded to the working dtype first, which only matters in bf16.
 The LM head is computed in f32, as in JAX.
 
+Quantized weights (``models/quant.py`` leaves, the JAX tree's layout): the
+forward's attention projections dequantize to the working dtype, as the JAX
+layer body does; the MLP (forward and decode) and decode_step's projections
+go through ``_q_matmul_f32`` — the JAX function of the same name — where a
+packed-int4 leaf at <= 512 rows runs the int4 dequant-matmul kernel
+(``ops.int4_matmul``) and anything else a dequantized matmul; for quantized
+MLPs gate/up stay f32 before the activation, as in JAX. The int8 embedding
+gathers rows, then scales; the int8 LM head folds its scale into x and
+keeps the table int8. ``decode_step(cache_scale=(ks, vs))`` runs over an
+int8 KV cache (``_quantize_kv``; attention through the kernel's int8 entry).
+
 Training: ``forward(..., remat=True | "full")`` recomputes each layer in
 the backward (``torch.utils.checkpoint``, saving nothing inside the layer),
 the JAX model's ``remat_policy``; gradients reach the stacked parameters
 through one ``unbind`` per leaf (``_layer_stack``).
 
 Not ported yet: sliding windows, softcaps, sinks, q/k norms, MoE, the other
-norm/MLP styles, quantized weights, int8 KV, windowed decode caches,
-``decode_step_multi`` and the named remat policies (``save_qkv``,
-``save_attn``, ``save_qkv_attn``).
+norm/MLP styles, windowed decode caches, ``decode_step_multi`` and the
+named remat policies (``save_qkv``, ``save_attn``, ``save_qkv_attn``).
 """
 
 from __future__ import annotations
@@ -41,7 +51,16 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention, flash_attention_cached
+from ..ops.int4_matmul import int4_matmul
 from ..ops.ragged_decode_attention import ragged_decode_attention, ragged_decode_plain
+from .quant import dequant, is_quantized
+
+# int4 projections with at most this many rows run the int4 kernel; larger
+# ones (prefill, the value forward) are compute-bound and take the
+# dequantized matmul (the JAX model's switch)
+INT4_KERNEL_MAX_ROWS = 512
+# vocab rows per slice of an int8 LM head (module docstring, _lm_head)
+_HEAD_ROWS = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,30 +240,123 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _proj(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """h (..., IN) @ w (IN, OUT) [+ b] in h's dtype."""
+def _proj(h: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
+    """h (..., IN) @ w (IN, OUT) [+ b] in h's dtype; a quantized leaf is
+    dequantized to h's dtype first (the JAX forward's attention projections)."""
+    w = dequant(w, h.dtype)
     h2 = h.reshape(-1, h.shape[-1])
     y = torch.addmm(b, h2, w) if b is not None else h2 @ w
     return y.reshape(*h.shape[:-1], w.shape[-1])
 
 
+class _MmF32(torch.autograd.Function):
+    """a (N, K) @ b (K, M) of one 16-bit dtype on the card, accumulated and
+    returned in f32 without a rounding to the inputs' dtype (JAX's
+    ``preferred_element_type=float32``). ``torch.mm(out_dtype=)`` has no
+    derivative, so the backward is written out: the f32 gradient is rounded
+    to the inputs' dtype and multiplied in it, as a 16-bit product's
+    backward would be."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ b.T if ctx.needs_input_grad[0] else None
+        gb = a.T @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (N, K) @ b (K, M) -> f32, accumulated in f32: 16-bit operands on
+    the card stay 16-bit (tensor cores, f32 output); otherwise an f32
+    product."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return _MmF32.apply(a, b)
+    return a.float() @ b.float()
+
+
+def _q_matmul_f32(h: torch.Tensor, w) -> torch.Tensor:
+    """h (..., IN) @ weight leaf -> (..., OUT) f32. A packed-int4 leaf at <=
+    INT4_KERNEL_MAX_ROWS rows runs the int4 kernel (which rounds h to bf16,
+    as the JAX kernel does); anything else, a plain leaf too, is a product
+    with the leaf dequantized to h's dtype and f32 output."""
+    *lead, IN = h.shape
+    h2 = h.reshape(-1, IN)
+    if is_quantized(w) and "s4" in w and h2.shape[0] <= INT4_KERNEL_MAX_ROWS:
+        y = int4_matmul(h2, w["q"], w["s4"])
+    else:
+        y = _mm_f32(h2, dequant(w, h.dtype))
+    return y.reshape(*lead, y.shape[-1])
+
+
+def _proj_decode(h: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
+    """decode_step's projections: a quantized leaf goes through
+    _q_matmul_f32 with the bias added in f32 and one rounding to h's dtype
+    (the JAX decode_step's ``proj``); a plain leaf as in _proj."""
+    if not is_quantized(w):
+        return _proj(h, w, b)
+    y = _q_matmul_f32(h, w)
+    if b is not None:
+        y = y + b.float()
+    return y.to(h.dtype)
+
+
 def _mlp(cfg: Qwen2Config, p: dict, h: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN on normed hidden h (..., H)."""
-    gate = _proj(h, p["mlp"]["gate_proj"]["w"])
-    up = _proj(h, p["mlp"]["up_proj"]["w"])
-    act = (F.silu(gate.float()) * up.float()).to(h.dtype)
-    return _proj(act, p["mlp"]["down_proj"]["w"])
+    """SwiGLU FFN on normed hidden h (..., H), plain or quantized leaves:
+    f32 gate/up products before the activation, as the JAX model."""
+    m = p["mlp"]
+    gate = _q_matmul_f32(h, m["gate_proj"]["w"])
+    up = _q_matmul_f32(h, m["up_proj"]["w"])
+    act = (F.silu(gate) * up).to(h.dtype)
+    return _q_matmul_f32(act, m["down_proj"]["w"]).to(h.dtype)
 
 
 def _embed(params: dict, cfg: Qwen2Config, toks: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["weight"][toks].to(cfg.dtype)
+    """Token ids -> (..., H) in cfg.dtype. An int8 table gathers the rows,
+    then scales them; the table is never dequantized."""
+    emb = params["embed"]["weight"]
+    if is_quantized(emb):
+        return emb["q"][toks].to(cfg.dtype) * emb["s"][0].to(cfg.dtype)
+    return emb[toks].to(cfg.dtype)
 
 
 def _lm_head(params: dict, cfg: Qwen2Config, x: torch.Tensor) -> torch.Tensor:
     """Final-normed hidden (..., H) -> logits (..., V) in f32."""
     head_w = (params["embed"]["weight"] if cfg.tie_word_embeddings
               else params["lm_head"]["weight"])
+    if is_quantized(head_w):
+        return _int8_head(x, head_w)
     return x.float() @ head_w.float().T
+
+
+def _int8_head(x: torch.Tensor, head_w: dict) -> torch.Tensor:
+    """Logits through an int8 (V, H) table with one scale per H channel: the
+    scale folds into x in x's dtype (as JAX does) and the table stays int8.
+    It is multiplied in _HEAD_ROWS-row slices, each cast to x's dtype (an
+    L2-sized buffer on the card) with f32 output, so no float copy of the
+    whole table is ever made."""
+    *lead, H = x.shape
+    xs = (x * head_w["s"][0].to(x.dtype)).reshape(-1, H)
+    q = head_w["q"]
+    out = torch.empty((xs.shape[0], q.shape[0]), dtype=torch.float32, device=x.device)
+    for r0 in range(0, q.shape[0], _HEAD_ROWS):
+        w = q[r0:r0 + _HEAD_ROWS].to(xs.dtype)
+        out[:, r0:r0 + w.shape[0]] = _mm_f32(xs, w.T)
+    return out.reshape(*lead, q.shape[0])
+
+
+def _quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., dh) -> (int8 values, (...,) f32 per-vector scale): symmetric
+    amax/127 quantization for the int8 KV cache, bit-equal to the JAX
+    model's ``_quantize_kv``."""
+    tf = t.float()
+    s = torch.clamp(tf.abs().amax(dim=-1) / 127.0, min=1e-12)
+    return torch.clamp(torch.round(tf / s[..., None]), -127, 127).to(torch.int8), s
 
 
 def _dispatch_attend(cfg: Qwen2Config, q, k, v, key_mask):
@@ -261,7 +373,9 @@ def _dispatch_attend_cached(cfg: Qwen2Config, q, k, v, key_mask, qstart):
 def _layer_stack(params: dict) -> list[dict]:
     """Per-layer views of the stacked layer dict, one ``unbind`` per leaf:
     the backward then stacks each leaf's L per-layer gradients once, where
-    L indexing views would each add a full-size (L, ...) buffer."""
+    L indexing views would each add a full-size (L, ...) buffer. A quantized
+    leaf ({"q", "s"} or {"q", "s4"}) becomes the same dict of per-layer
+    views, contiguous and zero-copy, which the int4 kernel takes as it is."""
 
     def unbind(node):
         if isinstance(node, dict):
@@ -405,6 +519,7 @@ def decode_step(
     dstart: torch.Tensor,     # (B,) first valid decode column per row
     return_hidden: bool = False,
     ragged: bool = True,
+    cache_scale: tuple[torch.Tensor, torch.Tensor] | None = None,
 ):
     """One-token decode for all rows over the slot-uniform cache: row b's
     valid columns are [0, lens[b]) ∪ [dstart[b], slot]. Every row writes
@@ -414,7 +529,13 @@ def decode_step(
     engine, kept as the CPU reference only (on the card decode attention is
     the kernel's).
 
-    Returns (logits (B,V) f32, hidden (B,H) | None, cache_k, cache_v)."""
+    ``cache_scale=(ks, vs)`` (each (L, B, nkv, S) f32) makes the caches int8
+    with per-vector scales: this step's K/V are quantized (``_quantize_kv``)
+    and written at ``slot`` with their scales, in place, and attention
+    reads the int8 cache (the kernel's int8 entry).
+
+    Returns (logits (B,V) f32, hidden (B,H) | None, cache_k, cache_v), plus
+    the (ks, vs) tuple when ``cache_scale`` is given."""
     if not ragged and cache_k.is_cuda:
         raise ValueError("decode_step(ragged=False) is the CPU reference; CUDA "
                          "decode attention runs the ragged kernel")
@@ -427,15 +548,26 @@ def decode_step(
     for l, p in enumerate(_layer_stack(params)):
         a = p["attn"]
         h = rms_norm(x, p["input_layernorm"]["scale"], cfg.rms_norm_eps)
-        q = apply_rope(_proj(h, a["q_proj"]["w"], a["q_proj"]["b"]).reshape(B, 1, nh, dh), cos, sin)
-        k = apply_rope(_proj(h, a["k_proj"]["w"], a["k_proj"]["b"]).reshape(B, 1, nkv, dh), cos, sin)
-        v = _proj(h, a["v_proj"]["w"], a["v_proj"]["b"]).reshape(B, nkv, dh)
-        cache_k[l, :, :, slot] = k[:, 0]
-        cache_v[l, :, :, slot] = v
-        o = attend(q[:, 0], cache_k, cache_v, l, lens, dstart, slot, scale=cfg.attn_scale_)
-        x = x + _proj(o.reshape(B, nh * dh), a["o_proj"]["w"])
+        q = apply_rope(_proj_decode(h, a["q_proj"]["w"], a["q_proj"]["b"]).reshape(B, 1, nh, dh),
+                       cos, sin)
+        k = apply_rope(_proj_decode(h, a["k_proj"]["w"], a["k_proj"]["b"]).reshape(B, 1, nkv, dh),
+                       cos, sin)
+        v = _proj_decode(h, a["v_proj"]["w"], a["v_proj"]["b"]).reshape(B, nkv, dh)
+        if cache_scale is not None:
+            (kq, sk), (vq, sv) = _quantize_kv(k[:, 0]), _quantize_kv(v)
+            cache_k[l, :, :, slot] = kq
+            cache_v[l, :, :, slot] = vq
+            cache_scale[0][l, :, :, slot] = sk
+            cache_scale[1][l, :, :, slot] = sv
+        else:
+            cache_k[l, :, :, slot] = k[:, 0]
+            cache_v[l, :, :, slot] = v
+        o = attend(q[:, 0], cache_k, cache_v, l, lens, dstart, slot, scale=cfg.attn_scale_,
+                   cache_scale=cache_scale)
+        x = x + _proj_decode(o.reshape(B, nh * dh), a["o_proj"]["w"])
         h2 = rms_norm(x, p["post_attention_layernorm"]["scale"], cfg.rms_norm_eps)
         x = x + _mlp(cfg, p, h2)
     x = rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps)
     logits = _lm_head(params, cfg, x)
-    return logits, (x if return_hidden else None), cache_k, cache_v
+    out = (logits, (x if return_hidden else None), cache_k, cache_v)
+    return out if cache_scale is None else out + (cache_scale,)

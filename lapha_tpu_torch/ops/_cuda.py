@@ -31,8 +31,9 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_cached": 0,
-            "ragged_decode_attention": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+            "ragged_decode_attention": 0, "ragged_decode_attention_q8": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "int4_matmul": 0}
 
 _lib = None
 build_log = ""  # nvcc's output of the build this process ran (ptxas register/smem report)
@@ -106,6 +107,11 @@ def lib() -> ctypes.CDLL:
         dll.lapha_ragged_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                                             _I, _I, _I, _I, _I, _F, _P]
         dll.lapha_ragged_decode.restype = _I
+        dll.lapha_ragged_decode_q8.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                                               _I, _I, _I, _I, _I, _F, _P]
+        dll.lapha_ragged_decode_q8.restype = _I
+        dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        dll.lapha_int4_matmul.restype = _I
         bwd = [_P, _P, _P, _P, _P, _P, _P, _P]  # q k v dout lse delta kv_valid qstart
         dll.lapha_flash_bwd_dq.argtypes = bwd + [_P, _I, _I, _I, _I, _I, _I, _F, _P]
         dll.lapha_flash_bwd_dq.restype = _I
@@ -133,13 +139,20 @@ def require(cond: bool, name: str, what: str) -> None:
         raise ValueError(f"{name}: {what}")
 
 
-def require_cuda_bf16(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
-    """The kernels take contiguous bf16 tensors on one CUDA device, 16-byte aligned."""
+def require_cuda(name: str, device: torch.device, dtype: torch.dtype, *, aligned: bool,
+                 **tensors: torch.Tensor) -> None:
+    """Contiguous tensors of ``dtype`` on one CUDA device; ``aligned`` for
+    those the kernel reads with 16-byte loads."""
     for key, t in tensors.items():
         require(t.device == device, name, f"{key} is on {t.device}, expected {device}")
-        require(t.dtype == torch.bfloat16, name, f"{key} must be bfloat16, got {t.dtype}")
+        require(t.dtype == dtype, name, f"{key} must be {dtype}, got {t.dtype}")
         require(t.is_contiguous(), name, f"{key} must be contiguous")
-        require(t.data_ptr() % 16 == 0, name, f"{key} must be 16-byte aligned")
+        require(not aligned or t.data_ptr() % 16 == 0, name, f"{key} must be 16-byte aligned")
+
+
+def require_cuda_bf16(name: str, device: torch.device, **tensors: torch.Tensor) -> None:
+    """The kernels take contiguous bf16 tensors on one CUDA device, 16-byte aligned."""
+    require_cuda(name, device, torch.bfloat16, aligned=True, **tensors)
 
 
 def int32_on(t, device: torch.device, shape: tuple) -> torch.Tensor:

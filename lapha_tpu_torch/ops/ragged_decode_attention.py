@@ -1,6 +1,7 @@
 """Ragged one-token decode attention — Hopper kernel + plain version.
 
-Port of the bf16 entry of ``lapha_tpu/ops/ragged_decode_attention.py``: row
+Port of the bf16 and int8-cache entries of
+``lapha_tpu/ops/ragged_decode_attention.py``: row
 b's query group attends to the slots of one layer of the slot-uniform
 (L, B, nkv, S, dh) decode cache that lie in
 
@@ -12,10 +13,15 @@ walks the two segments separately, so a chunk shared by the prompt tail and
 the decode start is not counted twice. ``cache[layer]`` is a zero-copy view
 in PyTorch, so the layer index is only passed to keep the JAX signature.
 
+``cache_scale=(ks, vs)``, each (L, B, nkv, S) f32, reads an int8 cache
+(the Pallas ``_kernel_q8``): the K scale multiplies the logits after the
+attention scale, and the V scale multiplies the probabilities, after the
+softmax denominator in the kernel and after the normalisation in the plain
+version (the JAX dense int8 path, ``qwen2.decode_step``) — the same values.
+
 A CPU tensor takes the plain version (dense masked attention over the same
 validity); a CUDA tensor launches the kernel or raises. Not ported yet: the
-int8-cache and attention-sink variants (Pallas ``_kernel_q8``,
-``_kernel_sink``, ``_kernel_q8_sink``).
+attention-sink entries (Pallas ``_kernel_sink``, ``_kernel_q8_sink``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ __all__ = ["ragged_decode_attention", "ragged_decode_plain"]
 
 
 def ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart, slot,
-                        pstart=None, scale=None):
+                        pstart=None, scale=None, *, cache_scale=None):
     """Dense masked decode attention, float32 inside; same arguments and
     result as :func:`ragged_decode_attention`."""
     B, nh, dh = q.shape
@@ -46,18 +52,32 @@ def ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart, slot,
     valid = valid[:, None, None, :]
     qg = q.float().reshape(B, nkv, nh // nkv, dh)
     s = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * scale
+    if cache_scale is not None:
+        s = s * cache_scale[0][layer].float()[:, :, None, :]
     s = torch.where(valid, s, NEG_INF)
     p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
     p = p / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    if cache_scale is not None:
+        p = p * cache_scale[1][layer].float()[:, :, None, :]
     o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
     return o.reshape(B, nh, dh).to(q.dtype)
 
 
-def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale):
-    name = "ragged_decode_attention"
+def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, cache_scale):
+    name = "ragged_decode_attention" if cache_scale is None else "ragged_decode_attention_q8"
     B, nh, dh = q.shape
     dev = q.device
-    _cuda.require_cuda_bf16(name, dev, q=q, k_cache=k_cache, v_cache=v_cache)
+    if cache_scale is None:
+        _cuda.require_cuda_bf16(name, dev, q=q, k_cache=k_cache, v_cache=v_cache)
+    else:
+        _cuda.require_cuda_bf16(name, dev, q=q)
+        _cuda.require_cuda(name, dev, torch.int8, aligned=True, k_cache=k_cache, v_cache=v_cache)
+        _cuda.require_cuda(name, dev, torch.float32, aligned=False, k_scale=cache_scale[0],
+                           v_scale=cache_scale[1])
+        _cuda.require(tuple(cache_scale[0].shape) == tuple(k_cache.shape[:4])
+                      and tuple(cache_scale[1].shape) == tuple(k_cache.shape[:4]), name,
+                      f"scales {tuple(cache_scale[0].shape)}, {tuple(cache_scale[1].shape)} "
+                      f"for cache {tuple(k_cache.shape)}")
     L, Bc, nkv, S, dhc = k_cache.shape
     _cuda.require(tuple(v_cache.shape) == tuple(k_cache.shape) and Bc == B
                   and dhc == dh, name,
@@ -73,10 +93,16 @@ def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale):
     pstart = (torch.zeros((B,), dtype=torch.int32, device=dev) if pstart is None
               else _cuda.int32_on(pstart, dev, (B,)))
     out = torch.empty((B, nh, dh), dtype=q.dtype, device=dev)
-    err = _cuda.lib().lapha_ragged_decode(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        dstart.data_ptr(), pstart.data_ptr(), layer, slot, out.data_ptr(),
-        B, nh, nkv, S, dh, float(scale), _cuda.stream_of(q))
+    if cache_scale is None:
+        err = _cuda.lib().lapha_ragged_decode(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+            dstart.data_ptr(), pstart.data_ptr(), layer, slot, out.data_ptr(),
+            B, nh, nkv, S, dh, float(scale), _cuda.stream_of(q))
+    else:
+        err = _cuda.lib().lapha_ragged_decode_q8(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_scale[0].data_ptr(),
+            cache_scale[1].data_ptr(), lens.data_ptr(), dstart.data_ptr(), pstart.data_ptr(),
+            layer, slot, out.data_ptr(), B, nh, nkv, S, dh, float(scale), _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1
     return out
@@ -85,16 +111,16 @@ def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale):
 def ragged_decode_attention(q, k_cache, v_cache, layer, lens, dstart, slot,
                             pstart=None, scale=None, *, cache_scale=None,
                             sinks=None):
-    """q (B,nh,dh); k_cache, v_cache (L,B,nkv,S,dh); layer and slot ints;
-    lens, dstart, pstart (B,). Returns (B,nh,dh) in q.dtype."""
-    if cache_scale is not None or sinks is not None:
-        raise NotImplementedError(
-            "ragged_decode_attention: int8 caches and sinks are not ported yet")
+    """q (B,nh,dh); k_cache, v_cache (L,B,nkv,S,dh), bf16 or (with
+    ``cache_scale``) int8; layer and slot ints; lens, dstart, pstart (B,).
+    Returns (B,nh,dh) in q.dtype."""
+    if sinks is not None:
+        raise NotImplementedError("ragged_decode_attention: sinks are not ported yet")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if q.device.type == "cpu":
         return ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart,
-                                   slot, pstart, scale)
+                                   slot, pstart, scale, cache_scale=cache_scale)
     if q.device.type == "cuda":
         return _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot,
-                            pstart, scale)
+                            pstart, scale, cache_scale)
     raise ValueError(f"ragged_decode_attention: no kernel for device {q.device}")

@@ -3,6 +3,7 @@
 Port of ``ValueFunction`` from ``lapha_tpu/search/value_fn.py`` (without
 ``mesh``). Batches are rounded to ``batch_bucket`` rows and lengths to
 ``pad_multiple``, as in the JAX version, so both see the same padded shapes.
+The parameters may be a quantized tree (``models/quant.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..models import qwen2, value_model
+from ..models.quant import leaf_device
 from ..ops.latent import latent_project, value_head_apply
 
 
@@ -44,7 +46,7 @@ class ValueFunction:
         self.params = params
         self.head = head
         self.cfg = cfg
-        self.device = params["embed"]["weight"].device
+        self.device = leaf_device(params["embed"]["weight"])
         self.max_model_len = int(max_model_len)
         self.pad_multiple = int(pad_multiple)
         self.batch_bucket = int(batch_bucket)

@@ -135,8 +135,8 @@ class MTPOConfig:
     mesh_data: int = -1
     mesh_model: int = 1
     mesh_sequence: int = 1
-    # rollout engine knobs of the JAX engine; the port's engine raises on
-    # kv_quant and spec_decode (not ported yet)
+    # rollout engine knobs of the JAX engine; the port's engine takes
+    # kv_quant="int8" and raises on spec_decode (not ported yet)
     engine_kv_quant: Optional[str] = None     # None | "int8"
     engine_spec_decode: Optional[str] = None  # None | "pld"
     engine_spec_k: int = 3

@@ -39,6 +39,7 @@ import torch
 from ..engine.adapter import SamplingParams
 from ..engine.engine import Engine
 from ..models import value_model
+from ..models.quant import is_quantized, leaf_device
 from ..search import LatentBank
 from ..search.value_fn import ValueFunction
 from . import losses, optim
@@ -66,6 +67,14 @@ class MetricsWriter:
             f.write(json.dumps({"step": step, "name": name, "value": float(value)}) + "\n")
         if self.tb is not None:
             self.tb.add_scalar(name, float(value), step)
+
+
+def _quantized_paths(tree, path: str = "") -> list[str]:
+    if is_quantized(tree):
+        return [path]
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _quantized_paths(v, f"{path}/{k}")]
+    return []
 
 
 class MTPOTrainer:
@@ -98,14 +107,22 @@ class MTPOTrainer:
 
             self.params, self.model_cfg = loader.load_params(
                 model, dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                device=device or ("cuda" if torch.cuda.is_available() else "cpu"))
+                device=device or "cuda")
             if tokenizer is None:
                 tokenizer = AutoTokenizer.from_pretrained(model, trust_remote_code=True)
                 if tokenizer.pad_token is None:
                     tokenizer.pad_token = tokenizer.eos_token
         else:
             self.params, self.model_cfg = model
-        self.device = self.params["embed"]["weight"].device
+        quant_leaves = _quantized_paths(self.params)
+        if quant_leaves:
+            # the JAX trainer's refusal: quantized weights are for serving
+            raise ValueError(
+                "MTPOTrainer requires full-precision parameters; got "
+                f"{len(quant_leaves)} quantized leaves (first: {quant_leaves[0]}). "
+                "Quantized params are for SERVING (Engine / load_params(quantize=...)). "
+                "To train, reload the checkpoint with quantize=None.")
+        self.device = leaf_device(self.params["embed"]["weight"])
         losses.check_attn_impl(args.attn_implementation, self.device)
         self.tokenizer = tokenizer
         gen = torch.Generator(device=self.device).manual_seed(args.seed)

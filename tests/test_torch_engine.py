@@ -184,6 +184,9 @@ def test_sampled_tokens_inside_keep_set_with_softmax_frequencies():
 
 def test_unported_engine_knobs_raise(engines):
     _, teng = engines
-    for kw in (dict(kv_quant="int8"), dict(spec_decode="pld"), dict(auto_continuous=True)):
+    for kw in (dict(spec_decode="pld"), dict(auto_continuous=True)):
         with pytest.raises(ValueError, match="not yet ported"):
             Engine(teng.params, teng.cfg, IdTok(), **kw)
+    # kv_quant takes "int8" only, as the JAX engine
+    with pytest.raises(ValueError, match="kv_quant"):
+        Engine(teng.params, teng.cfg, IdTok(), kv_quant="fp4")

@@ -11,6 +11,16 @@ are weighted averages of N(0,1) values (|v| <= ~5); the kernel rounds P to
 bf16 before P·V and the result to bf16, each at most 2^-9 of max|v|:
 max |diff| <= 3e-2, LSE to 1e-3.
 
+The int8-cache entry of the ragged decode kernel: its K/V values are exact
+in bf16 and the scales fold in f32; both sides round the output to bf16 (at
+most one ulp apart, <= 2^-7 |out|), so per element |diff| <= 5e-3 + 2^-7 ·
+|plain|. That check must fail for faults planted through the inputs (the V
+scales of the next slot, a dropped prompt slot).
+
+The int4 dequant-matmul takes bf16 x and writes f32; the plain version does
+the same arithmetic (exact bf16 x nibble products) with f32 sums in another
+order: max |diff| <= 1e-3 · max |plain|.
+
 The backward kernels (dq; dk/dv) are held against the plain backward on the
 same bf16 inputs and the same saved LSE. They round P and dS to bf16 before
 each product and write bf16, each at most 2^-9 relative, so the tolerance
@@ -23,12 +33,17 @@ import numpy as np
 import pytest
 import torch
 
+from lapha_tpu_torch.models import quant
+from lapha_tpu_torch.models.qwen2 import _quantize_kv
 from lapha_tpu_torch.ops import _cuda
 from lapha_tpu_torch.ops import flash_attention as fa
+from lapha_tpu_torch.ops import int4_matmul as i4
 from lapha_tpu_torch.ops import ragged_decode_attention as rda
 
 ATOL = 3e-2
+Q8_ATOL = 5e-3
 BWD_RTOL = 1e-2
+INT4_RTOL = 1e-3
 
 
 @pytest.fixture
@@ -264,3 +279,214 @@ def test_bf16_loss_through_the_model_reaches_attention(dev):
         assert torch.isfinite(g.float()).all()
         for layer in range(cfg.num_hidden_layers):
             assert g[layer].float().abs().max().item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,nkv", [(8, 8), (12, 2), (16, 2)])
+def test_ragged_q8_kernel_matches_plain(dev, nh, nkv):
+    """The int8-cache entry: GQA groups 1, 6 and 8; a one-slot prompt, a
+    chunk shared by the prompt tail and the decode start, an empty prompt
+    segment, the last column as the slot; caches quantized like the
+    engine's (per-vector int8 + f32 scales)."""
+    rng = np.random.default_rng(100 + nh)
+    L, B, S, dh = 2, 6, 300, 128
+    q = _bf16(rng, (B, nh, dh), dev)
+    kq, ks = _quantize_kv(_bf16(rng, (L, B, nkv, S, dh), dev))
+    vq, vs = _quantize_kv(_bf16(rng, (L, B, nkv, S, dh), dev))
+    lens = torch.tensor([1, 64, 65, 130, 7, 256], dtype=torch.int32, device=dev)
+    dstart = torch.tensor([1, 64, 131, 150, 299, 256], dtype=torch.int32, device=dev)
+    for pstart in (None, torch.tensor([0, 10, 65, 0, 7, 3], dtype=torch.int32, device=dev)):
+        before = _cuda.LAUNCHES["ragged_decode_attention_q8"]
+        out = rda.ragged_decode_attention(q, kq, vq, 1, lens, dstart, S - 1, pstart,
+                                          cache_scale=(ks, vs)).float()
+        ref = rda.ragged_decode_plain(q, kq, vq, 1, lens, dstart, S - 1, pstart,
+                                      cache_scale=(ks, vs)).float()
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["ragged_decode_attention_q8"] == before + 1
+        assert torch.isfinite(out).all()
+        assert _q8_excess(out, ref) <= 0
+
+
+@pytest.mark.cuda
+def test_ragged_q8_kernel_at_the_served_shape(dev):
+    """B=48 rows, S=768, prompts of 512, 12/2 heads (the quantized serving
+    round's decode), against the plain version."""
+    rng = np.random.default_rng(7)
+    L, B, nkv, S, nh, dh = 2, 48, 2, 768, 12, 128
+    q = _bf16(rng, (B, nh, dh), dev)
+    kq, ks = _quantize_kv(_bf16(rng, (L, B, nkv, S, dh), dev))
+    vq, vs = _quantize_kv(_bf16(rng, (L, B, nkv, S, dh), dev))
+    lens = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    dstart = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    for slot in (512, 700):
+        out = rda.ragged_decode_attention(q, kq, vq, 0, lens, dstart, slot,
+                                          cache_scale=(ks, vs)).float()
+        ref = rda.ragged_decode_plain(q, kq, vq, 0, lens, dstart, slot,
+                                      cache_scale=(ks, vs)).float()
+        torch.cuda.synchronize()
+        assert _q8_excess(out, ref) <= 0
+
+
+def _q8_excess(out, ref):
+    """How far the int8-cache kernel's output exceeds its tolerance."""
+    d = (out.float() - ref.float()).abs() - 2.0 ** -7 * ref.float().abs()
+    return d.max().item() - Q8_ATOL
+
+
+@pytest.mark.cuda
+def test_ragged_q8_check_catches_planted_faults(dev):
+    """At the served shape, the kernel given the V scales of the next slot,
+    or lens one short (a dropped prompt slot), fails the tolerance that the
+    true inputs pass."""
+    rng = np.random.default_rng(8)
+    L, B, nkv, S, nh, dh, slot = 1, 48, 2, 768, 12, 128, 700
+    q = _bf16(rng, (B, nh, dh), dev)
+    kq, ks = _quantize_kv(_bf16(rng, (L, B, nkv, S, dh), dev))
+    vq, vs = _quantize_kv(_bf16(rng, (L, B, nkv, S, dh), dev))
+    lens = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    ref = rda.ragged_decode_plain(q, kq, vq, 0, lens, lens, slot, cache_scale=(ks, vs))
+    good = rda.ragged_decode_attention(q, kq, vq, 0, lens, lens, slot, cache_scale=(ks, vs))
+    shifted = rda.ragged_decode_attention(q, kq, vq, 0, lens, lens, slot,
+                                          cache_scale=(ks, vs.roll(-1, dims=-1)))
+    dropped = rda.ragged_decode_attention(q, kq, vq, 0, lens - 1, lens, slot,
+                                          cache_scale=(ks, vs))
+    torch.cuda.synchronize()
+    assert _q8_excess(good, ref) <= 0
+    assert _q8_excess(shifted, ref) > 0
+    assert _q8_excess(dropped, ref) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "int8", "int4"])
+def test_q_matmul_f32_is_not_rounded_to_bf16(dev, kind):
+    """bf16 h on the card: _q_matmul_f32's product above the int4 kernel's
+    rows (and the int8 and plain leaves at any rows) keeps f32 precision,
+    against an f32 product of the same bf16 operands; its gradient reaches
+    h and a plain leaf."""
+    from lapha_tpu_torch.models.qwen2 import _q_matmul_f32
+
+    rng = np.random.default_rng(9)
+    h = _bf16(rng, (2, 300, 512), dev)  # 600 rows: the dequantized product
+    w = _bf16(rng, (512, 384), dev)
+    leaf = {"plain": w, "int8": quant.quantize_weight(w),
+            "int4": quant.quantize_weight_int4(w, 128)}[kind]
+    wd = quant.dequant(leaf, torch.bfloat16)
+    ref = h.float() @ wd.float()
+    out = _q_matmul_f32(h, leaf)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    if kind == "plain":
+        hg, wg = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        g = torch.from_numpy(rng.normal(size=ref.shape).astype(np.float32)).to(dev)
+        gh, gw = torch.autograd.grad((_q_matmul_f32(hg, wg) * g).sum(), (hg, wg))
+        rh, rw = g @ w.float().T, h.float().reshape(-1, 512).T @ g.reshape(-1, 384)
+        for a, b in ((gh, rh), (gw, rw)):
+            assert a.dtype == torch.bfloat16
+            assert (a.float() - b).abs().max().item() <= 1e-2 * b.abs().max().item()
+
+
+def _int4_leaf(rng, IN, OUT, G, dev, L=None):
+    shape = (IN, OUT) if L is None else (L, IN, OUT)
+    w = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    return quant.quantize_weight_int4(w, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,IN,OUT,G", [
+    (1, 1536, 1536, 128),    # one row
+    (48, 1536, 256, 128),    # decode k/v projections
+    (48, 8960, 1536, 128),   # decode down projection
+    (512, 1536, 8960, 128),  # the largest row count the model sends
+    (37, 256, 1000, 64),     # padded rows; OUT neither a multiple of 64 nor of 16
+    (70, 512, 1552, 32),     # OUT a multiple of 16 but not of the 64-column tile
+    (3, 256, 200, 16),       # the smallest group
+])
+def test_int4_kernel_matches_plain(dev, B, IN, OUT, G):
+    rng = np.random.default_rng(B + IN + OUT)
+    x = _bf16(rng, (B, IN), dev)
+    leaf = _int4_leaf(rng, IN, OUT, G, dev)
+    before = _cuda.LAUNCHES["int4_matmul"]
+    out = i4.int4_matmul(x, leaf["q"], leaf["s4"])
+    ref = i4.int4_matmul_plain(x, leaf["q"], leaf["s4"])
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["int4_matmul"] == before + 1
+    assert out.dtype == torch.float32 and tuple(out.shape) == (B, OUT)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= INT4_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_int4_kernel_stacked_layers_and_f32_input(dev):
+    """A per-layer view of stacked (L, IN/2, OUT) weights, and an f32 x (the
+    kernel rounds it to bf16 as the plain version does)."""
+    rng = np.random.default_rng(3)
+    leaf = _int4_leaf(rng, 512, 384, 128, dev, L=3)
+    x = torch.from_numpy(rng.normal(size=(20, 512)).astype(np.float32)).to(dev)
+    for layer in range(3):
+        out = i4.int4_matmul(x, leaf["q"], leaf["s4"], layer=layer)
+        ref = i4.int4_matmul_plain(x, leaf["q"][layer], leaf["s4"][layer])
+        torch.cuda.synchronize()
+        assert (out - ref).abs().max().item() <= INT4_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_int4_and_q8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(4)
+    leaf = _int4_leaf(rng, 256, 128, 8, dev)  # group 8: below the mma depth
+    with pytest.raises(ValueError):
+        i4.int4_matmul(_bf16(rng, (4, 256), dev), leaf["q"], leaf["s4"])
+    leaf = _int4_leaf(rng, 256, 128, 64, dev)
+    with pytest.raises(ValueError):
+        i4.int4_matmul(_bf16(rng, (4, 256), dev), leaf["q"].to(torch.int8), leaf["s4"])
+    q = _bf16(rng, (2, 12, 128), dev)
+    c = torch.zeros((1, 2, 2, 16, 128), dtype=torch.int8, device=dev)
+    sc = torch.ones((1, 2, 2, 16), dtype=torch.float32, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # bf16 scales
+        rda.ragged_decode_attention(q, c, c, 0, lens, lens, 3,
+                                    cache_scale=(sc.to(torch.bfloat16), sc))
+    with pytest.raises(ValueError):  # a bf16 cache with scales
+        rda.ragged_decode_attention(q, c.to(torch.bfloat16), c.to(torch.bfloat16), 0, lens,
+                                    lens, 3, cache_scale=(sc, sc))
+
+
+@pytest.mark.cuda
+def test_quantized_decode_step_on_the_card_matches_the_cpu(dev):
+    """Two layers with int4 projections, int8 embed/head and an int8 KV
+    cache: prefill + one decode step on the card (kernels, bf16) against the
+    CPU (plain versions, f32); both kernels launch."""
+    from lapha_tpu_torch.engine.engine import Engine
+    from lapha_tpu_torch.models import qwen2
+
+    cfg = qwen2.Qwen2Config(vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                            num_hidden_layers=2, num_attention_heads=4,
+                            num_key_value_heads=2, rope_theta=1e6, dtype=torch.bfloat16)
+    params = quant.quantize_params(qwen2.init_params(cfg, torch.Generator(device=dev).manual_seed(0)),
+                                   bits=4)
+    cpu = quant.tree_to(params, "cpu", torch.float32)
+    cfg_cpu = qwen2.Qwen2Config(**{**cfg.__dict__, "dtype": torch.float32})
+    rng = np.random.default_rng(1)
+    B, T, S = 3, 40, 64
+    ids = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, T)))
+    nxt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B,)))
+    lens = torch.full((B,), T, dtype=torch.int32)
+
+    def run(p, c, device):
+        with torch.inference_mode():
+            cache = qwen2.init_kv_cache(c, B, S, device)
+            _, _, cache = qwen2.forward(p, c, ids.to(device), kv_cache=cache, cache_pos=0)
+            ck, cv, scl = Engine._quantize_cache(cache[0].permute(0, 1, 3, 2, 4).contiguous(),
+                                                 cache[1].permute(0, 1, 3, 2, 4).contiguous())
+            out = qwen2.decode_step(p, c, nxt.to(device), lens.to(device), ck, cv, T,
+                                    lens.to(device), lens.to(device), cache_scale=scl)
+        return out[0].float().cpu()
+
+    before = dict(_cuda.LAUNCHES)
+    got = run(params, cfg, dev)
+    torch.cuda.synchronize()
+    for name in ("int4_matmul", "ragged_decode_attention_q8"):
+        assert _cuda.LAUNCHES[name] > before[name], name
+    assert _cuda.LAUNCHES["ragged_decode_attention"] == before["ragged_decode_attention"]
+    ref = run(cpu, cfg_cpu, torch.device("cpu"))
+    assert float((got - ref).norm() / ref.norm()) <= 5e-2

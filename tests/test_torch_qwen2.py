@@ -157,7 +157,7 @@ def test_hf_checkpoint_loads_like_jax(tmp_path):
 
     d = build_tiny_model_dir(str(tmp_path / "m"), vocab=400)
     jp, jcfg = jloader.load_params(d, dtype=jnp.float32)
-    tp, tcfg = tloader.load_params(d, dtype=torch.float32)
+    tp, tcfg = tloader.load_params(d, dtype=torch.float32, device="cpu")
     for f in ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
               "num_key_value_heads", "rope_theta", "rms_norm_eps", "tie_word_embeddings",
               "attention_bias"):
@@ -179,12 +179,12 @@ def test_value_head_artifacts_load(tmp_path):
     torch.save({"value_head.weight": torch.from_numpy(w).reshape(1, -1),
                 "value_head.bias": torch.tensor([0.25])}, tmp_path / "h.pt")
     for name, b in (("h.npz", 0.5), ("h.pt", 0.25)):
-        head = tloader.load_value_head(str(tmp_path / name), 64)
+        head = tloader.load_value_head(str(tmp_path / name), 64, device="cpu")
         jhead = jloader.load_value_head(str(tmp_path / name), 64)
         np.testing.assert_array_equal(head["w"].numpy(), np.asarray(jhead["w"]))
         assert float(head["b"]) == float(jhead["b"]) == b
     with pytest.raises(ValueError):
-        tloader.load_value_head(str(tmp_path / "h.npz"), 32)
+        tloader.load_value_head(str(tmp_path / "h.npz"), 32, device="cpu")
 
 
 def test_unported_configs_are_refused():

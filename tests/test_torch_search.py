@@ -9,14 +9,23 @@ twice by a fixed script) would leave the merge order to rounding ties.
 Tolerance: the chains are equal — the same texts,
 token ids, flags, cluster ids and visit counts — with floats (Q, P, values,
 ball points) within 1e-6.
+
+Both agents break ties of the frontier score by ``id(node)``, a memory
+address, so the allocations of earlier tests in the same process could
+order tied nodes differently on the two sides. The tests replace ``id`` in
+both search modules by the order in which each module first sees a node:
+deterministic, and the same rule on both sides.
 """
 
+import builtins
 import itertools
 import random
 
 import numpy as np
 import pytest
 
+import lapha_tpu.search.mcts as jmcts_module
+import lapha_tpu_torch.search.mcts as tmcts_module
 from lapha_tpu.engine import FakeEngine, SamplingParams
 from lapha_tpu.search import LatentBank as JBank
 from lapha_tpu.search import MCTSAgent as JMCTS
@@ -27,6 +36,14 @@ from lapha_tpu_torch.search import MCTSAgent as TMCTS
 from lapha_tpu_torch.search import cluster_and_select_disabled as t_cluster
 
 from test_search import ChatTok, _tool
+
+
+@pytest.fixture(autouse=True)
+def _first_seen_order(monkeypatch):
+    for module in (jmcts_module, tmcts_module):
+        order = {}
+        monkeypatch.setattr(module, "id", lambda o, order=order: order.setdefault(
+            builtins.id(o), len(order)), raising=False)
 
 
 def _agent_classes(base):
