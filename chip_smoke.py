@@ -24,6 +24,30 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    and at 512 rows (max |diff| <= 1e-3 * max |plain|: the same exact bf16 x
    nibble products, f32 sums in another order), timed beside
    ``torch._weight_int4pack_mm`` on the same weights.
+1d. The grouped GEMM (K8) against its plain version at the MoE serving
+   path's shapes, timed in turns beside ``torch._grouped_mm``: decode
+   gate/up (96 rows = 24 x top-4 over 60 experts, 2048 -> 1408), decode down
+   (1408 -> 2048) and prefill gate/up (8192 rows), the group sizes from top-4
+   routing of random hidden states through a random router; max |diff| <=
+   1e-3 * max |plain| (the same exact bf16 products, f32 sums in another
+   order), and group sizes shifted by one row (a planted fault) must fail it.
+2d. Two full-width Qwen1.5-MoE-A2.7B layers, card (kernels, bf16) against
+   CPU (plain versions, f32): prefill + one decode step, relative error of
+   the logits <= 5e-2, with the count of (token, layer) routing choices
+   that differ between the two; the same with the card's routing replayed
+   on the CPU; then the MoE block of layer 0 alone with the card's routing
+   forced on the CPU, relative error <= 1e-2.
+10. MoE serving at the full width and depth of Qwen1.5-MoE-A2.7B (24
+   layers, H 2048, 16/16 heads, 60 experts top-4 of width 1408, a
+   sigmoid-gated shared expert of 5632, V 151936, untied; random bf16
+   weights from a seed, 28.6 GB): the phase-3 round (4 parents x 512, n=6,
+   64 new tokens, 4 prefix-hit children, the root value forward,
+   from_pooled + V), launch counts zeroed before it and read after it under
+   "serve_moe" (K8, K1, K3 and K4 must have run), phase 4's checks, a warm
+   round timed, peak device memory; one MoE layer under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the gather path never waits
+   on the host); one decode step at the served shape profiled as in phase
+   9. The MoE model is freed before the dense model is made.
 2. Check the kernel path against the plain path on a small input: two
    layers of the full-width model, prefill + one decode step, on the card
    (kernels, bf16) and on the CPU (plain versions, f32); relative error of
@@ -82,8 +106,8 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    warm step is timed at scripts/bench_train.py's shape (B=8, prompt 3072 +
    completion 1024).
 
-Launch counts are read per path (serve: phase 3; serve_quantized: phase 8;
-train_step: phase 6; update: phase 7). Prints the card's name and power
+Launch counts are read per path (serve_moe: phase 10; serve: phase 3;
+serve_quantized: phase 8; train_step: phase 6; update: phase 7). Prints the card's name and power
 limit, each timing beside them, one JSON line of per-kernel results (each
 row with its time, the plain version's, the time of one PyTorch call that
 computes the same function where there is one, and its bound: the larger
@@ -122,6 +146,11 @@ Q8_ATOL = 5e-3
 # (each K/V vector rounded to amax/254) against a value forward that never
 # quantizes K/V; ~14x the 1.4e-3 read on an H100
 FUSED_Q8_RTOL = 2e-2
+# K8 vs plain: the same exact bf16 products, f32 sums in another order
+GG_RTOL = 1e-3
+# phase 2d's MoE block (bf16 on the card vs f32 on the CPU) with the routing
+# forced equal: ~3.4x the 2.9e-3 read on an H100
+MOE_BLOCK_RTOL = 1e-2
 # the bound's peaks: H100 SXM device memory and dense bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
@@ -407,6 +436,271 @@ def check_quant_kernels(dev, card):
     return results
 
 
+def _grouped_library(xs, w, gs):
+    """One PyTorch call computing K8's product, ``torch._grouped_mm`` on the
+    same bf16 tensors with the int32 cumulative group ends (bf16 output);
+    (fn, None), or (None, the first line of its refusal)."""
+    import torch
+
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    try:
+        fn = lambda: torch._grouped_mm(xs, w, offs=offs)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        return fn, None
+    except Exception as e:  # the yardstick only: K8 itself is checked above
+        return None, (str(e).strip().splitlines() or [type(e).__name__])[0]
+
+
+def _moe_cfg():
+    """Qwen1.5-MoE-A2.7B's published config.json (HF Qwen/Qwen1.5-MoE-A2.7B)."""
+    import torch
+
+    from lapha_tpu_torch.models import qwen2
+
+    return qwen2.Qwen2Config(
+        vocab_size=151936, hidden_size=2048, intermediate_size=5632, num_hidden_layers=24,
+        num_attention_heads=16, num_key_value_heads=16, max_position_embeddings=8192,
+        rope_theta=1e6, rms_norm_eps=1e-6, tie_word_embeddings=False, attention_bias=True,
+        num_experts=60, num_experts_per_tok=4, moe_intermediate_size=1408,
+        shared_expert_intermediate_size=5632, norm_topk_prob=False, dtype=torch.bfloat16)
+
+
+def check_grouped_gemm(dev, card):
+    """Phase 1d: K8 vs its plain version at the MoE path's shapes."""
+    import torch
+
+    from lapha_tpu_torch.ops import grouped_gemm as gg
+    from lapha_tpu_torch.ops import moe
+
+    t_phase = time.perf_counter()
+    cfg = _moe_cfg()
+    H, E, k, Im = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_intermediate_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    router = bf16(H, E, scale=0.02)  # the model's router init
+    w_gu, w_down = bf16(E, H, Im, scale=H ** -0.5), bf16(E, Im, H, scale=Im ** -0.5)
+
+    def routed_rows(tokens):
+        """Top-4 routing of random hidden states: the sorted gathered rows
+        and the group sizes, as moe_ffn_gather forms them."""
+        x = bf16(tokens, H)
+        _, topi = moe.route(x, router, k, False)
+        flat = topi.reshape(-1).long()
+        order = torch.argsort(flat, stable=True)
+        gs = torch.zeros(E, dtype=torch.int32, device=dev).scatter_add_(
+            0, flat, torch.ones_like(flat, dtype=torch.int32))
+        return x.index_select(0, order // k), gs
+
+    results = {}
+    xs_dec, gs_dec = routed_rows(24)
+    xs_pre, gs_pre = routed_rows(4 * 512)
+    cases = (("decode gate/up", xs_dec, w_gu, gs_dec),
+             ("decode down", bf16(xs_dec.shape[0], Im), w_down, gs_dec),
+             ("prefill gate/up", xs_pre, w_gu, gs_pre))
+    for label, xs, w, gs in cases:
+        M, K = xs.shape
+        N = w.shape[-1]
+        out = gg.grouped_gemm(xs, w, gs)
+        ref = gg.grouped_gemm_plain(xs, w, gs)
+        torch.cuda.synchronize()
+        err, top = float((out - ref).abs().max()), float(ref.abs().max())
+        check(bool(torch.isfinite(out).all()) and err <= GG_RTOL * top,
+              f"grouped_gemm {label} M={M} {K}->{N}: max|diff| {err} vs max|plain| {top}")
+        lib, refusal = _grouped_library(xs, w, gs)
+        lib_note = f"_grouped_mm refused: {refusal}"
+        if lib is not None:
+            lib_err = float((lib().float() - ref).abs().max())
+            if lib_err > 1e-2 * top:  # bf16 output: 2^-9 relative
+                lib, lib_note = None, f"_grouped_mm disagrees: max|diff| {lib_err:.3e}"
+            else:
+                lib_note = f"_grouped_mm max|diff| {lib_err:.3e}"
+        ms, plain_ms, lib_ms = _ab_ms(lambda: gg.grouped_gemm(xs, w, gs),
+                                      lambda: gg.grouped_gemm_plain(xs, w, gs), lib)
+        touched = int((gs > 0).sum())
+        # x once, the weights of the experts that receive rows, out once
+        nbytes = _nbytes(xs, gs, out) + touched * K * N * w.element_size()
+        row = _row(err, ms, plain_ms, lib_ms, nbytes, 2 * M * K * N)
+        print(f"kernel grouped_gemm {label}: M={M} {K}->{N} over {E} experts ({touched} with "
+              f"rows; group sizes min {int(gs.min())} max {int(gs.max())}): max|diff| {err:.3e} "
+              f"(max|plain| {top:.3e}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
+              f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'} ({lib_note}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{card}]", flush=True)
+        if label == "decode gate/up":  # the table keeps the decode gate/up shape
+            results["grouped_gemm"] = row
+    # the check sees the fault it is there for: the last row of the first
+    # non-empty group handed to the next expert
+    xs, w, gs = cases[0][1:]
+    shifted = gs.clone()
+    first = int(torch.nonzero(gs)[0])
+    shifted[first] -= 1
+    shifted[(first + 1) % len(gs)] += 1
+    ref = gg.grouped_gemm_plain(xs, w, gs)
+    bad = gg.grouped_gemm(xs, w, shifted)
+    torch.cuda.synchronize()
+    bad_err, top = float((bad - ref).abs().max()), float(ref.abs().max())
+    check(bad_err > GG_RTOL * top, "the grouped_gemm check missed a planted fault")
+    print(f"planted K8 fault (group sizes shifted by one row): max|diff| {bad_err:.3e} "
+          f"(limit {GG_RTOL * top:.3e}), caught; phase 1d took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results
+
+
+def check_moe_reference(params, cfg, dev):
+    """Phase 2d: phase 2's two-layer check on the MoE model, with the
+    routing choices of the two runs compared, then layer 0's MoE block
+    alone with the card's routing forced on the CPU."""
+    import torch
+
+    from lapha_tpu_torch.ops import moe
+
+    seen, route = [], moe.route
+
+    def recording(x, router_w, top_k, norm_topk):
+        topw, topi = route(x, router_w, top_k, norm_topk)
+        seen.append((topw.float().cpu(), topi.cpu()))
+        return topw, topi
+
+    moe.route = recording
+    try:
+        check_small_reference(params, cfg, dev)
+    finally:
+        moe.route = route
+    half = len(seen) // 2  # the card's calls, then the CPU's, in the same order
+    card = seen[:half]
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for (_, a), (_, b) in zip(card, seen[half:]))
+    rows = sum(a.shape[0] for _, a in card)
+    print(f"routing: {flips} of {rows} (token, layer) top-{cfg.num_experts_per_tok} choices "
+          f"differ between the card (bf16) and the CPU (f32) in the two-layer check", flush=True)
+
+    # the same check with the card's routing replayed on the CPU: what is
+    # left is the kernels' and bf16's error, without the flips
+    replay = iter(card)
+    calls = iter(range(2 * half))
+
+    def replaying(x, router_w, top_k, norm_topk):  # the card's calls come first
+        return route(x, router_w, top_k, norm_topk) if next(calls) < half else next(replay)
+
+    moe.route = replaying
+    try:
+        check_small_reference(params, cfg, dev, note=", the card's routing replayed on the CPU")
+    finally:
+        moe.route = route
+
+    sub, _, cpu, _ = _two_layers(params, cfg)
+    p, pc = _layer0_moe(sub), _layer0_moe(cpu)
+    x = torch.randn((192, cfg.hidden_size), generator=torch.Generator(device=dev).manual_seed(
+        SEED + 11), device=dev).to(torch.bfloat16)
+    kw = dict(top_k=cfg.num_experts_per_tok, norm_topk=cfg.norm_topk_prob)
+    with torch.inference_mode():
+        topw, topi = moe.route(x, p["router"]["w"], **kw)
+        got = moe.moe_ffn_gather(x, p, routing=(topw, topi), **kw) + moe.shared_expert(x, p["shared"])
+        xc = x.float().cpu()
+        ref = (moe.moe_ffn_gather(xc, pc, routing=(topw.float().cpu(), topi.cpu()), **kw)
+               + moe.shared_expert(xc, pc["shared"]))
+    e_block = _rel(got.float().cpu(), ref)
+    print(f"MoE block of layer 0 with the routing forced equal (192 tokens; card K8 bf16 vs "
+          f"CPU plain f32): rel err {e_block:.3e}", flush=True)
+    check(e_block <= MOE_BLOCK_RTOL, f"MoE block rel err {e_block}")
+
+
+def _layer0_moe(params):
+    from lapha_tpu_torch.models import qwen2
+
+    return qwen2._layer_stack(params)[0]["moe"]
+
+
+def serve_moe(dev, card):
+    """Phases 2d and 10 on one MoE model made here and freed before the
+    return. Returns the launch counts of the first round."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine import Engine, SamplingParams
+    from lapha_tpu_torch.models import qwen2, quant, value_model
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.search import ValueFunction
+
+    cfg = _moe_cfg()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = qwen2.init_params(cfg, gen)
+    head = value_model.init_value_head(cfg.hidden_size, gen)
+    torch.cuda.synchronize()
+    print(f"MoE weights (Qwen1.5-MoE-A2.7B, {cfg.num_hidden_layers} layers, random bf16): "
+          f"{quant.params_nbytes(params) / 1e9:.2f} GB made in {time.perf_counter() - t0:.2f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]", flush=True)
+    check_moe_reference(params, cfg, dev)
+
+    P, n, plen, new = 4, 6, 512, 64
+    eng = Engine(params, cfg, IdTok(), max_model_len=plen + 2 * new + 128, max_batch=P * n,
+                 decode_chunk=32, pad_multiple=128, batch_bucket=1, eos_token_ids=[],
+                 seed=SEED, collect_h0=True)
+    vf = ValueFunction(params, head, cfg, max_model_len=1024, pad_multiple=128, batch_bucket=P)
+    sp = SamplingParams(n=n, temperature=0.8, top_p=0.95, top_k=20, max_tokens=new, seed=1)
+    rng = np.random.default_rng(SEED + 12)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    run = _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, P, new)
+    launches = dict(_cuda.LAUNCHES)
+    for name in ("grouped_gemm", "flash_attention", "flash_attention_cached",
+                 "ragged_decode_attention"):
+        check(launches[name] > 0, f"{name} never launched on the MoE served path")
+    _check_round(run, vf, cfg.vocab_size, cfg.hidden_size, P, n, P, new, REF_RTOL)
+    print(f"launches on the MoE served path: {launches}; first (cold) round "
+          f"{run['t_all']:.2f} s [{card}]", flush=True)
+
+    warm = _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, P, new)
+    tp, tk = warm["t_par"], warm["t_kid"]
+    rows_tok = P * n * new
+    print(f"MoE warm parents: prefill {tp['prefill_s'] * 1e3:.1f} ms (4 x 512 tokens), decode "
+          f"{tp['decode_s'] * 1e3:.1f} ms for {tp['decode_steps']} steps x {P * n} rows = "
+          f"{rows_tok / tp['decode_s']:.1f} tok/s [{card}]", flush=True)
+    print(f"MoE warm children: prefix-hit prefill {tk['prefill_s'] * 1e3:.1f} ms (4 x 64-token "
+          f"suffix at qstart 512), decode {tk['decode_s'] * 1e3:.1f} ms = "
+          f"{rows_tok / tk['decode_s']:.1f} tok/s; root value forward (4 x 512) "
+          f"{warm['t_value'] * 1e3:.1f} ms; whole round {warm['t_all']:.2f} s [{card}]", flush=True)
+    print(f"MoE serving memory: params_nbytes {quant.params_nbytes(params) / 1e9:.2f} GB, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]", flush=True)
+
+    # one MoE layer call never waits on the host
+    h = torch.randn((P * n, cfg.hidden_size), generator=gen, device=dev).to(cfg.dtype)
+    layer = qwen2._layer_stack(params)[0]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = qwen2._mlp(cfg, layer, h)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.float()).all()), "MoE layer output finite")
+    print(f"sync debug mode 'error': one MoE layer ({P * n} rows) ran without a host sync",
+          flush=True)
+
+    # where one decode step's time goes at the served shape
+    del eng, vf, run, warm
+    torch.cuda.empty_cache()
+    S = plen + 2 * new
+    shape = (cfg.num_hidden_layers, P * n, cfg.num_key_value_heads, S, cfg.head_dim_)
+    cache = tuple((torch.randn(shape, generator=gen, device=dev) * 0.5).to(cfg.dtype)
+                  for _ in range(2))
+    tok = torch.randint(2, cfg.vocab_size, (P * n,), generator=gen, device=dev)
+    lens = torch.full((P * n,), plen, dtype=torch.int32, device=dev)
+    _profile_decode("MoE, bf16 weights, bf16 KV", params, cfg, tok, lens, cache, None, plen, 5,
+                    card)
+    del params, head, layer, out, cache
+    torch.cuda.empty_cache()
+    print(f"phases 2d and 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def check_backward_kernels(dev, card):
     """Phase 1b: the dq and dk/dv kernels vs the plain backward."""
     import numpy as np
@@ -490,11 +784,12 @@ def _two_layers(params, cfg):
     return sub, cfg2, cpu, dataclasses.replace(cfg2, dtype=torch.float32)
 
 
-def check_small_reference(params, cfg, dev, bits=None):
+def check_small_reference(params, cfg, dev, bits=None, note=""):
     """Phase 2: two layers of the full-width model, kernels (card, bf16) vs
     plain versions (CPU, f32): cached prefill logits and one decode step.
     Phase 2c (``bits`` 4 or 8): the same with ``quantize_params(bits=)``
-    weights and an int8 KV cache for the decode step."""
+    weights and an int8 KV cache for the decode step. ``note`` names a
+    variant in the printed line."""
     import numpy as np
     import torch
 
@@ -537,8 +832,8 @@ def check_small_reference(params, cfg, dev, bits=None):
     real = mask > 0
     e_prefill = _rel(g_logits[real], c_logits[real])
     e_decode = _rel(g_step, c_step)
-    what = ("" if bits is None else
-            f", int{bits} weights (int8 embed/head), int8 KV cache for the decode step")
+    what = note + ("" if bits is None else
+                   f", int{bits} weights (int8 embed/head), int8 KV cache for the decode step")
     print(f"reference check (2 layers{what}; card kernels bf16 vs CPU plain f32): prefill logits "
           f"rel err {e_prefill:.3e}, decode logits rel err {e_decode:.3e}", flush=True)
     check(e_prefill <= REF_RTOL and e_decode <= REF_RTOL,
@@ -938,12 +1233,10 @@ def serve_quantized(params, head, cfg, card):
 def profile_decode_step(params, cfg, card):
     """Phase 9: one decode step at bench.py's shape, in three configurations,
     on the host clock and in the profiler's device time."""
-    from collections import defaultdict
-
     import torch
 
     from lapha_tpu_torch.engine.engine import Engine
-    from lapha_tpu_torch.models import quant, qwen2
+    from lapha_tpu_torch.models import quant
 
     B, prompt, S, steps = 48, 512, 768, 5
     dev = params["norm"]["scale"].device
@@ -957,42 +1250,57 @@ def profile_decode_step(params, cfg, card):
     runs = (("bf16 weights, bf16 KV", params, (ck, cv), None),
             ("bf16 weights, int8 KV", params, (kq, vq), scl),
             ("int4 weights, int8 KV", quant.quantize_params(params, bits=4), (kq, vq), scl))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for label, p, cache, cache_scale in runs:
-        slot = prompt
-
-        def step():
-            nonlocal slot
-            qwen2.decode_step(p, cfg, tok, lens.long() + (slot - prompt), cache[0], cache[1],
-                              slot, lens, lens, cache_scale=cache_scale)
-            slot += 1
-
-        with torch.inference_mode():
-            step()  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
-                torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) / steps * 1e3
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(steps):
-                    step()
-                torch.cuda.synchronize()
-        by_kernel, n_launch = defaultdict(float), 0
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                by_kernel[ev.name] += ev.device_time_total / 1e3 / steps  # us -> ms per step
-                n_launch += 1
-        dev_ms = sum(by_kernel.values())
-        check(dev_ms > 0, f"the profiler saw no device time ({label})")
-        print(f"decode step profile, {label} (B={B}, S={S}, prompts {prompt}): {wall_ms:.2f} ms "
-              f"host clock, {dev_ms:.2f} ms device busy ({100 * dev_ms / wall_ms:.1f}%), "
-              f"{n_launch / steps:.0f} kernel launches per step [{card}]", flush=True)
-        for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"    {ms:8.3f} ms  {name[:110]}", flush=True)
+        _profile_decode(label, p, cfg, tok, lens, cache, cache_scale, prompt, steps, card)
     del runs, ck, cv, kq, vq, scl
     torch.cuda.empty_cache()
+
+
+def _profile_decode(label, p, cfg, tok, lens, cache, cache_scale, prompt: int, steps: int, card):
+    """Decode steps over ``cache`` (prompts of ``prompt`` tokens, one new
+    slot per step): host clock per step with the device synchronised, then
+    the profiler's device time (the CUDA kernels' own time summed), launches
+    per step and the largest kernels."""
+    from collections import defaultdict
+
+    import torch
+
+    from lapha_tpu_torch.models import qwen2
+
+    B, S = tok.shape[0], cache[0].shape[3]
+    slot = prompt
+
+    def step():
+        nonlocal slot
+        qwen2.decode_step(p, cfg, tok, lens.long() + (slot - prompt), cache[0], cache[1],
+                          slot, lens, lens, cache_scale=cache_scale)
+        slot += 1
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        step()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+    by_kernel, n_launch = defaultdict(float), 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[ev.name] += ev.device_time_total / 1e3 / steps  # us -> ms per step
+            n_launch += 1
+    dev_ms = sum(by_kernel.values())
+    check(dev_ms > 0, f"the profiler saw no device time ({label})")
+    print(f"decode step profile, {label} (B={B}, S={S}, prompts {prompt}): {wall_ms:.2f} ms "
+          f"host clock, {dev_ms:.2f} ms device busy ({100 * dev_ms / wall_ms:.1f}%), "
+          f"{n_launch / steps:.0f} kernel launches per step [{card}]", flush=True)
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:8.3f} ms  {name[:110]}", flush=True)
 
 
 def main() -> int:
@@ -1023,6 +1331,10 @@ def main() -> int:
     kernels = check_kernels(dev, card)
     kernels.update(check_backward_kernels(dev, card))
     kernels.update(check_quant_kernels(dev, card))
+    kernels.update(check_grouped_gemm(dev, card))
+
+    # ---------------- MoE serving at full width and depth, counted; freed after
+    launches = {"serve_moe": serve_moe(dev, card)}
 
     cfg = qwen2.Qwen2Config(
         vocab_size=151936, hidden_size=1536, intermediate_size=8960,
@@ -1048,7 +1360,7 @@ def main() -> int:
     torch.cuda.synchronize()
     _cuda.reset_launches()
     run = _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, P, new)
-    launches = {"serve": dict(_cuda.LAUNCHES)}
+    launches["serve"] = dict(_cuda.LAUNCHES)
 
     # ---------------- checks on what came out
     for name in ("flash_attention", "flash_attention_cached", "ragged_decode_attention"):
@@ -1100,6 +1412,8 @@ def main() -> int:
                                        "lapha_tpu/ops/ragged_decode_attention.py:86"),
         "int4_matmul": ("lapha_tpu_torch/csrc/int4_matmul.cu",
                         "lapha_tpu/ops/int4_matmul.py:83"),
+        "grouped_gemm": ("lapha_tpu_torch/csrc/grouped_gemm.cu",
+                         "lapha_tpu/ops/moe.py:290"),
     }
     rows = []
     for name, (src, rep) in replaces.items():

@@ -4,8 +4,9 @@
 subpackage layout so each module has an obvious partner; it imports
 ``torch`` and neither ``jax`` nor anything of ``lapha_tpu``. What is ported
 so far is the serving path — value-guided generation, i.e. what one
-expansion of value-mode MCTS costs on the device — and the training step
-on top of it (MCTS rollout, hyperbolic shaping, GRPO + value update):
+expansion of value-mode MCTS costs on the device — with quantized weights
+and KV cache and the MoE family, and the training step on top of it (MCTS
+rollout, hyperbolic shaping, GRPO + value update):
 
 - ``ops.hyperbolic``       — all ten Poincaré-ball functions
 - ``ops.latent``           — pool_mask, masked_mean, latent_project,
@@ -14,13 +15,19 @@ on top of it (MCTS rollout, hyperbolic shaping, GRPO + value update):
                              CUDA kernel ``csrc/flash_attention.cu``; the
                              causal one is an autograd Function whose
                              backward is ``csrc/flash_attention_bwd.cu``
-- ``ops.ragged_decode_attention`` — bf16 ragged decode attention: CUDA
-                             kernel ``csrc/ragged_decode_attention.cu``
-- ``models.qwen2``         — the dense Qwen2/Llama decoder: forward with and
-                             without a cache (training: remat "full"),
-                             decode_step
+- ``ops.ragged_decode_attention`` — ragged decode attention over a bf16
+                             or int8 cache: CUDA kernel
+                             ``csrc/ragged_decode_attention.cu``
+- ``ops.int4_matmul``      — W4A16 projections: ``csrc/int4_matmul.cu``
+- ``ops.moe``              — MoE routing and block (gather / dense impls)
+- ``ops.grouped_gemm``     — the expert products: ``csrc/grouped_gemm.cu``
+- ``models.qwen2``         — the Qwen2/Llama decoder, dense or MoE (qwen2_moe,
+                             qwen3_moe, mixtral): forward with and without a
+                             cache (training: remat "full"), decode_step
 - ``models.value_model``   — linear value head + value_forward
-- ``models.loader``        — HF bf16 load, value-head load, params_from_numpy
+- ``models.quant``         — int8 / int4 weight quantization
+- ``models.loader``        — HF load (dense and MoE, optionally quantized),
+                             value-head load, params_from_numpy
 - ``engine.adapter``       — SamplingParams / CompletionOutput / RequestOutput
 - ``engine.sampling``      — vLLM-order sampling with logprobs (exact top-k)
 - ``engine.prefix_cache``  — token-prefix KV store

@@ -1,0 +1,262 @@
+// Grouped GEMM (the MoE expert products) for Hopper: out[r] = x[r] @ w[g]
+// for every row r of group g, the groups being contiguous row ranges,
+// rows [off_g, off_g + group_sizes[g]) with off_g = Σ_{h<g} group_sizes[h].
+//
+// Replaces lapha_tpu/ops/moe.py _grouped_gemm :290 (megablox.gmm :303 on the
+// TPU, jax.lax.ragged_dot elsewhere): x (M, K) bf16, w (G, K, N) bf16 with
+// each expert's weights [K][N] row-major, group_sizes (G,) int32 on the
+// device -> out (M, N) f32 (preferred_element_type=float32). Rows past
+// Σ group_sizes are written as zeros, as ragged_dot gives.
+//
+// What bounds it on an H100: the expert weights. At decode (M = 96 rows,
+// 24 rows x top-4, over 60 experts) each touched expert's K·N weights feed
+// ~2 rows: the bound is ~48 experts x 5.8 MB at 3.35 TB/s. At prefill (M =
+// 8192) all 60 experts (346 MB) are read for ~137 rows each: 2·M·K·N = 47
+// GFLOP is 0.05 ms at 989 TFLOP/s, under the 0.10 ms of the weight stream.
+// The design reads every weight tile from device memory once per row tile
+// and keeps loads in flight: a CTA owns a 64-row x 64-column output tile of
+// one expert and walks K in steps of 32 through a 3-stage cp.async ring, so
+// two tiles are in flight while the tensor cores work on the third.
+//
+// The group sizes never leave the device (the MoE layer never waits on the
+// host): each CTA builds the exclusive prefix sums of the row counts and of
+// the 64-row tile counts in shared memory (one warp, shuffle scans over 32
+// groups at a time) and finds its (expert, row tile) by binary search over
+// the tile offsets. The grid is fixed: ceil(M/64) + G + 1 row tiles (enough
+// for any split of M rows into G groups, plus the zero tail) x ceil(N/64)
+// column tiles; CTAs past the last tile exit at once, and rows past a
+// group's end are never read or written.
+//
+// Products: mma.sync m16n8k16 bf16 with f32 accumulators (common.cuh); each
+// of the 4 warps owns 32x32 of the tile. A tiles are [m][k] and read as
+// fragments with ldmatrix; B tiles keep the weights' [k][n] layout and are
+// read with ldmatrix.trans. Rows past the group, K past its end and columns
+// past N are zero-filled by cp.async. Simple first version: no TMA or
+// wgmma, and 64-row tiles spend tensor-core work on padding at decode
+// (~2 rows per expert), where the weight stream bounds it anyway.
+
+#include "common.cuh"
+
+namespace {
+
+using lapha::mma_bf16_16816;  // fragment layout: common.cuh
+
+constexpr int BM = 64;      // output rows per CTA (one expert's rows)
+constexpr int BN = 64;      // output columns per CTA
+constexpr int BK = 32;      // K per pipeline stage
+constexpr int NT = 128;     // threads: 4 warps, 2 x 2 over the tile, 32x32 each
+constexpr int STAGES = 3;   // cp.async ring depth
+constexpr int LDA = BK + 8; // 80-byte smem rows: 16-byte aligned, ldmatrix conflict-free
+constexpr int LDB = BN + 8; // 144-byte smem rows: the same
+constexpr int GMAX = 1024;  // most groups the prefix sums hold
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled (nothing read) when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed: from [k][n] rows, lane 4g + t4 gets
+// (k = 2t4, 2t4 + 1; n = g), an mma B fragment.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// out[n], out[n + 1] of one row, masked at N
+__device__ __forceinline__ void store2(float* row, int n, int N, float a, float b) {
+  if (n + 1 < N && (N & 1) == 0) {
+    *reinterpret_cast<float2*>(row + n) = make_float2(a, b);
+  } else {
+    if (n < N) row[n] = a;
+    if (n + 1 < N) row[n + 1] = b;
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+grouped_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // (M, K)
+                    const __nv_bfloat16* __restrict__ w,  // (G, K, N)
+                    const int* __restrict__ group_sizes,  // (G,)
+                    float* __restrict__ out,              // (M, N)
+                    int M, int K, int N, int G, int vec_b) {
+  __shared__ int s_roff[GMAX + 1];  // exclusive prefix sum of the group sizes
+  __shared__ int s_toff[GMAX + 1];  // exclusive prefix sum of the 64-row tiles
+  __shared__ __align__(16) __nv_bfloat16 sA[STAGES][BM * LDA];  // x tile, [m][k]
+  __shared__ __align__(16) __nv_bfloat16 sB[STAGES][BK * LDB];  // w tile, [k][n]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (warp == 0) {
+    int rows = 0, tiles = 0;
+    for (int base = 0; base < G; base += 32) {
+      const int g = base + lane;
+      const int s = g < G ? max(group_sizes[g], 0) : 0;
+      const int nt = (s + BM - 1) / BM;
+      int rs = s, ts = nt;  // inclusive scans over the 32 lanes
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int r = __shfl_up_sync(0xffffffffu, rs, o);
+        const int t = __shfl_up_sync(0xffffffffu, ts, o);
+        if (lane >= o) {
+          rs += r;
+          ts += t;
+        }
+      }
+      if (g < G) {
+        s_roff[g] = rows + rs - s;
+        s_toff[g] = tiles + ts - nt;
+      }
+      rows += __shfl_sync(0xffffffffu, rs, 31);
+      tiles += __shfl_sync(0xffffffffu, ts, 31);
+    }
+    if (lane == 0) {
+      s_roff[G] = rows;
+      s_toff[G] = tiles;
+    }
+  }
+  __syncthreads();
+
+  const int t = blockIdx.x, n0 = blockIdx.y * BN;
+  const int n_tiles = s_toff[G];
+  const int total = min(s_roff[G], M);
+  if (t >= n_tiles) {
+    // past the groups: rows [total, M) are zeros, as ragged_dot gives
+    const int r0 = total + (t - n_tiles) * BM;
+    if (r0 >= M) return;
+    const int r1 = min(r0 + BM, M);
+    for (int i = tid; i < (r1 - r0) * BN; i += NT) {
+      const int r = r0 + i / BN, n = n0 + i % BN;
+      if (n < N) out[static_cast<size_t>(r) * N + n] = 0.f;
+    }
+    return;
+  }
+  int lo = 0, hi = G - 1;  // the largest g with s_toff[g] <= t: a non-empty group
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (s_toff[mid] <= t) lo = mid;
+    else hi = mid - 1;
+  }
+  const int g = lo;
+  const int r0 = s_roff[g] + (t - s_toff[g]) * BM;         // this CTA's rows [r0, r1)
+  const int r1 = min(min(s_roff[g + 1], r0 + BM), M);
+  if (r0 >= r1) return;  // only when Σ group_sizes > M
+  const __nv_bfloat16* wg = w + static_cast<size_t>(g) * K * N;
+
+  auto load_tile = [&](int stage, int kt) {
+    const int k0 = kt * BK;
+    // x rows r0.. of this group: BM x BK in 16-byte chunks
+    for (int i = tid; i < BM * (BK / 8); i += NT) {
+      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+      const bool ok = r0 + r < r1 && k0 + c < K;
+      const __nv_bfloat16* src = ok ? x + static_cast<size_t>(r0 + r) * K + k0 + c : x;
+      cp_async16(&sA[stage][r * LDA + c], src, ok);
+    }
+    // the expert's weights: BK rows of k, BN columns
+    for (int i = tid; i < BK * (BN / 8); i += NT) {
+      const int kr = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      const int k = k0 + kr, n = n0 + c;
+      __nv_bfloat16* dst = &sB[stage][kr * LDB + c];
+      if (vec_b) {
+        const bool ok = k < K && n < N;
+        cp_async16(dst, ok ? wg + static_cast<size_t>(k) * N + n : wg, ok);
+      } else {  // rows of w not 16-byte aligned (N % 8 != 0): element loads
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dst[j] = (k < K && n + j < N) ? wg[static_cast<size_t>(k) * N + n + j]
+                                        : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const bool live = wm < r1 - r0;  // warp-uniform: the warp has rows of the group
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+
+  const int nk = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_tile(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; and stage (kt-1)%STAGES is free
+    const int pf = kt + STAGES - 1;
+    if (pf < nk) load_tile(pf % STAGES, pf);
+    cp_async_commit();
+    if (!live) continue;
+    const __nv_bfloat16* a = sA[kt % STAGES];
+    const __nv_bfloat16* b = sB[kt % STAGES];
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      uint32_t af[2][4], bf[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)  // matrices (rows 0-7|8-15) x (k 0-7|8-15)
+        ldsm_x4(af[mi], a + (wm + mi * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDA +
+                            ks + 8 * (lane >> 4));
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)  // matrices (k 0-7|8-15) x (n 0-7|8-15)
+        ldsm_x4_t(bf[nj], b + (ks + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDB +
+                              wn + nj * 16 + 8 * (lane >> 4));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16_16816(acc[mi][ni], af[mi], bf[ni >> 1][2 * (ni & 1)],
+                         bf[ni >> 1][2 * (ni & 1) + 1]);
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int ra = r0 + wm + mi * 16 + (lane >> 2), rb = ra + 8;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int n = n0 + wn + ni * 8 + 2 * (lane & 3);
+      if (ra < r1) store2(out + static_cast<size_t>(ra) * N, n, N, acc[mi][ni][0], acc[mi][ni][1]);
+      if (rb < r1) store2(out + static_cast<size_t>(rb) * N, n, N, acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int lapha_grouped_gemm(const void* x, const void* w, const void* group_sizes, void* out,
+                                  int M, int K, int N, int G, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || G <= 0 || G > GMAX || K % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_b = (N % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) ? 1 : 0;
+  const dim3 grid((M + BM - 1) / BM + G + 1, (N + BN - 1) / BN);
+  grouped_gemm_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const int*>(group_sizes), static_cast<float*>(out), M, K, N, G, vec_b);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,7 +1,7 @@
 """HF checkpoint -> parameter dict, and numpy trees -> tensors.
 
-Port of the dense qwen2/llama part of ``lapha_tpu/models/loader.py``, with
-its load-time quantization (``quantize="int8"|"int4"``, done on the host by
+Port of the qwen2/llama and MoE (qwen2_moe, qwen3_moe, mixtral) part of
+``lapha_tpu/models/loader.py``, with its load-time quantization (``quantize="int8"|"int4"``, done on the host by
 ``quant.quantize_weight``/``quantize_weight_int4``, bit-equal to the JAX
 loader's numpy code, so only the quantized weights reach the card), plus ``params_from_numpy``, which turns the JAX package's
 parameter pytree after ``tree_map(np.asarray)`` into this package's tensors
@@ -25,6 +25,20 @@ from .qwen2 import Qwen2Config
 
 # wrapper checkpoints (base_lm.model.layers...) load too
 _PREFIXES = ("", "model.", "base_lm.model.", "base_lm.")
+
+# MoE tensor names per layout: router, expert gate / up / down (HF Linear
+# weights, (out, in)). "qwen": Qwen1.5-MoE / Qwen3-MoE; "mixtral": w1 = gate,
+# w3 = up, w2 = down under block_sparse_moe.
+_MOE_FMTS = {
+    "qwen": ("layers.{i}.mlp.gate.weight",
+             "layers.{i}.mlp.experts.{e}.gate_proj.weight",
+             "layers.{i}.mlp.experts.{e}.up_proj.weight",
+             "layers.{i}.mlp.experts.{e}.down_proj.weight"),
+    "mixtral": ("layers.{i}.block_sparse_moe.gate.weight",
+                "layers.{i}.block_sparse_moe.experts.{e}.w1.weight",
+                "layers.{i}.block_sparse_moe.experts.{e}.w3.weight",
+                "layers.{i}.block_sparse_moe.experts.{e}.w2.weight"),
+}
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -99,7 +113,10 @@ def load_params(model_dir: str, cfg: Qwen2Config | None = None,
     untied LM head) as per-channel int8; ``quantize="int4"`` packs each
     projection whose in-dim splits into whole group-128 halves as int4 and
     keeps the others, the embedding and the head int8 — the JAX loader's
-    rules. Quantization runs on the host; only its result is moved."""
+    rules. MoE expert stacks are int8 in both modes, and the router and the
+    shared expert's gate stay unquantized, as in JAX. Quantization runs on
+    the host; only its result is moved. Expert stacks are built one layer
+    at a time into their (L, E, in, out) tensor on ``device``."""
     if quantize not in (None, "int8", "int4"):
         raise ValueError(f"unsupported quantize={quantize!r}")
     device = _device(device, "load_params")
@@ -118,9 +135,9 @@ def load_params(model_dir: str, cfg: Qwen2Config | None = None,
     def put_quant(leaf: dict) -> dict:
         return {k: v.contiguous().to(device) for k, v in leaf.items()}
 
-    def stack(fmt: str, transpose: bool = False):
+    def stack(fmt: str, transpose: bool = False, quantizable: bool = True):
         t = torch.stack([ts.get(fmt.format(i=i)) for i in range(L)])
-        if q8 and transpose:  # the big matmul weights, (L, in, out) on the host
+        if q8 and transpose and quantizable:  # the big matmul weights, (L, in, out) on the host
             host = t.float().transpose(-1, -2)
             if q4 and int4_fits(host.shape[-2], 128):
                 return put_quant(quantize_weight_int4(host, 128))
@@ -149,14 +166,54 @@ def load_params(model_dir: str, cfg: Qwen2Config | None = None,
                 "v_proj": {"w": stack(sa + "v_proj.weight", True), "b": bias(sa + "v_proj.bias", nkv * dh)},
                 "o_proj": {"w": stack(sa + "o_proj.weight", True)},
             },
-            "mlp": {
-                "gate_proj": {"w": stack("layers.{i}.mlp.gate_proj.weight", True)},
-                "up_proj": {"w": stack("layers.{i}.mlp.up_proj.weight", True)},
-                "down_proj": {"w": stack("layers.{i}.mlp.down_proj.weight", True)},
-            },
         },
         "norm": {"scale": put(ts.get("norm.weight"))},
     }
+    if cfg.num_experts > 0:
+        E = cfg.num_experts
+
+        def experts(fmt: str):
+            """(L, E, in, out) from the per-expert HF mats, one layer at a
+            time into tensors on ``device``; int8 per (layer, expert, out
+            channel) under ``quantize``."""
+            out = None
+            for i in range(L):
+                host = torch.stack([ts.get(fmt.format(i=i, e=e)) for e in range(E)]).transpose(-1, -2)
+                leaf = quantize_weight(host.float()) if q8 else {"w": host.to(dtype)}
+                if out is None:
+                    out = {k: torch.empty((L, *v.shape), dtype=v.dtype, device=device)
+                           for k, v in leaf.items()}
+                for k, v in leaf.items():
+                    out[k][i] = v
+            return out if q8 else out["w"]
+
+        router, gate, up, down = _MOE_FMTS[cfg.moe_layout]
+        moe = {
+            # the router and the shared expert's gate stay unquantized: tiny,
+            # and routing is precision-sensitive
+            "router": {"w": stack(router, True, quantizable=False)},
+            "experts": {"gate_proj": {"w": experts(gate)}, "up_proj": {"w": experts(up)},
+                        "down_proj": {"w": experts(down)}},
+        }
+        if cfg.shared_expert_intermediate_size > 0:  # qwen2_moe
+            se = "layers.{i}.mlp.shared_expert."
+            moe["shared"] = {
+                "gate_proj": {"w": stack(se + "gate_proj.weight", True)},
+                "up_proj": {"w": stack(se + "up_proj.weight", True)},
+                "down_proj": {"w": stack(se + "down_proj.weight", True)},
+                "gate": {"w": stack("layers.{i}.mlp.shared_expert_gate.weight", True,
+                                    quantizable=False)},
+            }
+        params["layers"]["moe"] = moe
+    else:
+        params["layers"]["mlp"] = {
+            "gate_proj": {"w": stack("layers.{i}.mlp.gate_proj.weight", True)},
+            "up_proj": {"w": stack("layers.{i}.mlp.up_proj.weight", True)},
+            "down_proj": {"w": stack("layers.{i}.mlp.down_proj.weight", True)},
+        }
+    if cfg.qk_norm:
+        params["layers"]["attn"]["q_norm"] = {"scale": stack(sa + "q_norm.weight")}
+        params["layers"]["attn"]["k_norm"] = {"scale": stack(sa + "k_norm.weight")}
     if not cfg.tie_word_embeddings:
         if ts.has("lm_head.weight"):
             params["lm_head"] = {"weight": table("lm_head.weight")}

@@ -1,5 +1,5 @@
-"""Dense Qwen2/Llama decoder in PyTorch — the served and trained subset of
-``lapha_tpu/models/qwen2.py``.
+"""Qwen2/Llama decoder in PyTorch, dense or with a sparse MoE FFN — the
+served and trained subset of ``lapha_tpu/models/qwen2.py``.
 
 The model is a set of functions over a parameter dict with the JAX pytree's
 stacked layout and key names (``layers.attn.q_proj.w`` is (L, H, nh·dh),
@@ -14,11 +14,16 @@ backward is the flash backward pair), the cache-threaded forward through
 through ``ragged_decode_attention``. On the CPU those are their plain
 PyTorch versions.
 
-Matrix products are ``torch.matmul``/``torch.addmm`` in the working dtype
-(f32 accumulation inside, one rounding to the dtype at the output). The JAX
-model keeps the MLP's gate/up products in f32 before the activation; here
-they are rounded to the working dtype first, which only matters in bf16.
-The LM head is computed in f32, as in JAX.
+The attention projections are ``torch.matmul``/``torch.addmm`` in the
+working dtype (f32 accumulation inside, one rounding to the dtype at the
+output). The MLP's products have f32 output (``_mm_f32``, a 16-bit product
+with f32 output on the card), so gate/up stay f32 until the activation, as
+in JAX. The LM head is computed in f32, as in JAX.
+
+MoE layouts (``num_experts > 0``: qwen2_moe, qwen3_moe, mixtral) replace
+the MLP with ``ops.moe.moe_block`` on the flattened tokens (routed experts
+through the grouped GEMM, K8 on the card, plus qwen2_moe's shared expert);
+``qk_norm`` (qwen3_moe) puts a per-head RMS norm on q and k before RoPE.
 
 Quantized weights (``models/quant.py`` leaves, the JAX tree's layout): the
 forward's attention projections dequantize to the working dtype, as the JAX
@@ -36,9 +41,10 @@ the backward (``torch.utils.checkpoint``, saving nothing inside the layer),
 the JAX model's ``remat_policy``; gradients reach the stacked parameters
 through one ``unbind`` per leaf (``_layer_stack``).
 
-Not ported yet: sliding windows, softcaps, sinks, q/k norms, MoE, the other
-norm/MLP styles, windowed decode caches, ``decode_step_multi`` and the
-named remat policies (``save_qkv``, ``save_attn``, ``save_qkv_attn``).
+Not ported yet: sliding windows, softcaps, sinks, full-width (OLMo-2) q/k
+norms, GPT-OSS and DeepSeek MoE, the other norm/MLP styles, windowed decode
+caches, ``decode_step_multi`` and the named remat policies (``save_qkv``,
+``save_attn``, ``save_qkv_attn``).
 """
 
 from __future__ import annotations
@@ -80,11 +86,27 @@ class Qwen2Config:
     rms_norm_eps: float = 1e-6
     tie_word_embeddings: bool = True
     attention_bias: bool = True
+    qk_norm: bool = False  # qwen3: per-head RMS norm on q/k before RoPE
+    # Mixture-of-experts: num_experts == 0 means dense. Every layer is
+    # sparse (mixed dense/sparse stacks are refused by from_hf).
+    num_experts: int = 0
+    num_experts_per_tok: int = 4
+    moe_intermediate_size: int = 0
+    shared_expert_intermediate_size: int = 0
+    norm_topk_prob: bool = False
+    # HF tensor layout of the MoE subtree (loader only): "qwen" (mlp.gate /
+    # mlp.experts.{e}.{gate,up,down}_proj) or "mixtral" (block_sparse_moe.gate
+    # / block_sparse_moe.experts.{e}.{w1,w3,w2})
+    moe_layout: str = "qwen"
+    moe_impl: str = "auto"  # auto | gather | dense | dispatch (ops/moe.py)
+    moe_capacity_factor: float = 2.0  # the dispatch impl's bucket width
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
         if self.rope_scaling and self.rope_scaling[0] not in ("linear", "llama3"):
             raise ValueError(f"rope_scaling {self.rope_scaling[0]!r}: not yet ported")
+        if self.moe_layout not in ("qwen", "mixtral"):
+            raise ValueError(f"moe_layout {self.moe_layout!r} (qwen|mixtral)")
 
     @property
     def head_dim_(self) -> int:
@@ -114,12 +136,74 @@ class Qwen2Config:
 
     @classmethod
     def from_hf(cls, cfg: dict, dtype: torch.dtype = torch.bfloat16) -> "Qwen2Config":
-        """From an HF config.json dict of the dense qwen2 or llama family."""
+        """From an HF config.json dict: dense qwen2 / llama, or the MoE
+        families qwen2_moe, qwen3_moe and mixtral (the JAX package's rules)."""
         mt = cfg.get("model_type", "qwen2")
-        if mt not in ("qwen2", "qwen2_5", "llama"):
+        if mt not in ("qwen2", "qwen2_5", "llama", "qwen2_moe", "qwen3_moe", "mixtral"):
             raise ValueError(f"model_type {mt!r}: not yet ported")
-        if cfg.get("sliding_window") and (mt == "llama" or cfg.get("use_sliding_window")):
+        if cfg.get("sliding_window") and (mt in ("llama", "mixtral")
+                                          or cfg.get("use_sliding_window")):
             raise ValueError("sliding-window checkpoints: not yet ported")
+        if mt == "mixtral":
+            # llama-style attention + top-k experts of the full
+            # intermediate_size, renormalised (norm_topk_prob), no shared expert
+            return cls(
+                vocab_size=cfg["vocab_size"],
+                hidden_size=cfg["hidden_size"],
+                intermediate_size=cfg["intermediate_size"],
+                num_hidden_layers=cfg["num_hidden_layers"],
+                num_attention_heads=cfg["num_attention_heads"],
+                num_key_value_heads=cfg.get("num_key_value_heads", cfg["num_attention_heads"]),
+                head_dim=cfg.get("head_dim"),
+                max_position_embeddings=cfg.get("max_position_embeddings", 32768),
+                rope_theta=cfg.get("rope_theta", 1e6),
+                rope_scaling=cls._parse_rope_scaling(cfg),
+                rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+                tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+                attention_bias=False,
+                num_experts=cfg["num_local_experts"],
+                num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+                moe_intermediate_size=cfg["intermediate_size"],
+                norm_topk_prob=True,
+                moe_layout="mixtral",
+                dtype=dtype,
+            )
+        if mt in ("qwen2_moe", "qwen3_moe"):
+            # qwen2_moe: qkv bias + sigmoid-gated shared expert; qwen3_moe:
+            # per-head q/k RMS norm, no bias, no shared expert
+            L = cfg["num_hidden_layers"]
+            step = max(cfg.get("decoder_sparse_step", 1), 1)
+            mlp_only = cfg.get("mlp_only_layers", []) or []
+            if not all(i not in mlp_only and cfg.get("num_experts", 0) > 0 and (i + 1) % step == 0
+                       for i in range(L)):
+                raise ValueError(
+                    f"{mt} checkpoints with dense layers mixed into the stack are not "
+                    f"supported (decoder_sparse_step={step}, mlp_only_layers={mlp_only})")
+            q3 = mt == "qwen3_moe"
+            return cls(
+                vocab_size=cfg["vocab_size"],
+                hidden_size=cfg["hidden_size"],
+                intermediate_size=cfg["intermediate_size"],
+                num_hidden_layers=L,
+                num_attention_heads=cfg["num_attention_heads"],
+                num_key_value_heads=cfg.get("num_key_value_heads", cfg["num_attention_heads"]),
+                head_dim=cfg.get("head_dim"),
+                max_position_embeddings=cfg.get("max_position_embeddings", 32768),
+                rope_theta=cfg.get("rope_theta", 1e6 if q3 else 10000.0),
+                rope_scaling=cls._parse_rope_scaling(cfg),
+                rms_norm_eps=cfg.get("rms_norm_eps", 1e-6),
+                tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+                attention_bias=(cfg.get("attention_bias", False) if q3
+                                else cfg.get("qkv_bias", True)),
+                qk_norm=q3,
+                num_experts=cfg["num_experts"],
+                num_experts_per_tok=cfg.get("num_experts_per_tok", 4),
+                moe_intermediate_size=cfg.get("moe_intermediate_size", 0),
+                shared_expert_intermediate_size=(
+                    0 if q3 else cfg.get("shared_expert_intermediate_size", 0)),
+                norm_topk_prob=cfg.get("norm_topk_prob", False),
+                dtype=dtype,
+            )
         return cls(
             vocab_size=cfg["vocab_size"],
             hidden_size=cfg["hidden_size"],
@@ -162,7 +246,9 @@ class Qwen2Config:
 
 def init_params(cfg: Qwen2Config, generator: torch.Generator, device=None) -> dict:
     """Random-init a stacked-parameter dict from ``generator`` (on the
-    generator's device unless ``device`` says otherwise)."""
+    generator's device unless ``device`` says otherwise). The JAX tree's
+    layout: a MoE config has ``layers.moe`` (router, expert stacks (L, E,
+    in, out), qwen2_moe's shared expert) in place of ``layers.mlp``."""
     device = generator.device if device is None else torch.device(device)
     L, H, I = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
     nh, nkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
@@ -171,6 +257,14 @@ def init_params(cfg: Qwen2Config, generator: torch.Generator, device=None) -> di
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2] if len(shape) > 1 else shape[-1])
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (w * scale).to(cfg.dtype)
+
+    def init_by_layer(shape):
+        # the expert stacks, drawn one layer at a time: the f32 draw of a
+        # whole (L, E, in, out) stack would double the weights' peak memory
+        out = torch.empty(shape, dtype=cfg.dtype, device=device)
+        for l in range(shape[0]):
+            out[l] = init(shape[1:], 1.0 / math.sqrt(shape[-2]))
+        return out
 
     def ones(*shape):
         return torch.ones(shape, dtype=cfg.dtype, device=device)
@@ -189,14 +283,35 @@ def init_params(cfg: Qwen2Config, generator: torch.Generator, device=None) -> di
                 "v_proj": {"w": init((L, H, nkv * dh)), "b": zeros(L, nkv * dh)},
                 "o_proj": {"w": init((L, nh * dh, H))},
             },
-            "mlp": {
-                "gate_proj": {"w": init((L, H, I))},
-                "up_proj": {"w": init((L, H, I))},
-                "down_proj": {"w": init((L, I, H))},
-            },
         },
         "norm": {"scale": ones(H)},
     }
+    if cfg.num_experts > 0:
+        E, Im, Is = cfg.num_experts, cfg.moe_intermediate_size, cfg.shared_expert_intermediate_size
+        params["layers"]["moe"] = {
+            "router": {"w": init((L, H, E), 0.02)},
+            "experts": {
+                "gate_proj": {"w": init_by_layer((L, E, H, Im))},
+                "up_proj": {"w": init_by_layer((L, E, H, Im))},
+                "down_proj": {"w": init_by_layer((L, E, Im, H))},
+            },
+        }
+        if Is > 0:  # qwen2_moe's always-on shared expert
+            params["layers"]["moe"]["shared"] = {
+                "gate_proj": {"w": init((L, H, Is))},
+                "up_proj": {"w": init((L, H, Is))},
+                "down_proj": {"w": init((L, Is, H))},
+                "gate": {"w": init((L, H, 1), 0.02)},
+            }
+    else:
+        params["layers"]["mlp"] = {
+            "gate_proj": {"w": init((L, H, I))},
+            "up_proj": {"w": init((L, H, I))},
+            "down_proj": {"w": init((L, I, H))},
+        }
+    if cfg.qk_norm:
+        params["layers"]["attn"]["q_norm"] = {"scale": ones(L, dh)}
+        params["layers"]["attn"]["k_norm"] = {"scale": ones(L, dh)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"weight": init((cfg.vocab_size, H), 0.02)}
     return params
@@ -307,8 +422,17 @@ def _proj_decode(h: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Ten
 
 
 def _mlp(cfg: Qwen2Config, p: dict, h: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN on normed hidden h (..., H), plain or quantized leaves:
-    f32 gate/up products before the activation, as the JAX model."""
+    """Post-attention FFN on normed hidden h (..., H): the MoE block on the
+    flattened tokens when the config has experts, else SwiGLU with plain or
+    quantized leaves and f32 gate/up products before the activation, as the
+    JAX model. One definition for the forward and decode_step."""
+    if cfg.num_experts > 0:
+        from ..ops.moe import moe_block  # lazy: ops.moe imports this module
+
+        out = moe_block(h.reshape(-1, h.shape[-1]), p["moe"], top_k=cfg.num_experts_per_tok,
+                        norm_topk=cfg.norm_topk_prob, impl=cfg.moe_impl,
+                        capacity_factor=cfg.moe_capacity_factor)
+        return out.reshape(h.shape)
     m = p["mlp"]
     gate = _q_matmul_f32(h, m["gate_proj"]["w"])
     up = _q_matmul_f32(h, m["up_proj"]["w"])
@@ -405,6 +529,11 @@ def remat_policy(remat) -> bool:
                      "'save_qkv', 'save_attn', 'save_qkv_attn')")
 
 
+def _qk_norm(cfg: Qwen2Config, a: dict, key: str, t: torch.Tensor) -> torch.Tensor:
+    """qwen3's per-head RMS norm over dh (q or k, (..., n, dh)), before RoPE."""
+    return rms_norm(t, a[key]["scale"], cfg.rms_norm_eps) if cfg.qk_norm else t
+
+
 def _layer_body(cfg: Qwen2Config, p: dict, x, cos, sin, key_mask,
                 cache_k=None, cache_v=None, cache_pos=None):
     """One decoder layer. With ``cache_k``/``cache_v`` ((B, S, nkv, dh)
@@ -415,8 +544,9 @@ def _layer_body(cfg: Qwen2Config, p: dict, x, cos, sin, key_mask,
     nh, nkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     a = p["attn"]
     h = rms_norm(x, p["input_layernorm"]["scale"], cfg.rms_norm_eps)
-    q = apply_rope(_proj(h, a["q_proj"]["w"], a["q_proj"]["b"]).reshape(B, T, nh, dh), cos, sin)
-    k = apply_rope(_proj(h, a["k_proj"]["w"], a["k_proj"]["b"]).reshape(B, T, nkv, dh), cos, sin)
+    q = _qk_norm(cfg, a, "q_norm", _proj(h, a["q_proj"]["w"], a["q_proj"]["b"]).reshape(B, T, nh, dh))
+    k = _qk_norm(cfg, a, "k_norm", _proj(h, a["k_proj"]["w"], a["k_proj"]["b"]).reshape(B, T, nkv, dh))
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     v = _proj(h, a["v_proj"]["w"], a["v_proj"]["b"]).reshape(B, T, nkv, dh)
     if cache_k is not None:
         if isinstance(cache_pos, int):
@@ -548,10 +678,11 @@ def decode_step(
     for l, p in enumerate(_layer_stack(params)):
         a = p["attn"]
         h = rms_norm(x, p["input_layernorm"]["scale"], cfg.rms_norm_eps)
-        q = apply_rope(_proj_decode(h, a["q_proj"]["w"], a["q_proj"]["b"]).reshape(B, 1, nh, dh),
-                       cos, sin)
-        k = apply_rope(_proj_decode(h, a["k_proj"]["w"], a["k_proj"]["b"]).reshape(B, 1, nkv, dh),
-                       cos, sin)
+        q = _qk_norm(cfg, a, "q_norm",
+                     _proj_decode(h, a["q_proj"]["w"], a["q_proj"]["b"]).reshape(B, 1, nh, dh))
+        k = _qk_norm(cfg, a, "k_norm",
+                     _proj_decode(h, a["k_proj"]["w"], a["k_proj"]["b"]).reshape(B, 1, nkv, dh))
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         v = _proj_decode(h, a["v_proj"]["w"], a["v_proj"]["b"]).reshape(B, nkv, dh)
         if cache_scale is not None:
             (kq, sk), (vq, sv) = _quantize_kv(k[:, 0]), _quantize_kv(v)

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 LAUNCHES = {"flash_attention": 0, "flash_attention_cached": 0,
             "ragged_decode_attention": 0, "ragged_decode_attention_q8": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "int4_matmul": 0}
+            "int4_matmul": 0, "grouped_gemm": 0}
 
 _lib = None
 build_log = ""  # nvcc's output of the build this process ran (ptxas register/smem report)
@@ -112,6 +112,8 @@ def lib() -> ctypes.CDLL:
         dll.lapha_ragged_decode_q8.restype = _I
         dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         dll.lapha_int4_matmul.restype = _I
+        dll.lapha_grouped_gemm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        dll.lapha_grouped_gemm.restype = _I
         bwd = [_P, _P, _P, _P, _P, _P, _P, _P]  # q k v dout lse delta kv_valid qstart
         dll.lapha_flash_bwd_dq.argtypes = bwd + [_P, _I, _I, _I, _I, _I, _I, _F, _P]
         dll.lapha_flash_bwd_dq.restype = _I

@@ -1,0 +1,178 @@
+"""Sparse Mixture-of-Experts FFN (the Qwen2-MoE block) — port of
+``lapha_tpu/ops/moe.py``.
+
+HF Qwen2MoeSparseMoeBlock semantics: softmax over ALL expert logits in f32,
+top-k, optional re-normalisation, plus an always-on sigmoid-gated shared
+expert where the layout has one (qwen2_moe; not qwen3_moe or mixtral). The
+names, arguments and order of operations are JAX's:
+
+- ``"gather"`` (what ``"auto"`` resolves to off the TPU, as in JAX, so on
+  the card too): a stable sort of the token->expert pairs by expert, a
+  gather, three grouped GEMMs (``ops.grouped_gemm``, the Hopper kernel K8
+  on CUDA tensors), ``silu(g) * u`` in f32 rounded to the dtype, and an f32
+  combine. Exact. Nothing in it reads back to the host: the group sizes
+  are counted with ``scatter_add_`` (``torch.bincount`` on CUDA reads the
+  input's maximum back) and stay on the device, and the combine un-permutes
+  with the inverse permutation and sums each token's k pairs in f32 — JAX's
+  ``.at[tok].add`` without the nondeterministic order of atomic adds.
+- ``"dense"``: every expert computes every token; a (N, E) combine weight
+  matrix zeroes the unselected ones. Exact, E/k times the work; a reference.
+
+Expert and shared-expert leaves may be quantized (``models/quant.py``):
+they are dequantized to the working dtype at the use site, as JAX does.
+The router and the shared-expert gate are never quantized by the loaders.
+
+Not ported yet: the capacity-bucketed ``"dispatch"`` impl and its
+``dispatch_drop_fraction`` diagnostic (expert-parallel, ROADMAP A11),
+``route_deepseek`` (DeepSeek, A9), and GPT-OSS's ``route_topk_softmax``,
+``_gptoss_glu`` and ``moe_block_gptoss`` (the GPT-OSS slice, A9). They
+raise.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..models.quant import dequant, is_quantized
+from ..models.qwen2 import _mm_f32  # qwen2 imports this module inside _mlp only
+from .grouped_gemm import grouped_gemm
+
+__all__ = ["route", "moe_ffn_gather", "moe_ffn_dense", "shared_expert", "moe_block"]
+
+
+def _n_experts(experts: dict) -> int:
+    w = experts["gate_proj"]["w"]
+    return (w["q"] if is_quantized(w) else w).shape[0]
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what}: not yet ported (ROADMAP {item})")
+
+
+def route(x: torch.Tensor, router_w, top_k: int, norm_topk: bool):
+    """Token routing, HF Qwen2MoeSparseMoeBlock parity. x (N, H) ->
+    (topw (N, k) in x.dtype, topi (N, k) int32): f32 logits, softmax over
+    all E first, then top-k of the probabilities (renormalised to sum 1
+    only with ``norm_topk``)."""
+    logits = _mm_f32(x, dequant(router_w, x.dtype))
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, top_k, dim=-1)
+    if norm_topk:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    return topw.to(x.dtype), topi.to(torch.int32)
+
+
+def moe_ffn_gather(x: torch.Tensor, p: dict, *, top_k: int, norm_topk: bool,
+                   routing=None) -> torch.Tensor:
+    """Sort + grouped-GEMM execution. x (N, H) -> (N, H), exact.
+    ``routing=(topw, topi)`` bypasses the router."""
+    N, H = x.shape
+    dtype = x.dtype
+    experts = p["experts"]
+    E = _n_experts(experts)
+    topw, topi = routing if routing is not None else route(
+        x, p["router"]["w"], top_k, norm_topk)
+
+    flat_e = topi.reshape(N * top_k).long()
+    order = torch.argsort(flat_e, stable=True)       # ties keep token order
+    tok = order // top_k                             # source token of each pair
+    xs = x.index_select(0, tok)                      # (N*k, H)
+    group_sizes = torch.zeros(E, dtype=torch.int32, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+
+    g = grouped_gemm(xs, dequant(experts["gate_proj"]["w"], dtype), group_sizes)
+    u = grouped_gemm(xs, dequant(experts["up_proj"]["w"], dtype), group_sizes)
+    a = (F.silu(g) * u).to(dtype)
+    y = grouped_gemm(a, dequant(experts["down_proj"]["w"], dtype), group_sizes)
+
+    w_pair = topw.reshape(N * top_k).index_select(0, order)
+    y = y * w_pair[:, None].float()
+    # back to (token, choice) order, then each token's k pairs summed in f32
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(N * top_k, device=x.device))
+    return y.index_select(0, inv).reshape(N, top_k, H).sum(dim=1).to(dtype)
+
+
+def moe_ffn_dense(x: torch.Tensor, p: dict, *, top_k: int, norm_topk: bool,
+                  routing=None) -> torch.Tensor:
+    """All-experts execution with sparse combine weights. Exact. The
+    products take f32 copies of the dtype's values: exact products summed
+    in f32, JAX's ``preferred_element_type=float32``."""
+    N, H = x.shape
+    dtype = x.dtype
+    experts = p["experts"]
+    wg = dequant(experts["gate_proj"]["w"], dtype)
+    E = wg.shape[0]
+    topw, topi = routing if routing is not None else route(
+        x, p["router"]["w"], top_k, norm_topk)
+    cw = torch.zeros((N, E), dtype=torch.float32, device=x.device).scatter_add_(
+        1, topi.long(), topw.float())
+
+    xf = x.float()
+    g = torch.einsum("nh,ehi->nei", xf, wg.float())
+    u = torch.einsum("nh,ehi->nei", xf, dequant(experts["up_proj"]["w"], dtype).float())
+    a = (F.silu(g) * u).to(dtype)
+    y = torch.einsum("nei,eio->neo", a.float(),
+                     dequant(experts["down_proj"]["w"], dtype).float())
+    return torch.einsum("neo,ne->no", y, cw).to(dtype)
+
+
+def shared_expert(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Always-on shared expert with a sigmoid gate (HF shared_expert +
+    shared_expert_gate). x (N, H) -> (N, H)."""
+    dtype = x.dtype
+    g = _mm_f32(x, dequant(p["gate_proj"]["w"], dtype))
+    u = _mm_f32(x, dequant(p["up_proj"]["w"], dtype))
+    a = (F.silu(g) * u).to(dtype)
+    y = _mm_f32(a, dequant(p["down_proj"]["w"], dtype))
+    if "gate" not in p:  # deepseek shared experts: a plain MLP, no gate
+        return y.to(dtype)
+    gate = torch.sigmoid(_mm_f32(x, dequant(p["gate"]["w"], dtype)))
+    return (y * gate).to(dtype)
+
+
+def moe_block(x: torch.Tensor, p: dict, *, top_k: int, norm_topk: bool,
+              impl: str = "auto", capacity_factor: float = 2.0) -> torch.Tensor:
+    """The whole MoE FFN block on flat tokens x (N, H): routed experts plus
+    the sigmoid-gated shared expert where ``p`` has one. ``impl``: auto |
+    gather | dense | dispatch; ``auto`` is ``gather`` (JAX's choice on every
+    backend but the TPU). ``capacity_factor`` belongs to dispatch."""
+    if impl == "auto":
+        impl = "gather"
+    if impl == "gather":
+        routed = moe_ffn_gather(x, p, top_k=top_k, norm_topk=norm_topk)
+    elif impl == "dense":
+        routed = moe_ffn_dense(x, p, top_k=top_k, norm_topk=norm_topk)
+    elif impl == "dispatch":
+        routed = moe_ffn_dispatch(x, p, top_k=top_k, norm_topk=norm_topk,
+                                  capacity_factor=capacity_factor)
+    else:
+        raise ValueError(f"unknown moe impl {impl!r} (gather|dense|dispatch)")
+    if "shared" in p:  # qwen2_moe; qwen3_moe and mixtral have none
+        routed = routed + shared_expert(x, p["shared"])
+    return routed
+
+
+def moe_ffn_dispatch(x, p, *, top_k, norm_topk, capacity_factor=2.0, group_size=512,
+                     routing=None):
+    _not_ported("moe_ffn_dispatch (the capacity-bucketed expert-parallel impl)", "A11")
+
+
+def dispatch_drop_fraction(x, p, *, top_k, norm_topk, capacity_factor=2.0, group_size=512):
+    _not_ported("dispatch_drop_fraction (the dispatch impl's diagnostic)", "A11")
+
+
+def route_deepseek(x, router_w, bias, **kw):
+    _not_ported("route_deepseek (DeepSeek-V2/V3 routing)", "A9, DeepSeek")
+
+
+def route_topk_softmax(x, router_w, router_b, top_k):
+    _not_ported("route_topk_softmax (GPT-OSS routing)", "A9, GPT-OSS")
+
+
+def _gptoss_glu(gu, limit, alpha):
+    _not_ported("_gptoss_glu (GPT-OSS clamped GLU)", "A9, GPT-OSS")
+
+
+def moe_block_gptoss(x, p, *, top_k, **kw):
+    _not_ported("moe_block_gptoss", "A9, GPT-OSS")

@@ -21,6 +21,11 @@ The int4 dequant-matmul takes bf16 x and writes f32; the plain version does
 the same arithmetic (exact bf16 x nibble products) with f32 sums in another
 order: max |diff| <= 1e-3 · max |plain|.
 
+The grouped GEMM (K8) takes bf16 xs and expert weights and writes f32; the
+plain version forms the same exact bf16 products and sums them in f32 in
+another order: max |diff| <= 1e-3 · max |plain|. Group sizes shifted by one
+row (a planted fault) must fail that check.
+
 The backward kernels (dq; dk/dv) are held against the plain backward on the
 same bf16 inputs and the same saved LSE. They round P and dS to bf16 before
 each product and write bf16, each at most 2^-9 relative, so the tolerance
@@ -37,6 +42,7 @@ from lapha_tpu_torch.models import quant
 from lapha_tpu_torch.models.qwen2 import _quantize_kv
 from lapha_tpu_torch.ops import _cuda
 from lapha_tpu_torch.ops import flash_attention as fa
+from lapha_tpu_torch.ops import grouped_gemm as gg
 from lapha_tpu_torch.ops import int4_matmul as i4
 from lapha_tpu_torch.ops import ragged_decode_attention as rda
 
@@ -44,6 +50,7 @@ ATOL = 3e-2
 Q8_ATOL = 5e-3
 BWD_RTOL = 1e-2
 INT4_RTOL = 1e-3
+GG_RTOL = 1e-3
 
 
 @pytest.fixture
@@ -490,3 +497,99 @@ def test_quantized_decode_step_on_the_card_matches_the_cpu(dev):
     assert _cuda.LAUNCHES["ragged_decode_attention"] == before["ragged_decode_attention"]
     ref = run(cpu, cfg_cpu, torch.device("cpu"))
     assert float((got - ref).norm() / ref.norm()) <= 5e-2
+
+
+def _gg_inputs(rng, sizes, K, N, dev, M=None):
+    M = sum(sizes) if M is None else M
+    xs = _bf16(rng, (M, K), dev)
+    w = _bf16(rng, (len(sizes), K, N), dev)
+    return xs, w, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+def _gg_err(out, ref):
+    """How far K8's output is from the plain version, in units of its limit
+    (> 1: the check fails)."""
+    return (out - ref).abs().max().item() / (GG_RTOL * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,K,N", [
+    ((3, 0, 1, 70, 0, 5, 130), 64, 64),       # empty groups, groups shorter than a tile
+    ((0,) * 5 + (200,) + (0,) * 5, 96, 200),  # one expert takes every row; N off the tile edge
+    (tuple(range(1, 13)), 136, 72),           # K off the 32-deep stage, N off the tile
+    ((2,) * 48 + (0,) * 12, 2048, 1408),      # the decode gate/up shape: 96 rows, 60 experts
+    ((5, 7, 0, 9), 40, 36),                   # N % 8 != 0: element loads of the weights
+])
+def test_grouped_gemm_kernel_matches_plain(dev, sizes, K, N):
+    rng = np.random.default_rng(sum(sizes) + K + N)
+    xs, w, gs = _gg_inputs(rng, sizes, K, N, dev)
+    before = _cuda.LAUNCHES["grouped_gemm"]
+    out = gg.grouped_gemm(xs, w, gs)
+    ref = gg.grouped_gemm_plain(xs, w, gs)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["grouped_gemm"] == before + 1
+    assert out.dtype == torch.float32 and tuple(out.shape) == (sum(sizes), N)
+    assert torch.isfinite(out).all()
+    assert _gg_err(out, ref) <= 1.0
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_kernel_zeroes_rows_past_the_groups_and_catches_a_planted_fault(dev):
+    rng = np.random.default_rng(5)
+    xs, w, gs = _gg_inputs(rng, (9, 0, 40, 3), 64, 128, dev, M=80)  # 28 rows past the groups
+    out = gg.grouped_gemm(xs, w, gs)
+    torch.cuda.synchronize()
+    assert not out[52:].any()
+    assert _gg_err(out, gg.grouped_gemm_plain(xs, w, gs)) <= 1.0
+    xs, w, gs = _gg_inputs(rng, (30, 1, 64, 17), 128, 192, dev)
+    shifted = gs.clone()
+    shifted[0] -= 1
+    shifted[1] += 1  # the last row of group 0 goes to expert 1
+    bad = gg.grouped_gemm(xs, w, shifted)
+    torch.cuda.synchronize()
+    assert _gg_err(bad, gg.grouped_gemm_plain(xs, w, gs)) > 1.0
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_cuda_backward_raises_and_wrapper_rejects(dev):
+    rng = np.random.default_rng(6)
+    xs, w, gs = _gg_inputs(rng, (4, 4), 32, 16, dev)
+    xs.requires_grad_(True)
+    out = gg.grouped_gemm(xs, w, gs)
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+        out.sum().backward()
+    with pytest.raises(ValueError):  # K not a multiple of 8
+        gg.grouped_gemm(_bf16(rng, (8, 36), dev), _bf16(rng, (2, 36, 16), dev), gs)
+    with pytest.raises(ValueError):  # f32 operands
+        gg.grouped_gemm(xs.detach().float(), w.float(), gs)
+
+
+@pytest.mark.cuda
+def test_moe_block_on_the_card_matches_the_cpu_without_syncs(dev):
+    """The gather path in bf16 on the card (K8) against f32 on the CPU with
+    the routing forced equal, and the whole block under the sync debug mode:
+    nothing in it reads back to the host."""
+    from lapha_tpu_torch.models import qwen2
+    from lapha_tpu_torch.ops import moe
+
+    cfg = qwen2.Qwen2Config.tiny(hidden_size=256, num_experts=16, num_experts_per_tok=4,
+                                 moe_intermediate_size=128, shared_expert_intermediate_size=256,
+                                 num_hidden_layers=1, dtype=torch.bfloat16)
+    p = qwen2._layer_stack(qwen2.init_params(cfg, torch.Generator(device=dev).manual_seed(0)))[0]
+    p = p["moe"]
+    x = _bf16(np.random.default_rng(7), (50, 256), dev)
+    before = _cuda.LAUNCHES["grouped_gemm"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        topw, topi = moe.route(x, p["router"]["w"], 4, False)
+        got = moe.moe_block(x, p, top_k=4, norm_topk=False)
+        routed = moe.moe_ffn_gather(x, p, top_k=4, norm_topk=False, routing=(topw, topi))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _cuda.LAUNCHES["grouped_gemm"] == before + 6
+    cpu = quant.tree_to(p, "cpu", torch.float32)
+    ref = moe.moe_ffn_gather(x.float().cpu(), cpu, top_k=4, norm_topk=False,
+                             routing=(topw.float().cpu(), topi.cpu()))
+    assert float((routed.float().cpu() - ref).norm() / ref.norm()) <= 2e-2
+    assert torch.isfinite(got.float()).all()

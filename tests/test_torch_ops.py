@@ -129,7 +129,8 @@ def test_package_imports_no_jax():
     code = ("import sys, lapha_tpu_torch, lapha_tpu_torch.ops, lapha_tpu_torch.models, "
             "lapha_tpu_torch.engine, lapha_tpu_torch.search, lapha_tpu_torch.search.mcts, "
             "lapha_tpu_torch.train, lapha_tpu_torch.train.trainer, lapha_tpu_torch.models.quant, "
-            "lapha_tpu_torch.ops.int4_matmul; "
+            "lapha_tpu_torch.ops.int4_matmul, lapha_tpu_torch.ops.moe, "
+            "lapha_tpu_torch.ops.grouped_gemm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'lapha_tpu')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
