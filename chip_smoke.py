@@ -31,6 +31,14 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    routing of random hidden states through a random router; max |diff| <=
    1e-3 * max |plain| (the same exact bf16 products, f32 sums in another
    order), and group sizes shifted by one row (a planted fault) must fail it.
+1e. The GPT-OSS kernels against their plain versions, timed in turns: the
+   attention-sink decode entries (K5s, bf16 and int8 caches) at B=24,
+   S=640, 64/8 heads of dim 64 and 12/2 of dim 128, window-clipped ranges
+   on half the rows (phase 1/1c's limits), with the sinks of the next head
+   planted as a fault that must fail them; the windowed flash kernels (K3 at
+   qstart 512 / T=64 and at T=512, K1 at T=512; W=128, dh 64, 64/8 heads)
+   at 3e-2 beside SDPA with a banded boolean mask, with a window off by one
+   planted as a fault that must fail them.
 2d. Two full-width Qwen1.5-MoE-A2.7B layers, card (kernels, bf16) against
    CPU (plain versions, f32): prefill + one decode step, relative error of
    the logits <= 5e-2, with the count of (token, layer) routing choices
@@ -47,7 +55,25 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    round timed, peak device memory; one MoE layer under
    ``torch.cuda.set_sync_debug_mode("error")`` (the gather path never waits
    on the host); one decode step at the served shape profiled as in phase
-   9. The MoE model is freed before the dense model is made.
+   9. The MoE model is freed before the GPT-OSS model is made.
+2e. Two full-width GPT-OSS-20B layers (layer 0 sliding, layer 1 full),
+   phase 2's check at prompts of 160 and 134 tokens (past the 128-token
+   window): the routing choices that differ between the card and the CPU
+   are counted, then the check (rel err <= 5e-2) is made with the card's
+   routing replayed on the CPU.
+11. GPT-OSS serving at the full width and depth of GPT-OSS-20B, from its
+   published config.json through ``Qwen2Config.from_hf`` (24 layers, H
+   2880, 64/8 heads of dim 64, alternating 128-token sliding windows, YaRN
+   x32, 32 experts top-4 of width 2880, V 201088, untied; random bf16
+   weights from a seed, random sinks and router biases, 41.8 GB): the
+   phase-3 round with bf16 KV, then one with ``kv_quant="int8"``, launch
+   counts zeroed before them and read after under "serve_gptoss" (the
+   windowed K1/K3, both sink decode entries, K8 and the full-layer K1/K3
+   must have run; the sink-free decode entries must not); the
+   windowed-short decode cache installed in each generate; phase 4's
+   checks, a warm round timed, peak device memory, one decode step
+   profiled as in phase 9. The GPT-OSS model is freed before the dense
+   model is made.
 2. Check the kernel path against the plain path on a small input: two
    layers of the full-width model, prefill + one decode step, on the card
    (kernels, bf16) and on the CPU (plain versions, f32); relative error of
@@ -106,7 +132,8 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    warm step is timed at scripts/bench_train.py's shape (B=8, prompt 3072 +
    completion 1024).
 
-Launch counts are read per path (serve_moe: phase 10; serve: phase 3;
+Launch counts are read per path (serve_moe: phase 10; serve_gptoss: phase
+11; serve: phase 3;
 serve_quantized: phase 8; train_step: phase 6; update: phase 7). Prints the card's name and power
 limit, each timing beside them, one JSON line of per-kernel results (each
 row with its time, the plain version's, the time of one PyTorch call that
@@ -155,6 +182,25 @@ MOE_BLOCK_RTOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 SEED = 0
+
+# GPT-OSS-20B's published config.json (HF openai/gpt-oss-20b), the model
+# phases 2e and 11 serve at full width and depth through Qwen2Config.from_hf
+GPTOSS_20B_CONFIG = {
+    "architectures": ["GptOssForCausalLM"], "model_type": "gpt_oss",
+    "vocab_size": 201088, "hidden_size": 2880, "intermediate_size": 2880,
+    "num_hidden_layers": 24, "num_attention_heads": 64, "num_key_value_heads": 8,
+    "head_dim": 64, "sliding_window": 128,
+    "layer_types": ["sliding_attention", "full_attention"] * 12,
+    "num_local_experts": 32, "num_experts_per_tok": 4, "experts_per_token": 4,
+    "swiglu_limit": 7.0, "tie_word_embeddings": False, "attention_bias": True,
+    "attention_dropout": 0.0, "rms_norm_eps": 1e-05, "hidden_act": "silu",
+    "initial_context_length": 4096, "max_position_embeddings": 131072,
+    "rope_theta": 150000,
+    "rope_scaling": {"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0, "beta_slow": 1.0,
+                     "original_max_position_embeddings": 4096, "truncate": False},
+    "router_aux_loss_coef": 0.9, "output_router_logits": False, "use_cache": True,
+    "eos_token_id": 200002, "pad_token_id": 199999, "torch_dtype": "bfloat16",
+}
 
 
 def check(ok, what) -> None:
@@ -220,14 +266,16 @@ def _sdpa(q, k, v, allowed, scale):
                                                   enable_gqa=True)
 
 
-def _allowed(kv_valid, qstart, T: int):
-    """(B, T, S) bool: key j is seen by query t of row b."""
+def _allowed(kv_valid, qstart, T: int, window: int = 0):
+    """(B, T, S) bool: key j is seen by query t of row b (within the window
+    of the last ``window`` positions when it is > 0)."""
     import torch
 
     S = kv_valid.shape[1]
     ar = torch.arange(S, device=kv_valid.device)
     frontier = qstart.reshape(-1, 1, 1) + torch.arange(T, device=kv_valid.device)[None, :, None]
-    return (kv_valid[:, None, :] > 0) & (ar[None, None, :] <= frontier)
+    seen = (kv_valid[:, None, :] > 0) & (ar[None, None, :] <= frontier)
+    return seen & (ar[None, None, :] > frontier - window) if window > 0 else seen
 
 
 def _rel(a, b) -> float:
@@ -336,12 +384,13 @@ def _int4_library(x, leaf, group: int):
     return lambda: torch._weight_int4pack_mm(xb, w, group, sz)
 
 
-def _decode_valid(lens, dstart, slot: int, S: int):
-    """(B, S) bool: the slots a decode row attends, [0, lens) ∪ [dstart, slot]."""
+def _decode_valid(lens, dstart, slot: int, S: int, pstart=None):
+    """(B, S) bool: the slots a decode row attends, [pstart, lens) ∪ [dstart, slot]."""
     import torch
 
     ar = torch.arange(S, device=lens.device)[None, :]
-    return (ar < lens[:, None]) | ((ar >= dstart[:, None]) & (ar <= slot))
+    p0 = 0 if pstart is None else pstart[:, None]
+    return ((ar >= p0) & (ar < lens[:, None])) | ((ar >= dstart[:, None]) & (ar <= slot))
 
 
 def check_quant_kernels(dev, card):
@@ -549,6 +598,136 @@ def check_grouped_gemm(dev, card):
     return results
 
 
+def _gptoss_sinks(rng, nh: int):
+    """Sink logits of alternating sign, large against the logits' LSE (~6 at
+    these lengths): each head's output depends on its own sink, so a sink
+    taken from the wrong head fails the kernel checks."""
+    import numpy as np
+
+    return (rng.normal(size=nh) + np.where(np.arange(nh) % 2 == 0, 8.0, -8.0)).astype(np.float32)
+
+
+def check_gptoss_kernels(dev, card):
+    """Phase 1e: the attention-sink decode entries (K5s, bf16 and int8
+    caches) at dh 64 (GPT-OSS, 64/8 heads) and dh 128 (12/2), window-clipped
+    ranges on half the rows, and the windowed flash kernels (K3 at qstart
+    512 / T=64 and at T=512, K1 at T=512, W=128, dh 64), each against its
+    plain version, timed in turns; planted faults (sinks of the next head,
+    a window off by one) must fail the checks."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.models.qwen2 import _quantize_kv
+    from lapha_tpu_torch.ops import flash_attention as fa
+    from lapha_tpu_torch.ops import ragged_decode_attention as rda
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    W = 128
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    results = {}
+    # K5s: 24 decode rows over S=640, prompts up to 512, decode columns from 512
+    L, B, S, slot = 2, 24, 640, 600
+    for dh, nh, nkv in ((64, 64, 8), (128, 12, 2)):
+        q = bf16(B, nh, dh)
+        kc, vc = bf16(L, B, nkv, S, dh), bf16(L, B, nkv, S, dh)
+        (kq, ks), (vq, vs) = _quantize_kv(kc), _quantize_kv(vc)
+        lens = torch.from_numpy(rng.integers(64, 513, B).astype(np.int32)).to(dev)
+        pos = lens + (slot - 512)
+        odd = torch.arange(B, device=dev) % 2 == 1  # odd rows: a windowed layer's ranges
+        pstart = torch.where(odd, torch.minimum(torch.clamp(pos - (W - 1), min=0), lens),
+                             torch.zeros_like(lens)).to(torch.int32)
+        dstart = torch.where(odd, torch.full_like(lens, max(512, slot - (W - 1))),
+                             torch.full_like(lens, 512)).to(torch.int32)
+        sinks = torch.from_numpy(_gptoss_sinks(rng, nh)).to(dev)
+        n_valid = int(_decode_valid(lens, dstart, slot, S, pstart).sum())
+        for name, kk, vv, scl in (("ragged_decode_attention_sink", kc, vc, None),
+                                  ("ragged_decode_attention_q8_sink", kq, vq, (ks, vs))):
+            def kernel(sk=sinks, kk=kk, vv=vv, scl=scl):
+                return rda.ragged_decode_attention(q, kk, vv, 1, lens, dstart, slot, pstart,
+                                                   cache_scale=scl, sinks=sk)
+
+            def plain(kk=kk, vv=vv, scl=scl):
+                return rda.ragged_decode_plain(q, kk, vv, 1, lens, dstart, slot, pstart,
+                                               cache_scale=scl, sinks=sinks)
+
+            def excess(out, ref, scl=scl):
+                if scl is not None:
+                    return _q8_excess(out, ref)
+                return float((out.float() - ref.float()).abs().max()) - KERNEL_ATOL
+
+            out, ref = kernel(), plain()
+            bad = kernel(sk=sinks.roll(-1).contiguous())
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out.float()).all()) and excess(out, ref) <= 0,
+                  f"{name} dh {dh}: max|diff| {float((out.float() - ref.float()).abs().max())}")
+            check(excess(bad, ref) > 0, f"the {name} check missed a planted fault "
+                                        "(sinks of the next head)")
+            err = float((out.float() - ref.float()).abs().max())
+            ms, plain_ms, _ = _ab_ms(kernel, plain)
+            # K and V of the valid slots per KV head (int8: + two f32 scales),
+            # q, the sinks, the ranges and out
+            per_slot = 2 * dh * (1 if scl is not None else 2) + (8 if scl is not None else 0)
+            nbytes = n_valid * nkv * per_slot + 2 * _nbytes(q) + _nbytes(sinks, lens, dstart, pstart)
+            row = _row(err, ms, plain_ms, None, nbytes, 4 * dh * nh * n_valid)
+            print(f"kernel {name} dh={dh} {nh}/{nkv} heads B={B} S={S} slot={slot} (window-"
+                  f"clipped ranges on half the rows): max|diff| {err:.3e}, {ms:.4f} ms vs plain "
+                  f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                  f"planted fault (sinks of the next head) max|diff| "
+                  f"{float((bad.float() - ref.float()).abs().max()):.3e}, caught [{card}]",
+                  flush=True)
+            if dh == 64:  # the table keeps GPT-OSS's shape
+                results[name] = row
+
+    # windowed K3 / K1 at GPT-OSS's heads
+    nh, nkv, dh = 64, 8, 64
+    scale = dh ** -0.5
+    for name, Bf, T, Sf, qstart in (("flash_attention_cached", 4, 64, 640, 512),
+                                    ("flash_attention_cached", 4, 512, 640, 0),
+                                    ("flash_attention", 4, 512, 512, 0)):
+        q, k, v = bf16(Bf, T, nh, dh), bf16(Bf, Sf, nkv, dh), bf16(Bf, Sf, nkv, dh)
+        qs = torch.full((Bf,), qstart, dtype=torch.int32, device=dev)
+        lens = torch.tensor([qstart + T, qstart + T - 17, qstart + T - 40, qstart + T],
+                            device=dev)
+        kv_valid = (torch.arange(Sf, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+        out, lse = fa._attention_cuda(q, k, v, kv_valid, qs, scale, name, W)
+        ref, ref_lse = fa.attention_plain(q, k, v, kv_valid, qs, scale, W)
+        bad = fa._attention_cuda(q, k, v, kv_valid, qs, scale, name, W + 1)[0]
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        seen = ref_lse > -1e29
+        label = f"{name}_window dh={dh} B={Bf} T={T} S={Sf} qstart={qstart} W={W}"
+        check(bool(torch.isfinite(out.float()).all()) and err <= KERNEL_ATOL, f"{label}: {err}")
+        check(float((lse[seen] - ref_lse[seen]).abs().max()) <= 1e-3, f"{label} LSE")
+        bad_err = float((bad.float() - ref.float()).abs().max())
+        check(bad_err > KERNEL_ATOL, f"the {name}_window check missed a planted fault (W + 1)")
+        allowed = _allowed(kv_valid, qs, T, W)
+        ms, plain_ms, lib_ms = _ab_ms(
+            lambda: fa._attention_cuda(q, k, v, kv_valid, qs, scale, name, W),
+            lambda: fa.attention_plain(q, k, v, kv_valid, qs, scale, W),
+            _sdpa(q, k, v, allowed, scale))
+        # the keys of the band are the only ones a windowed kernel must read
+        band_keys = int(_allowed(kv_valid, qs, T, W).any(1).sum())
+        nbytes = (_nbytes(q, out, lse, kv_valid, qs)
+                  + 2 * band_keys * nkv * dh * k.element_size())
+        row = _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh * nh * int(allowed.sum()))
+        print(f"kernel {label}: max|diff| {err:.3e}, {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+              f"sdpa (banded boolean mask) {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); planted fault (window W + 1) max|diff| {bad_err:.3e}, "
+              f"caught [{card}]", flush=True)
+        key = name + "_window"
+        if key not in results:  # the table keeps the first shape of each
+            results[key] = row
+        else:
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+    print(f"phase 1e took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results
+
+
 def check_moe_reference(params, cfg, dev):
     """Phase 2d: phase 2's two-layer check on the MoE model, with the
     routing choices of the two runs compared, then layer 0's MoE block
@@ -701,6 +880,164 @@ def serve_moe(dev, card):
     return launches
 
 
+def check_gptoss_reference(params, cfg, dev):
+    """Phase 2e: phase 2's two-layer check on GPT-OSS-20B's first two layers
+    (layer 0 sliding, layer 1 full) at prompts of 160 and 134 tokens, past
+    the 128-token window, so the band shows in prefill and decode: the
+    routing choices of the card (bf16) and the CPU (f32) runs are counted,
+    then the check is made with the card's routing replayed on the CPU."""
+    from lapha_tpu_torch.ops import moe
+
+    seen, route = [], moe.route_topk_softmax
+
+    def recording(x, router_w, router_b, top_k):
+        topw, topi = route(x, router_w, router_b, top_k)
+        seen.append((topw.float().cpu(), topi.cpu()))
+        return topw, topi
+
+    t0 = time.perf_counter()
+    kw = dict(T=160, S=192)
+    moe.route_topk_softmax = recording
+    try:
+        check_small_reference(params, cfg, dev, note=", GPT-OSS, routing free", strict=False, **kw)
+    finally:
+        moe.route_topk_softmax = route
+    half = len(seen) // 2  # the card's calls, then the CPU's, in the same order
+    card = seen[:half]
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for (_, a), (_, b) in zip(card, seen[half:]))
+    rows = sum(a.shape[0] for _, a in card)
+    print(f"routing: {flips} of {rows} (token, layer) top-{cfg.num_experts_per_tok} choices "
+          f"differ between the card (bf16) and the CPU (f32) in the GPT-OSS two-layer check",
+          flush=True)
+    replay = iter(card)
+    calls = iter(range(2 * half))
+
+    def replaying(x, router_w, router_b, top_k):  # the card's calls come first
+        return route(x, router_w, router_b, top_k) if next(calls) < half else next(replay)
+
+    moe.route_topk_softmax = replaying
+    try:
+        check_small_reference(params, cfg, dev,
+                              note=", GPT-OSS, the card's routing replayed on the CPU", **kw)
+    finally:
+        moe.route_topk_softmax = route
+    print(f"phase 2e took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _gptoss_model(dev, card):
+    """GPT-OSS-20B at full width and depth from its published config, random
+    bf16 weights from the seed, with random sinks and router biases (the
+    init's are zero); on the card, expert stacks drawn one layer at a time."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.models import qwen2, quant, value_model
+
+    cfg = qwen2.Qwen2Config.from_hf(GPTOSS_20B_CONFIG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = qwen2.init_params(cfg, gen)
+    rng = np.random.default_rng(SEED + 14)
+    a, m = params["layers"]["attn"], params["layers"]["moe"]
+    L, nh, E = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.num_experts
+    a["sinks"].copy_(torch.from_numpy(np.stack([_gptoss_sinks(rng, nh) for _ in range(L)])))
+    m["router"]["b"].copy_(torch.from_numpy(rng.normal(size=(L, E)).astype(np.float32) * 0.5))
+    head = value_model.init_value_head(cfg.hidden_size, gen)
+    torch.cuda.synchronize()
+    print(f"GPT-OSS-20B weights ({cfg.num_hidden_layers} layers, H {cfg.hidden_size}, "
+          f"{nh}/{cfg.num_key_value_heads} heads of dim {cfg.head_dim_}, {E} experts top-"
+          f"{cfg.num_experts_per_tok}, V {cfg.vocab_size}, windows {cfg.layer_windows[:2]}..., "
+          f"rope {cfg.rope_scaling[:2]}; random bf16): {quant.params_nbytes(params) / 1e9:.2f} GB "
+          f"made in {time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]", flush=True)
+    return params, head, cfg
+
+
+def serve_gptoss(dev, card):
+    """Phases 2e and 11 on one GPT-OSS-20B model made here and freed before
+    the return. Returns the launch counts of the counted rounds."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine import Engine, SamplingParams
+    from lapha_tpu_torch.models import quant
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.search import ValueFunction
+
+    t_phase = time.perf_counter()
+    params, head, cfg = _gptoss_model(dev, card)
+    check_gptoss_reference(params, cfg, dev)
+
+    P, n, plen, new = 4, 6, 512, 64
+    kw = dict(max_model_len=plen + 2 * new + 128, max_batch=P * n, decode_chunk=32,
+              pad_multiple=128, batch_bucket=1, eos_token_ids=[], seed=SEED, collect_h0=True)
+    engines = {kv: Engine(params, cfg, IdTok(), kv_quant=kv, **kw) for kv in (None, "int8")}
+    vf = ValueFunction(params, head, cfg, max_model_len=1024, pad_multiple=128, batch_bucket=P)
+    sp = SamplingParams(n=n, temperature=0.8, top_p=0.95, top_k=20, max_tokens=new, seed=1)
+    rng = np.random.default_rng(SEED + 15)
+    installs = []
+    install = Engine._install_win
+    Engine._install_win = lambda self, *a: installs.append(a[-1]) or install(self, *a)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    try:
+        runs = {kv: _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, P, new)
+                for kv, eng in engines.items()}
+    finally:
+        Engine._install_win = install
+    launches = dict(_cuda.LAUNCHES)
+    for name in ("flash_attention_window", "flash_attention_cached_window",
+                 "ragged_decode_attention_sink", "ragged_decode_attention_q8_sink", "grouped_gemm",
+                 "flash_attention", "flash_attention_cached"):
+        check(launches[name] > 0, f"{name} never launched on the GPT-OSS served path")
+    for name in ("ragged_decode_attention", "ragged_decode_attention_q8"):
+        check(launches[name] == 0, f"{name} (no sinks) ran on the GPT-OSS path")
+    check(installs == [128] * 4, f"windowed-short installs {installs} (expected 4 of Wpad 128)")
+    for kv, run in runs.items():
+        _check_round(run, vf, cfg.vocab_size, cfg.hidden_size, P, n, P, new,
+                     REF_RTOL if kv is None else FUSED_Q8_RTOL)
+        print(f"GPT-OSS-20B, {'bf16' if kv is None else 'int8'} KV: first (cold) round "
+              f"{run['t_all']:.2f} s [{card}]", flush=True)
+    print(f"launches on the GPT-OSS served path (a bf16-KV round, then an int8-KV round; "
+          f"windowed-short decode cache installed in each generate): {launches}", flush=True)
+
+    warm = _serve_round(engines[None], vf, sp, rng, cfg.vocab_size, P, plen, P, new)
+    tp, tk = warm["t_par"], warm["t_kid"]
+    rows_tok = P * n * new
+    print(f"GPT-OSS-20B warm parents: prefill {tp['prefill_s'] * 1e3:.1f} ms (4 x 512 tokens), "
+          f"decode {tp['decode_s'] * 1e3:.1f} ms for {tp['decode_steps']} steps x {P * n} rows = "
+          f"{rows_tok / tp['decode_s']:.1f} tok/s [{card}]", flush=True)
+    print(f"GPT-OSS-20B warm children: prefix-hit prefill {tk['prefill_s'] * 1e3:.1f} ms (4 x "
+          f"64-token suffix at qstart 512), decode {tk['decode_s'] * 1e3:.1f} ms = "
+          f"{rows_tok / tk['decode_s']:.1f} tok/s; root value forward (4 x 512) "
+          f"{warm['t_value'] * 1e3:.1f} ms; whole round {warm['t_all']:.2f} s [{card}]",
+          flush=True)
+    print(f"GPT-OSS-20B serving memory: params_nbytes {quant.params_nbytes(params) / 1e9:.2f} GB, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]",
+          flush=True)
+
+    # where one decode step's time goes at the served shape (full-S cache:
+    # the windowed layers read their clipped ranges)
+    del engines, vf, runs, warm
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    S = plen + 2 * new
+    shape = (cfg.num_hidden_layers, P * n, cfg.num_key_value_heads, S, cfg.head_dim_)
+    cache = tuple((torch.randn(shape, generator=gen, device=dev) * 0.5).to(cfg.dtype)
+                  for _ in range(2))
+    tok = torch.randint(2, cfg.vocab_size, (P * n,), generator=gen, device=dev)
+    lens = torch.full((P * n,), plen, dtype=torch.int32, device=dev)
+    _profile_decode("GPT-OSS-20B, bf16 weights, bf16 KV", params, cfg, tok, lens, cache, None,
+                    plen, 5, card)
+    del params, head, cache
+    torch.cuda.empty_cache()
+    print(f"phases 2e and 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def check_backward_kernels(dev, card):
     """Phase 1b: the dq and dk/dv kernels vs the plain backward."""
     import numpy as np
@@ -778,18 +1115,19 @@ def _two_layers(params, cfg):
 
     from lapha_tpu_torch.train.losses import tree_map
 
-    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2, layer_windows=cfg.layer_windows[:2])
     sub = dict(params, layers=tree_map(lambda t: t[:2], params["layers"]))
     cpu = tree_map(lambda t: t.detach().to("cpu", torch.float32), sub)
     return sub, cfg2, cpu, dataclasses.replace(cfg2, dtype=torch.float32)
 
 
-def check_small_reference(params, cfg, dev, bits=None, note=""):
+def check_small_reference(params, cfg, dev, bits=None, note="", T=96, S=128, strict=True):
     """Phase 2: two layers of the full-width model, kernels (card, bf16) vs
-    plain versions (CPU, f32): cached prefill logits and one decode step.
-    Phase 2c (``bits`` 4 or 8): the same with ``quantize_params(bits=)``
-    weights and an int8 KV cache for the decode step. ``note`` names a
-    variant in the printed line."""
+    plain versions (CPU, f32): cached prefill logits of prompts of T and
+    T - 26 tokens and one decode step. Phase 2c (``bits`` 4 or 8): the same
+    with ``quantize_params(bits=)`` weights and an int8 KV cache for the
+    decode step. ``note`` names a variant in the printed line; with
+    ``strict`` False the errors are printed, not checked."""
     import numpy as np
     import torch
 
@@ -801,9 +1139,9 @@ def check_small_reference(params, cfg, dev, bits=None, note=""):
         sub = quant.quantize_params(sub, bits=bits)
         cpu = quant.tree_to(sub, "cpu", torch.float32)
     rng = np.random.default_rng(SEED + 1)
-    B, T, S = 2, 96, 128
+    B = 2
     ids = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, T)))
-    lens = torch.tensor([96, 70])
+    lens = torch.tensor([T, T - 26])
     mask = (torch.arange(T)[None, :] < lens[:, None]).long()
     kv_valid = torch.zeros((B, S), dtype=torch.bool)
     kv_valid[:, :T] = mask > 0
@@ -836,7 +1174,7 @@ def check_small_reference(params, cfg, dev, bits=None, note=""):
                    f", int{bits} weights (int8 embed/head), int8 KV cache for the decode step")
     print(f"reference check (2 layers{what}; card kernels bf16 vs CPU plain f32): prefill logits "
           f"rel err {e_prefill:.3e}, decode logits rel err {e_decode:.3e}", flush=True)
-    check(e_prefill <= REF_RTOL and e_decode <= REF_RTOL,
+    check(not strict or (e_prefill <= REF_RTOL and e_decode <= REF_RTOL),
           f"reference rel err prefill {e_prefill} decode {e_decode} (bits {bits})")
 
 
@@ -1332,9 +1670,12 @@ def main() -> int:
     kernels.update(check_backward_kernels(dev, card))
     kernels.update(check_quant_kernels(dev, card))
     kernels.update(check_grouped_gemm(dev, card))
+    kernels.update(check_gptoss_kernels(dev, card))
 
     # ---------------- MoE serving at full width and depth, counted; freed after
     launches = {"serve_moe": serve_moe(dev, card)}
+    # ---------------- GPT-OSS-20B serving at full width and depth, counted; freed after
+    launches["serve_gptoss"] = serve_gptoss(dev, card)
 
     cfg = qwen2.Qwen2Config(
         vocab_size=151936, hidden_size=1536, intermediate_size=8960,
@@ -1414,6 +1755,14 @@ def main() -> int:
                         "lapha_tpu/ops/int4_matmul.py:83"),
         "grouped_gemm": ("lapha_tpu_torch/csrc/grouped_gemm.cu",
                          "lapha_tpu/ops/moe.py:290"),
+        "ragged_decode_attention_sink": ("lapha_tpu_torch/csrc/ragged_decode_attention.cu",
+                                         "lapha_tpu/ops/ragged_decode_attention.py:77"),
+        "ragged_decode_attention_q8_sink": ("lapha_tpu_torch/csrc/ragged_decode_attention.cu",
+                                            "lapha_tpu/ops/ragged_decode_attention.py:96"),
+        "flash_attention_window": ("lapha_tpu_torch/csrc/flash_attention.cu",
+                                   "lapha_tpu/ops/flash_attention.py:46"),
+        "flash_attention_cached_window": ("lapha_tpu_torch/csrc/flash_attention.cu",
+                                          "lapha_tpu/ops/flash_attention.py:395"),
     }
     rows = []
     for name, (src, rep) in replaces.items():

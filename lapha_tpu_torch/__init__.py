@@ -5,34 +5,39 @@ subpackage layout so each module has an obvious partner; it imports
 ``torch`` and neither ``jax`` nor anything of ``lapha_tpu``. What is ported
 so far is the serving path — value-guided generation, i.e. what one
 expansion of value-mode MCTS costs on the device — with quantized weights
-and KV cache and the MoE family, and the training step on top of it (MCTS
+and KV cache, the MoE family and GPT-OSS, and the training step on top of it (MCTS
 rollout, hyperbolic shaping, GRPO + value update):
 
 - ``ops.hyperbolic``       — all ten Poincaré-ball functions
 - ``ops.latent``           — pool_mask, masked_mean, latent_project,
                              value_head_apply, potential_v
-- ``ops.flash_attention``  — causal + cached (rectangular) flash forward:
+- ``ops.flash_attention``  — causal + cached (rectangular) flash forward,
+                             sliding windows, sinks folded from the LSE:
                              CUDA kernel ``csrc/flash_attention.cu``; the
                              causal one is an autograd Function whose
                              backward is ``csrc/flash_attention_bwd.cu``
 - ``ops.ragged_decode_attention`` — ragged decode attention over a bf16
-                             or int8 cache: CUDA kernel
-                             ``csrc/ragged_decode_attention.cu``
+                             or int8 cache, with or without sinks: CUDA
+                             kernel ``csrc/ragged_decode_attention.cu``
 - ``ops.int4_matmul``      — W4A16 projections: ``csrc/int4_matmul.cu``
-- ``ops.moe``              — MoE routing and block (gather / dense impls)
+- ``ops.moe``              — MoE routing and blocks (gather / dense impls),
+                             GPT-OSS's router and clamped-GLU block
 - ``ops.grouped_gemm``     — the expert products: ``csrc/grouped_gemm.cu``
 - ``models.qwen2``         — the Qwen2/Llama decoder, dense or MoE (qwen2_moe,
-                             qwen3_moe, mixtral): forward with and without a
-                             cache (training: remat "full"), decode_step
+                             qwen3_moe, mixtral), and GPT-OSS (sinks,
+                             per-layer windows, YaRN): forward with and
+                             without a cache (training: remat "full"),
+                             decode_step (with the short window cache)
 - ``models.value_model``   — linear value head + value_forward
 - ``models.quant``         — int8 / int4 weight quantization
-- ``models.loader``        — HF load (dense and MoE, optionally quantized),
+- ``models.loader``        — HF load (dense, MoE and gpt_oss, optionally quantized),
                              value-head load, params_from_numpy
 - ``engine.adapter``       — SamplingParams / CompletionOutput / RequestOutput
 - ``engine.sampling``      — vLLM-order sampling with logprobs (exact top-k)
 - ``engine.prefix_cache``  — token-prefix KV store
 - ``engine.engine``        — Engine.generate: prefill, prefix-hit suffix
-                             prefill, n-fan-out, decode, collect_h0
+                             prefill, n-fan-out, decode (the windowed-short
+                             cache for sliding layers), collect_h0
 - ``search.value_fn``      — ValueFunction (bucketed) with from_pooled
 - ``search.mcts``, ``node``, ``tool_parse``, ``support``, ``latent_bank``,
   ``cluster``              — MCTSAgent and its host-side pieces; clustering

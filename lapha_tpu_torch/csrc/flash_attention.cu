@@ -8,8 +8,10 @@
 //     forward of the value model, which is the same computation with S = T,
 //     qstart = 0 and kv_valid = the key-padding mask.
 // Semantics (both): key j is visible to query t of row b iff
-// kv_valid[b, j] != 0 and j <= qstart[b] + t. A row with no visible key
-// writes 0 and LSE = -1e30.
+// kv_valid[b, j] != 0 and j <= qstart[b] + t, and, on a sliding-window
+// layer (window W > 0), j > qstart[b] + t - W (the Pallas band, :72-73 and
+// :419-420). A row with no visible key writes 0 and LSE = -1e30. Attention
+// sinks fold outside the kernel from its LSE, as in JAX.
 //
 // What bounds it on an H100: at the prefill shapes (T=512, S=640, dh=128,
 // 12 query heads over 2 KV heads) the work is ~2·T·S·dh·2 FLOP per head
@@ -22,8 +24,11 @@
 // rows each, K/V tiles of 64 keys staged through padded shared memory with
 // plain 16-byte loads and no pipelining; wgmma, TMA and a multi-stage ring
 // are later work. Each CTA maps its query head to KV head h / (nh/nkv) (no
-// repeated K/V) and walks key tiles only up to its last row's causal
-// frontier qstart + t, so blocks past the frontier are skipped, not masked.
+// repeated K/V) and walks key tiles only from the first tile of its band
+// (windowed layers, the Pallas kernels' kb_start :91-93, :436-437) up to its
+// last row's causal frontier qstart + t, so tiles outside the band are
+// skipped, not masked: a banded row reads O(W) keys. The head dim is a
+// template parameter, instantiated for 64 (GPT-OSS) and 128.
 
 #include "common.cuh"
 
@@ -34,13 +39,10 @@ using lapha::mma_bf16_16816;  // fragment layout: common.cuh
 
 constexpr int BQ = 64;          // query rows per CTA (4 warps x 16)
 constexpr int BK = 64;          // keys per tile
-constexpr int DH = 128;         // head dim (the only one on the slice)
-constexpr int LDS = DH + 8;     // padded smem row: 272 B, conflict-free fragment reads
 constexpr int NT_S = BK / 8;    // n-tiles of the logits tile
-constexpr int KS_QK = DH / 16;  // k-steps of Q·K^T
-constexpr int NT_O = DH / 8;    // n-tiles of the output
 constexpr int KS_PV = BK / 16;  // k-steps of P·V
 
+template <int DH>
 __global__ void __launch_bounds__(128)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // (B, T, nh, DH)
                  const __nv_bfloat16* __restrict__ k,   // (B, S, nkv, DH)
@@ -49,7 +51,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // (B, T, nh, DH)
                  const int* __restrict__ qstart,        // (B,)
                  __nv_bfloat16* __restrict__ out,       // (B, T, nh, DH)
                  float* __restrict__ lse,               // (B, nh, T)
-                 int T, int S, int nh, int nkv, float scale) {
+                 int T, int S, int nh, int nkv, int window, float scale) {
+  constexpr int LDS = DH + 8;     // padded smem row (272 B at 128): conflict-free fragment reads
+  constexpr int KS_QK = DH / 16;  // k-steps of Q·K^T
+  constexpr int NT_O = DH / 8;    // n-tiles of the output
   __shared__ __align__(16) __nv_bfloat16 sK[BK * LDS];
   __shared__ __align__(16) __nv_bfloat16 sV[BK * LDS];
   __shared__ int sValid[BK];
@@ -85,11 +90,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // (B, T, nh, DH)
   const int last_row = min(q0 + BQ, T) - 1;
   const int kend = min(S, qs + last_row + 1);
   const int nkb = (kend + BK - 1) / BK;
+  // Keys below the band of this CTA's first query row are never visible.
+  const int kb0 = window > 0 ? max(qs + q0 - (window - 1), 0) / BK : 0;
   const size_t kv_stride = static_cast<size_t>(nkv) * DH;
   const __nv_bfloat16* kbase = k + (static_cast<size_t>(b) * S * nkv + hk) * DH;
   const __nv_bfloat16* vbase = v + (static_cast<size_t>(b) * S * nkv + hk) * DH;
 
-  for (int kb = 0; kb < nkb; ++kb) {
+  for (int kb = kb0; kb < nkb; ++kb) {
     const int k0 = kb * BK;
     // Stage the K/V tile: 64 rows x 16 vectors of 16 B; rows past S are zero.
     for (int i = tid; i < BK * (DH / 8); i += 128) {
@@ -128,7 +135,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // (B, T, nh, DH)
       for (int e = 0; e < 4; ++e) {
         const int col = nt * 8 + t4 * 2 + (e & 1);
         const int r = e >> 1;
-        const bool ok = sValid[col] != 0 && (k0 + col) <= qs + row[r];
+        const int j = k0 + col, qp = qs + row[r];
+        const bool ok = sValid[col] != 0 && j <= qp && (window <= 0 || j > qp - window);
         const float x = ok ? s[nt][e] * scale : NEG;
         s[nt][e] = x;
         mx[r] = fmaxf(mx[r], x);
@@ -203,18 +211,29 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,   // (B, T, nh, DH)
   }
 }
 
-}  // namespace
-
-extern "C" int lapha_flash_fwd(const void* q, const void* k, const void* v, const int* kv_valid,
-                               const int* qstart, void* out, float* lse, int B, int T, int S,
-                               int nh, int nkv, int dh, float scale, void* stream) {
-  if (dh != DH || nkv <= 0 || nh % nkv != 0 || B <= 0 || T <= 0 || S <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int DH>
+void launch(const void* q, const void* k, const void* v, const int* kv_valid, const int* qstart,
+            void* out, float* lse, int B, int T, int S, int nh, int nkv, int window, float scale,
+            void* stream) {
   const dim3 grid((T + BQ - 1) / BQ, nh, B);
-  flash_fwd_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<DH><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), kv_valid, qstart,
-      static_cast<__nv_bfloat16*>(out), lse, T, S, nh, nkv, scale);
+      static_cast<__nv_bfloat16*>(out), lse, T, S, nh, nkv, window, scale);
+}
+
+}  // namespace
+
+// window <= 0: full causal attention; window W > 0: the band of the last W positions.
+extern "C" int lapha_flash_fwd(const void* q, const void* k, const void* v, const int* kv_valid,
+                               const int* qstart, void* out, float* lse, int B, int T, int S,
+                               int nh, int nkv, int dh, int window, float scale, void* stream) {
+  if ((dh != 64 && dh != 128) || nkv <= 0 || nh % nkv != 0 || B <= 0 || T <= 0 || S <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dh == 64)
+    launch<64>(q, k, v, kv_valid, qstart, out, lse, B, T, S, nh, nkv, window, scale, stream);
+  else
+    launch<128>(q, k, v, kv_valid, qstart, out, lse, B, T, S, nh, nkv, window, scale, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,11 @@
 // Ragged one-token decode attention over the stacked decode cache, for Hopper.
 //
-// Replaces two entries of the Pallas kernel in
+// Replaces the four entries of the Pallas kernel in
 // lapha_tpu/ops/ragged_decode_attention.py (called from
 // ragged_decode_attention :270): the bf16 cache, _kernel :68 -> _kernel_impl
-// :108, and the int8 cache, _kernel_q8 :86 (template flag kQ8). Row b's
+// :108, the int8 cache, _kernel_q8 :86 (template flag kQ8), and both with
+// attention sinks, _kernel_sink :77 and _kernel_q8_sink :96 (flag kSink).
+// Row b's
 // query group attends only to cache slots [pstart[b], lens[b]) ∪
 // [dstart[b], slot] of layer `layer` in the (L, B, nkv, S, dh) decode cache;
 // nothing else of the cache is read.
@@ -14,9 +16,16 @@
 // the softmax denominator is summed from the unscaled p, and P·V uses
 // p·vs — the Pallas kernel's order (:221-222, :239-246). Its bound is the
 // int8 K+V bytes of the valid slots plus their 8 bytes of scales at
-// 3.35 TB/s, half the bf16 cache's bytes. The sink entries (_kernel_sink,
-// _kernel_q8_sink: m0 = sink, l0 = 1) would be a second flag on the same
-// template; they are not ported yet.
+// 3.35 TB/s, half the bf16 cache's bytes.
+//
+// Attention sinks (kSink, GPT-OSS): one learned logit per query head, an
+// extra softmax column with zero value. Each query head's online softmax
+// starts at m = sink, l = exp(sink - m) = 1 instead of (-1e30, 0), which is
+// "the sink column was already processed" (Pallas :186-201); the sink never
+// touches the accumulator. A row that sees no key gives 0 (all its mass on
+// the sink). Sliding-window layers need no flag: the caller clips pstart and
+// dstart to the window (Pallas module docstring), so the two segments hold
+// exactly the banded slots.
 //
 // What bounds it on an H100: one query token per row does 2 FLOP per byte
 // of K/V read, far below the card's ~295 FLOP/byte ridge, so it is bound by
@@ -29,7 +38,9 @@
 // once per query head. Simple first version: CUDA-core FMAs, f32 online
 // softmax, no split of the sequence across CTAs and no prefetch of the next
 // chunk; at B=24 and 2 KV heads it fills 48 of the 132 SMs, which is the
-// first thing to change when it is tuned.
+// first thing to change when it is tuned. The head dim DH is a template
+// parameter (64 for GPT-OSS, 128): one thread per output dim, so a CTA has
+// DH threads, DH/32 warps.
 
 #include "common.cuh"
 
@@ -38,9 +49,7 @@ namespace {
 using lapha::NEG;
 
 constexpr int CH = 64;        // cache slots per chunk
-constexpr int DH = 128;       // head dim = threads per CTA
 constexpr int GMAX = 8;       // query heads per KV head
-constexpr int KLDS = DH + 2;  // padded K row: thread j reads row j conflict-free
 
 // 16 int8 values (one 16-byte load) -> 8 words of bf16 pairs, in order.
 __device__ __forceinline__ void int8x16_to_bf16(const uint4& v, uint32_t (&w)[8]) {
@@ -56,7 +65,7 @@ __device__ __forceinline__ void int8x16_to_bf16(const uint4& v, uint32_t (&w)[8]
   }
 }
 
-template <bool kQ8>
+template <int DH, bool kQ8, bool kSink>
 __global__ void __launch_bounds__(DH)
 ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, nh, DH)
                      const void* __restrict__ kc_,         // (L, B, nkv, S, DH) bf16 or int8
@@ -64,9 +73,16 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, nh, DH)
                      const float* __restrict__ ks,         // (L, B, nkv, S) scales (kQ8)
                      const float* __restrict__ vs,
                      const int* __restrict__ lens, const int* __restrict__ dstart,
-                     const int* __restrict__ pstart, int layer, int slot,
+                     const int* __restrict__ pstart,
+                     const float* __restrict__ sinks,      // (nh,) (kSink)
+                     int layer, int slot,
                      __nv_bfloat16* __restrict__ out,      // (B, nh, DH)
                      int nh, int nkv, int S, float scale) {
+  constexpr int KLDS = DH + 2;       // padded K row: thread j reads row j conflict-free
+  constexpr int NWARP = DH / 32;     // warps per CTA
+  constexpr int HPW = GMAX / NWARP;  // query heads whose softmax one warp owns
+  constexpr int NGS = DH / CH;       // threads per chunk slot in the logits stage
+  constexpr int HPT = GMAX / NGS;    // query heads per thread in the logits stage
   __shared__ __align__(16) __nv_bfloat16 sK[CH * KLDS];
   __shared__ __align__(16) __nv_bfloat16 sV[CH * DH];
   __shared__ float sQ[GMAX * DH];
@@ -88,8 +104,15 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, nh, DH)
   float acc[GMAX];
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) acc[g] = 0.f;
-  // softmax state of query heads warp and warp+4, held by every lane of the warp
-  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
+  // softmax state of query heads warp + NWARP*i, held by every lane of the
+  // warp; with sinks it starts as if the sink column were already seen
+  float m_run[HPW], l_run[HPW];
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    const int g = warp + NWARP * i;
+    m_run[i] = (kSink && g < G) ? sinks[hk * G + g] : NEG;
+    l_run[i] = (kSink && g < G) ? 1.f : 0.f;
+  }
 
   // clamped to the panel, so bad lengths cannot read outside it
   const int seg_lo[2] = {max(pstart[b], 0), max(dstart[b], 0)};
@@ -141,16 +164,18 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, nh, DH)
       }
       __syncthreads();
 
-      // logits: thread -> slot j = tid % 64 and query heads gsub, gsub+2, ...
+      // logits: thread -> slot j = tid % 64 and query heads gsub, gsub+NGS, ...
       {
-        const int j = tid & (CH - 1), gsub = tid >> 6;
-        float dot[GMAX / 2] = {0.f, 0.f, 0.f, 0.f};
+        const int j = tid & (CH - 1), gsub = tid / CH;
+        float dot[HPT];
+#pragma unroll
+        for (int u = 0; u < HPT; ++u) dot[u] = 0.f;
         const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(sK + j * KLDS);
         for (int d2 = 0; d2 < DH / 2; ++d2) {
           const float2 kf = __bfloat1622float2(kr[d2]);
 #pragma unroll
-          for (int u = 0; u < GMAX / 2; ++u) {
-            const int g = gsub + 2 * u;
+          for (int u = 0; u < HPT; ++u) {
+            const int g = gsub + NGS * u;
             if (g < G) {
               const float2 qf = *reinterpret_cast<const float2*>(sQ + g * DH + 2 * d2);
               dot[u] = fmaf(qf.x, kf.x, fmaf(qf.y, kf.y, dot[u]));
@@ -158,18 +183,18 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, nh, DH)
           }
         }
 #pragma unroll
-        for (int u = 0; u < GMAX / 2; ++u) {
-          const int g = gsub + 2 * u;
+        for (int u = 0; u < HPT; ++u) {
+          const int g = gsub + NGS * u;
           // kQ8: the K scale folds into the logit (q already carries `scale`)
           if (g < G) sP[g * CH + j] = j < n ? (kQ8 ? dot[u] * sKS[j] : dot[u]) : NEG;
         }
       }
       __syncthreads();
 
-      // online-softmax update: warp w owns query heads w and w+4
+      // online-softmax update: warp w owns query heads w, w+NWARP, ...
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int g = warp + 4 * i;
+      for (int i = 0; i < HPW; ++i) {
+        const int g = warp + NWARP * i;
         if (g < G) {
           const float x0 = sP[g * CH + lane], x1 = sP[g * CH + lane + 32];
           const float m_new = fmaxf(m_run[i], lapha::warp_max(fmaxf(x0, x1)));
@@ -202,8 +227,8 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, nh, DH)
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int g = warp + 4 * i;
+  for (int i = 0; i < HPW; ++i) {
+    const int g = warp + NWARP * i;
     if (g < G && lane == 0) sL[g] = l_run[i];
   }
   __syncthreads();
@@ -213,17 +238,31 @@ ragged_decode_kernel(const __nv_bfloat16* __restrict__ q,  // (B, nh, DH)
     if (g < G) og[g * DH + tid] = __float2bfloat16(sL[g] > 0.f ? acc[g] / sL[g] : 0.f);
 }
 
-template <bool kQ8>
+template <int DH, bool kQ8, bool kSink>
+void launch_dh(const void* q, const void* k_cache, const void* v_cache, const float* k_scale,
+               const float* v_scale, const int* lens, const int* dstart, const int* pstart,
+               const float* sinks, int layer, int slot, void* out, int B, int nh, int nkv, int S,
+               float scale, void* stream) {
+  const dim3 grid(B, nkv);
+  ragged_decode_kernel<DH, kQ8, kSink><<<grid, DH, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, k_scale, v_scale, lens, dstart,
+      pstart, sinks, layer, slot, static_cast<__nv_bfloat16*>(out), nh, nkv, S, scale);
+}
+
+template <bool kQ8, bool kSink>
 int launch(const void* q, const void* k_cache, const void* v_cache, const float* k_scale,
            const float* v_scale, const int* lens, const int* dstart, const int* pstart,
-           int layer, int slot, void* out, int B, int nh, int nkv, int S, int dh, float scale,
-           void* stream) {
-  if (dh != DH || nkv <= 0 || nh % nkv != 0 || nh / nkv > GMAX || B <= 0 || slot < 0 || slot >= S)
+           const float* sinks, int layer, int slot, void* out, int B, int nh, int nkv, int S,
+           int dh, float scale, void* stream) {
+  if ((dh != 64 && dh != 128) || nkv <= 0 || nh % nkv != 0 || nh / nkv > GMAX || B <= 0 ||
+      slot < 0 || slot >= S)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B, nkv);
-  ragged_decode_kernel<kQ8><<<grid, DH, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, k_scale, v_scale, lens, dstart,
-      pstart, layer, slot, static_cast<__nv_bfloat16*>(out), nh, nkv, S, scale);
+  if (dh == 64)
+    launch_dh<64, kQ8, kSink>(q, k_cache, v_cache, k_scale, v_scale, lens, dstart, pstart, sinks,
+                              layer, slot, out, B, nh, nkv, S, scale, stream);
+  else
+    launch_dh<128, kQ8, kSink>(q, k_cache, v_cache, k_scale, v_scale, lens, dstart, pstart,
+                               sinks, layer, slot, out, B, nh, nkv, S, scale, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,8 +272,8 @@ extern "C" int lapha_ragged_decode(const void* q, const void* k_cache, const voi
                                    const int* lens, const int* dstart, const int* pstart,
                                    int layer, int slot, void* out, int B, int nh, int nkv, int S,
                                    int dh, float scale, void* stream) {
-  return launch<false>(q, k_cache, v_cache, nullptr, nullptr, lens, dstart, pstart, layer, slot,
-                       out, B, nh, nkv, S, dh, scale, stream);
+  return launch<false, false>(q, k_cache, v_cache, nullptr, nullptr, lens, dstart, pstart,
+                              nullptr, layer, slot, out, B, nh, nkv, S, dh, scale, stream);
 }
 
 extern "C" int lapha_ragged_decode_q8(const void* q, const void* k_cache, const void* v_cache,
@@ -242,6 +281,27 @@ extern "C" int lapha_ragged_decode_q8(const void* q, const void* k_cache, const 
                                       const int* lens, const int* dstart, const int* pstart,
                                       int layer, int slot, void* out, int B, int nh, int nkv,
                                       int S, int dh, float scale, void* stream) {
-  return launch<true>(q, k_cache, v_cache, k_scale, v_scale, lens, dstart, pstart, layer, slot,
-                      out, B, nh, nkv, S, dh, scale, stream);
+  return launch<true, false>(q, k_cache, v_cache, k_scale, v_scale, lens, dstart, pstart,
+                             nullptr, layer, slot, out, B, nh, nkv, S, dh, scale, stream);
+}
+
+// sinks: (nh,) f32 sink logits, one per query head
+extern "C" int lapha_ragged_decode_sink(const void* q, const void* k_cache, const void* v_cache,
+                                        const int* lens, const int* dstart, const int* pstart,
+                                        const float* sinks, int layer, int slot, void* out,
+                                        int B, int nh, int nkv, int S, int dh, float scale,
+                                        void* stream) {
+  return launch<false, true>(q, k_cache, v_cache, nullptr, nullptr, lens, dstart, pstart, sinks,
+                             layer, slot, out, B, nh, nkv, S, dh, scale, stream);
+}
+
+extern "C" int lapha_ragged_decode_q8_sink(const void* q, const void* k_cache,
+                                           const void* v_cache, const float* k_scale,
+                                           const float* v_scale, const int* lens,
+                                           const int* dstart, const int* pstart,
+                                           const float* sinks, int layer, int slot, void* out,
+                                           int B, int nh, int nkv, int S, int dh, float scale,
+                                           void* stream) {
+  return launch<true, true>(q, k_cache, v_cache, k_scale, v_scale, lens, dstart, pstart, sinks,
+                            layer, slot, out, B, nh, nkv, S, dh, scale, stream);
 }

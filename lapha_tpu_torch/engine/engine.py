@@ -20,10 +20,17 @@
   fan-out gather and the transpose), and decode writes and reads it
   through ``decode_step(cache_scale=)``. Quantized weights
   (``models/quant.py``) need nothing of the engine.
+- Sliding-window stacks (GPT-OSS): the decode install keeps the windowed
+  layers in a short cache, each row's last ``Wpad`` prompt slots plus the
+  decode columns (``decode_step(win_cache=)``; JAX ``_install_win_impl``),
+  where that is shorter: engaged when Wpad + (S - Lp) + min(pad_multiple,
+  128) <= S, Wpad = max_window rounded up to min(pad_multiple, 128). The
+  int8 KV cache quantizes the short cache too.
 
 Not ported yet (they raise ``ValueError("... not yet ported")``):
 ``seq_mesh``, ``spec_decode``, ``auto_continuous``; sliding-window
-checkpoints are refused by ``Qwen2Config.from_hf``.
+checkpoints of families other than gpt_oss are refused by
+``Qwen2Config.from_hf``.
 """
 
 from __future__ import annotations
@@ -99,6 +106,12 @@ class Engine:
         # host-clock seconds of the last generate() call, summed over its
         # waves; the device is synchronised at each phase boundary
         self.last_timings = {"prefill_s": 0.0, "decode_s": 0.0, "decode_steps": 0}
+        # sliding-window stacks: (full layers, windowed layers, max window)
+        lw = [cfg.window_for_layer(l) for l in range(cfg.num_hidden_layers)]
+        self._win_split = None
+        if any(lw):
+            self._win_split = (tuple(l for l, w in enumerate(lw) if not w),
+                               tuple(l for l, w in enumerate(lw) if w), max(lw))
 
     # ------------------------------------------------------------------ device bodies
 
@@ -152,6 +165,33 @@ class Engine:
         last, h_sum = self._last_and_hsum(hidden, mask, real_lens - 1)
         return last, cache, h_sum
 
+    def _install_win(self, ck, cv, lens, slab: int, Sw: int, Wpad: int):
+        """Prefill-layout caches (L, B, S, nkv, dh) -> the windowed-short
+        decode install: the full-attention layers in the decode layout
+        (Lf, B, nkv, S, dh); the windowed layers' short (Lw, B, nkv, Sw, dh)
+        stack holding each row's prompt tail [lens - Wpad, lens) (indices
+        clipped to the cache; columns before slot 0 are outside the ranges
+        decode reads) and Sw - Wpad empty decode columns. Returns (full_k,
+        full_v, win_cache dict)."""
+        full_idx, win_idx, _ = self._win_split
+        S = ck.shape[2]
+        woff = lens - Wpad
+        idx = (woff[:, None] + torch.arange(Wpad, device=self.device)[None, :]).clamp(0, S - 1)
+
+        def grab_win(c):
+            cw = c[list(win_idx)]                            # (Lw, B, S, nkv, dh)
+            gidx = idx[None, :, :, None, None].expand(cw.shape[0], -1, -1, *cw.shape[3:])
+            out = torch.zeros((cw.shape[0], cw.shape[1], cw.shape[3], Sw, cw.shape[4]),
+                              dtype=c.dtype, device=c.device)
+            out[:, :, :, :Wpad] = torch.gather(cw, 2, gidx).permute(0, 1, 3, 2, 4)
+            return out
+
+        def grab_full(c):  # empty for a stack of windowed layers only
+            return c[list(full_idx)].permute(0, 1, 3, 2, 4).contiguous()
+
+        wc = {"k": grab_win(ck), "v": grab_win(cv), "woff": woff, "slab": slab}
+        return grab_full(ck), grab_full(cv), wc
+
     @staticmethod
     def _quantize_cache(ck, cv):
         """Decode-layout caches (L,B,nkv,S,dh) -> int8 + per-vector f32 scales
@@ -164,11 +204,13 @@ class Engine:
     def _decode_impl(self, cache_k, cache_v, presence, last_logits, lens, dstart,
                      positions, slot: int, finished, row_budget, generator,
                      temperature, top_k, top_p, min_p, rep_pen, T: int,
-                     static_top_k: int = 0, use_presence: bool = True, cache_scale=None):
+                     static_top_k: int = 0, use_presence: bool = True, cache_scale=None,
+                     win_cache=None, win_pad: int = 0):
         """Generate up to T tokens for all B rows over the slot-uniform cache
-        (L, B, nkv, S, dh), int8 with ``cache_scale`` = (ks, vs). A row
-        finishes on EOS or when it has emitted ``row_budget`` tokens;
-        finished rows emit token 0 with logprob 0.
+        (L, B, nkv, S, dh), int8 with ``cache_scale`` = (ks, vs), the
+        windowed layers in ``win_cache`` when it is given. A row finishes on
+        EOS or when it has emitted ``row_budget`` tokens; finished rows emit
+        token 0 with logprob 0.
         Returns (tokens (B,T), logprobs (B,T), finished, h_sum (B,H), steps)."""
         dev = self.device
         B = last_logits.shape[0]
@@ -201,7 +243,7 @@ class Engine:
             logits, hidden, cache_k, cache_v, *_ = qwen2.decode_step(
                 self.params, self.cfg, tok, positions, cache_k, cache_v, slot,
                 lens, dstart, return_hidden=self.collect_h0, ragged=True,
-                cache_scale=cache_scale)
+                cache_scale=cache_scale, win_cache=win_cache, win_pad=win_pad)
             if self.collect_h0:
                 # the token sampled this step is forwarded this step; pool it
                 # iff it was emitted (live on entry — includes the EOS)
@@ -398,21 +440,36 @@ class Engine:
         h_gen = None
         if budget > 0:
             t0 = time.perf_counter()
+            lens_t = self._t(lens)
+            # the windowed-short install, where it saves (long prompts)
+            win_pad, win_cache = 0, None
+            if self._win_split is not None:
+                Wpad = _round_up(self._win_split[2], min(self.pad_multiple, 128))
+                if Wpad + (S - Lp) + min(self.pad_multiple, 128) <= S:
+                    win_pad = Wpad
             # fan-out gather, then the transpose to the decode layout
             # (L, B, nkv, S, dh)
-            ck = ck[:, row_of_t].permute(0, 1, 3, 2, 4).contiguous()
-            cv = cv[:, row_of_t].permute(0, 1, 3, 2, 4).contiguous()
+            ck, cv = ck[:, row_of_t], cv[:, row_of_t]
+            if win_pad:
+                ck, cv, win_cache = self._install_win(ck, cv, lens_t, Lp, win_pad + (S - Lp),
+                                                      win_pad)
+            else:
+                ck = ck.permute(0, 1, 3, 2, 4).contiguous()
+                cv = cv.permute(0, 1, 3, 2, 4).contiguous()
             cache_scale = None
             if self.kv_quant == "int8":
                 ck, cv, cache_scale = self._quantize_cache(ck, cv)
+                if win_cache is not None:
+                    wk, wv, (wks, wvs) = self._quantize_cache(win_cache["k"], win_cache["v"])
+                    win_cache.update(k=wk, v=wv, ks=wks, vs=wvs)
             toks_d, lps_d, finished, hs, steps = self._decode_impl(
                 ck, cv, presence, last_logits, self._t(lens.astype(np.int32)),
                 torch.full((B,), Lp, dtype=torch.int32, device=dev),
-                self._t(lens), Lp, finished,
+                lens_t, Lp, finished,
                 torch.full((B,), budget, dtype=torch.int64, device=dev), generator,
                 temperature, top_k, top_p, min_p, rep_pen, T=budget,
                 static_top_k=static_top_k, use_presence=use_presence,
-                cache_scale=cache_scale)
+                cache_scale=cache_scale, win_cache=win_cache, win_pad=win_pad)
             toks = toks_d.cpu().numpy()
             lps = lps_d.cpu().numpy()
             if self.collect_h0:

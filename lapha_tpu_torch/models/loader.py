@@ -1,6 +1,6 @@
 """HF checkpoint -> parameter dict, and numpy trees -> tensors.
 
-Port of the qwen2/llama and MoE (qwen2_moe, qwen3_moe, mixtral) part of
+Port of the qwen2/llama, MoE (qwen2_moe, qwen3_moe, mixtral) and gpt_oss part of
 ``lapha_tpu/models/loader.py``, with its load-time quantization (``quantize="int8"|"int4"``, done on the host by
 ``quant.quantize_weight``/``quantize_weight_int4``, bit-equal to the JAX
 loader's numpy code, so only the quantized weights reach the card), plus ``params_from_numpy``, which turns the JAX package's
@@ -116,7 +116,12 @@ def load_params(model_dir: str, cfg: Qwen2Config | None = None,
     rules. MoE expert stacks are int8 in both modes, and the router and the
     shared expert's gate stay unquantized, as in JAX. Quantization runs on
     the host; only its result is moved. Expert stacks are built one layer
-    at a time into their (L, E, in, out) tensor on ``device``."""
+    at a time into their (L, E, in, out) tensor on ``device``.
+
+    gpt_oss (the dequantized bf16 export, as the JAX loader expects): the
+    o_proj bias, the sinks kept in f32, the router bias, and the stacked
+    expert tensors (already (E, in, out)) with the gate_up columns
+    de-interleaved from [g0, u0, g1, u1, ...] into [gate | up] halves."""
     if quantize not in (None, "int8", "int4"):
         raise ValueError(f"unsupported quantize={quantize!r}")
     device = _device(device, "load_params")
@@ -169,23 +174,53 @@ def load_params(model_dir: str, cfg: Qwen2Config | None = None,
         },
         "norm": {"scale": put(ts.get("norm.weight"))},
     }
-    if cfg.num_experts > 0:
+    def by_layer(host_of, quantizable: bool = True):
+        """An (L, ...) expert stack built one layer at a time (``host_of(i)``
+        on the host) into tensors on ``device``; int8 per (layer, expert,
+        out channel) under ``quantize`` when ``quantizable``."""
+        q = q8 and quantizable
+        out = None
+        for i in range(L):
+            host = host_of(i)
+            leaf = quantize_weight(host.float()) if q else {"w": host.to(dtype)}
+            if out is None:
+                out = {k: torch.empty((L, *v.shape), dtype=v.dtype, device=device)
+                       for k, v in leaf.items()}
+            for k, v in leaf.items():
+                out[k][i] = v
+        return out if q else out["w"]
+
+    attn = params["layers"]["attn"]
+    if cfg.o_proj_bias:
+        attn["o_proj"]["b"] = stack(sa + "o_proj.bias")
+    if cfg.attn_sinks:  # learned per-head sink logits, kept f32
+        attn["sinks"] = torch.stack([ts.get(f"layers.{i}.self_attn.sinks")
+                                     for i in range(L)]).float().to(device)
+    if cfg.num_experts > 0 and cfg.moe_style == "gptoss":
+        def stacked(name: str, deinter: bool = False):
+            """layer i's stacked expert tensor, gate_up de-interleaved"""
+            def host_of(i):
+                t = ts.get(f"layers.{i}.mlp.experts.{name}")
+                return torch.cat([t[..., 0::2], t[..., 1::2]], dim=-1) if deinter else t
+            return host_of
+
+        params["layers"]["moe"] = {
+            "router": {"w": stack("layers.{i}.mlp.router.weight", True, quantizable=False),
+                       "b": stack("layers.{i}.mlp.router.bias")},
+            "experts": {
+                "gate_up": {"w": by_layer(stacked("gate_up_proj", True)),
+                            "b": by_layer(stacked("gate_up_proj_bias", True), False)},
+                "down": {"w": by_layer(stacked("down_proj")),
+                         "b": by_layer(stacked("down_proj_bias"), False)},
+            },
+        }
+    elif cfg.num_experts > 0:
         E = cfg.num_experts
 
         def experts(fmt: str):
-            """(L, E, in, out) from the per-expert HF mats, one layer at a
-            time into tensors on ``device``; int8 per (layer, expert, out
-            channel) under ``quantize``."""
-            out = None
-            for i in range(L):
-                host = torch.stack([ts.get(fmt.format(i=i, e=e)) for e in range(E)]).transpose(-1, -2)
-                leaf = quantize_weight(host.float()) if q8 else {"w": host.to(dtype)}
-                if out is None:
-                    out = {k: torch.empty((L, *v.shape), dtype=v.dtype, device=device)
-                           for k, v in leaf.items()}
-                for k, v in leaf.items():
-                    out[k][i] = v
-            return out if q8 else out["w"]
+            """(L, E, in, out) from the per-expert HF mats (out, in)."""
+            return by_layer(lambda i: torch.stack(
+                [ts.get(fmt.format(i=i, e=e)) for e in range(E)]).transpose(-1, -2))
 
         router, gate, up, down = _MOE_FMTS[cfg.moe_layout]
         moe = {

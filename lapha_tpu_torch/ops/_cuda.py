@@ -31,7 +31,9 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_cached": 0,
+            "flash_attention_window": 0, "flash_attention_cached_window": 0,
             "ragged_decode_attention": 0, "ragged_decode_attention_q8": 0,
+            "ragged_decode_attention_sink": 0, "ragged_decode_attention_q8_sink": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "int4_matmul": 0, "grouped_gemm": 0}
 
@@ -102,7 +104,7 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         dll = ctypes.CDLL(build())
         dll.lapha_flash_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _I, _I, _F, _P]
+                                        _I, _I, _I, _I, _I, _I, _I, _F, _P]
         dll.lapha_flash_fwd.restype = _I
         dll.lapha_ragged_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                                             _I, _I, _I, _I, _I, _F, _P]
@@ -110,6 +112,12 @@ def lib() -> ctypes.CDLL:
         dll.lapha_ragged_decode_q8.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                                                _I, _I, _I, _I, _I, _F, _P]
         dll.lapha_ragged_decode_q8.restype = _I
+        dll.lapha_ragged_decode_sink.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                                                 _I, _I, _I, _I, _I, _F, _P]
+        dll.lapha_ragged_decode_sink.restype = _I
+        dll.lapha_ragged_decode_q8_sink.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                                    _P, _I, _I, _I, _I, _I, _F, _P]
+        dll.lapha_ragged_decode_q8_sink.restype = _I
         dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         dll.lapha_int4_matmul.restype = _I
         dll.lapha_grouped_gemm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]

@@ -20,13 +20,25 @@ the FlashAttention-2 backward formulas from the saved LSE), a CUDA tensor
 launches the kernel or raises. There is no fallback between them.
 
 Semantics: query t of row b sits at absolute position qstart[b] + t and sees
-key j iff kv_valid[b, j] and j <= qstart[b] + t. A row that sees no key
-gives 0 and LSE -1e30 here, never NaN. The JAX versions give a finite
-average of V there (their masked probabilities are exp(0) = 1); such rows
-are padding that nothing reads.
+key j iff kv_valid[b, j] and j <= qstart[b] + t, and with ``window`` W > 0
+(a sliding-window layer) j > qstart[b] + t - W. The kernel takes head dims
+64 and 128; a windowed launch is counted under its own name
+(``flash_attention_window``, ``flash_attention_cached_window``). A row that
+sees no key gives 0 and LSE -1e30 here, never NaN. The JAX versions give a
+finite average of V there (their masked probabilities are exp(0) = 1); such
+rows are padding that nothing reads.
 
-Not ported yet: sliding windows, logit softcap, attention sinks and a V
-narrower than Q/K on the card.
+Attention sinks (GPT-OSS: one learned logit per query head, an extra
+softmax column of zero value) fold outside the kernel, exactly as JAX folds
+them (``_sink_forward``, ``flash_attention_cached``):
+lse_t = logaddexp(lse, sink), out_t = out · exp(lse - lse_t). The backward
+reruns the backward pair with (out_t, lse_t) and adds
+dsink = -Σ exp(sink - lse_t)·D (JAX ``_sink_bwd``).
+
+On the card the backward pair takes head dim 128 and no window: a windowed
+or dh-64 backward raises (windowed K2 is ROADMAP B2) rather than return a
+gradient. Not ported yet: the logit softcap, and a V narrower than Q/K on
+the card.
 """
 
 from __future__ import annotations
@@ -43,34 +55,44 @@ __all__ = ["flash_attention", "flash_attention_cached", "attention_plain",
            "attention_bwd_plain"]
 
 
-def attention_plain(q, k, v, kv_valid, qstart, scale):
+def _sink_fold(out, lse, sinks):
+    """The sink column folded into a sink-free result: (out (B,T,nh,dv),
+    lse (B,nh,T) f32) -> (out_t in out's dtype, lse_t f32). A row that saw
+    no key (lse -1e30) gets lse_t = sink and stays 0."""
+    lse_t = torch.logaddexp(lse, sinks.float()[None, :, None])
+    factor = torch.exp(lse - lse_t).transpose(1, 2)[..., None]  # (B, T, nh, 1)
+    return (out.float() * factor).to(out.dtype), lse_t
+
+
+def attention_plain(q, k, v, kv_valid, qstart, scale, window=0, sinks=None):
     """Dense masked attention, float32 inside. q (B,T,nh,dh); k, v (B,S,nkv,dh|dv);
-    kv_valid (B,S); qstart (B,). Returns (out (B,T,nh,dv) in q.dtype, lse (B,nh,T) f32)."""
+    kv_valid (B,S); qstart (B,); ``window`` > 0 bands it; ``sinks`` (nh,)
+    folds the sink column in. Returns (out (B,T,nh,dv) in q.dtype, lse
+    (B,nh,T) f32)."""
     B, T, nh, dh = q.shape
     S, nkv = k.shape[1], k.shape[2]
     group = nh // nkv
     qg = q.float().reshape(B, T, nkv, group, dh)
     s = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
-    qpos = qstart.reshape(B, 1).long() + torch.arange(T, device=q.device)[None, :]
-    kpos = torch.arange(S, device=q.device)
-    valid = (kv_valid[:, None, :] > 0) & (kpos[None, None, :] <= qpos[:, :, None])  # (B,T,S)
-    valid = valid[:, None, None]
+    valid = _visible(q, kv_valid, qstart, S, window)[:, None, None]  # (B,1,1,T,S)
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgts,bskd->btkgd", p / l.clamp(min=1e-30), v.float())
     lse = torch.where(l > 0, m + torch.log(l.clamp(min=1e-30)), NEG_INF)
-    return (o.reshape(B, T, nh, v.shape[-1]).to(q.dtype),
-            lse.reshape(B, nh, T))
+    out, lse = o.reshape(B, T, nh, v.shape[-1]).to(q.dtype), lse.reshape(B, nh, T)
+    return (out, lse) if sinks is None else _sink_fold(out, lse, sinks)
 
 
-def _attention_cuda(q, k, v, kv_valid, qstart, scale, name):
+def _attention_cuda(q, k, v, kv_valid, qstart, scale, name, window=0):
+    """The forward kernel, sink-free; a windowed launch counts as name + "_window"."""
     B, T, nh, dh = q.shape
     S, nkv = k.shape[1], k.shape[2]
     dev = q.device
+    name = name + "_window" if window > 0 else name
     _cuda.require_cuda_bf16(name, dev, q=q, k=k, v=v)
-    _cuda.require(dh == 128, name, f"head dim {dh} (the kernel takes 128)")
+    _cuda.require(dh in (64, 128), name, f"head dim {dh} (the kernel takes 64 and 128)")
     _cuda.require(tuple(v.shape) == tuple(k.shape), name,
                   "v must have k's shape (a narrower V is not ported)")
     _cuda.require(k.dim() == 4 and k.shape[0] == B and k.shape[3] == dh
@@ -83,29 +105,33 @@ def _attention_cuda(q, k, v, kv_valid, qstart, scale, name):
     err = _cuda.lib().lapha_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
         qstart.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, T, S, nh, nkv, dh, float(scale), _cuda.stream_of(q))
+        B, T, S, nh, nkv, dh, int(window), float(scale), _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1
     return out, lse
 
 
-def _forward(q, k, v, kv_valid, qstart, scale, name):
+def _forward(q, k, v, kv_valid, qstart, scale, name, window=0, sinks=None):
+    """(out, lse), the sinks folded in: the kernel for CUDA tensors, the
+    plain version for CPU ones."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, kv_valid, qstart, scale)
+        return attention_plain(q, k, v, kv_valid, qstart, scale, window, sinks)
     if q.device.type == "cuda":
-        return _attention_cuda(q, k, v, kv_valid, qstart, scale, name)
+        out, lse = _attention_cuda(q, k, v, kv_valid, qstart, scale, name, window)
+        return (out, lse) if sinks is None else _sink_fold(out, lse, sinks)
     raise ValueError(f"{name}: no kernel for device {q.device}")
 
 
-def _visible(q, kv_valid, qstart, S):
+def _visible(q, kv_valid, qstart, S, window=0):
     """(B, T, S) bool: query t of row b sees key j."""
     T = q.shape[1]
-    qpos = qstart.reshape(-1, 1).long() + torch.arange(T, device=q.device)[None, :]
-    kpos = torch.arange(S, device=q.device)
-    return (kv_valid[:, None, :] > 0) & (kpos[None, None, :] <= qpos[:, :, None])
+    qpos = (qstart.reshape(-1, 1).long() + torch.arange(T, device=q.device)[None, :])[:, :, None]
+    kpos = torch.arange(S, device=q.device)[None, None, :]
+    seen = (kv_valid[:, None, :] > 0) & (kpos <= qpos)
+    return seen & (kpos > qpos - window) if window > 0 else seen
 
 
-def _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale):
+def _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0):
     """P and dS (B, nkv, group, T, S) in f32, recomputed from the LSE as the
     kernels do. Rows whose LSE is the -1e30 sentinel saw no key: P = 0."""
     B, T, nh, dh = q.shape
@@ -114,7 +140,7 @@ def _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale):
     s = torch.einsum("btkgd,bskd->bkgts", q.float().reshape(B, T, nkv, group, dh),
                      k.float()) * scale
     lse_g = lse.float().reshape(B, nkv, group, T, 1)
-    ok = _visible(q, kv_valid, qstart, S)[:, None, None] & (lse_g > 0.5 * NEG_INF)
+    ok = _visible(q, kv_valid, qstart, S, window)[:, None, None] & (lse_g > 0.5 * NEG_INF)
     p = torch.where(ok, torch.exp(s - lse_g), 0.0)
     dp = torch.einsum("btkgd,bskd->bkgts", do.float().reshape(B, T, nkv, group, -1),
                       v.float())
@@ -149,11 +175,11 @@ def attention_bwd_dkv_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale):
     return _dkv_from(p, ds, q, k, v, do, scale)
 
 
-def attention_bwd_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale):
+def attention_bwd_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0):
     """FlashAttention-2 backward from the saved LSE, float32 inside; mirrors
     the Pallas ``_dq_kernel``/``_dkv_kernel``. ``delta`` = rowsum(dO∘O)
     (B,T,nh) f32. Returns (dq, dk, dv) in the inputs' dtypes."""
-    p, ds = _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale)
+    p, ds = _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale, window)
     return (_dq_from(ds, q, k, scale), *_dkv_from(p, ds, q, k, v, do, scale))
 
 
@@ -209,73 +235,92 @@ def attention_bwd_dkv_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale):
     return dk, dv
 
 
-def _backward(q, k, v, kv_valid, qstart, out, lse, do, scale):
-    """(dq, dk, dv): the kernels for CUDA tensors, the plain version for CPU
-    ones. D = rowsum(dO∘O) in f32 is a torch op on both, as JAX computes
-    it outside Pallas."""
+def _backward(q, k, v, kv_valid, qstart, out, lse, do, scale, window=0):
+    """(dq, dk, dv, delta): the kernels for CUDA tensors, the plain version
+    for CPU ones. D = rowsum(dO∘O) in f32 is a torch op on both, as JAX
+    computes it outside Pallas; it is returned for the sinks' gradient."""
     do = do.contiguous()  # autograd may hand over a strided view
     delta = (do.float() * out.float()).sum(-1)  # (B, T, nh)
     if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale)
+        return (*attention_bwd_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale, window),
+                delta)
     if q.device.type == "cuda":
+        if window > 0:
+            raise NotImplementedError(
+                "flash_attention backward: the windowed backward kernel is not ported yet "
+                "(ROADMAP B2, GPT-OSS training)")
         args = (q, k, v, kv_valid, qstart, lse, do, delta, scale)
         dq = attention_bwd_dq_cuda(*args)
         dk, dv = attention_bwd_dkv_cuda(*args)
-        return dq, dk, dv
+        return dq, dk, dv, delta
     raise ValueError(f"flash_attention backward: no kernel for device {q.device}")
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The no-cache forward with its backward pair (JAX ``_flash_attention_vjp``)."""
+    """The no-cache forward with its backward pair (JAX ``_flash_attention_vjp``,
+    and ``_flash_attention_sink_vjp`` when ``sinks`` is given)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_valid, qstart, scale):
-        out, lse = _forward(q, k, v, kv_valid, qstart, scale, "flash_attention")
-        ctx.save_for_backward(q, k, v, kv_valid, qstart, out, lse)
-        ctx.scale = scale
+    def forward(ctx, q, k, v, kv_valid, qstart, sinks, scale, window):
+        out, lse = _forward(q, k, v, kv_valid, qstart, scale, "flash_attention", window, sinks)
+        ctx.save_for_backward(q, k, v, kv_valid, qstart, out, lse, sinks)
+        ctx.scale, ctx.window = scale, window
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, kv_valid, qstart, out, lse = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, kv_valid, qstart, out, lse, dout, ctx.scale)
-        return dq, dk, dv, None, None, None
+        q, k, v, kv_valid, qstart, out, lse, sinks = ctx.saved_tensors
+        dq, dk, dv, delta = _backward(q, k, v, kv_valid, qstart, out, lse, dout, ctx.scale,
+                                      ctx.window)
+        dsink = None
+        if sinks is not None and ctx.needs_input_grad[5]:
+            # the sink column's probability, exp(sink - lse_t), times -D
+            p_sink = torch.exp(sinks.float()[None, :, None] - lse)  # (B, nh, T)
+            dsink = -(p_sink * delta.transpose(1, 2)).sum(dim=(0, 2)).to(sinks.dtype)
+        return dq, dk, dv, None, None, dsink, None, None
 
 
-def _not_ported(name, window, softcap, sinks):
-    if window or softcap or sinks is not None:
-        raise NotImplementedError(f"{name}: window/softcap/sinks are not ported yet")
+def _not_ported(name, softcap):
+    if softcap:
+        raise NotImplementedError(f"{name}: the logit softcap is not ported yet")
 
 
-def flash_attention_lse(q, k, v, mask=None, *, causal=True, scale=None):
+def flash_attention_lse(q, k, v, mask=None, *, causal=True, scale=None, window=0, sinks=None):
     """Returns (out (B,T,nh,dh), lse (B,nh,T) f32); see :func:`flash_attention`.
-    Differentiable in q, k and v (lse is not)."""
+    Differentiable in q, k, v and sinks (lse is not); lse includes the sinks."""
     B, T = q.shape[0], q.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if window > 0 and not causal:
+        raise ValueError("flash_attention: a window needs causal attention")
     if mask is None:
         mask = torch.ones((B, T), dtype=torch.int32, device=q.device)
     # non-causal: a query offset at T puts every key behind the frontier
     qstart = torch.full((B,), 0 if causal else T, dtype=torch.int32, device=q.device)
-    return _FlashAttention.apply(q, k, v, mask, qstart, scale)
+    return _FlashAttention.apply(q, k, v, mask, qstart, sinks, scale, int(window))
 
 
 def flash_attention(q, k, v, mask=None, *, causal=True, scale=None, window=0,
                     softcap=0.0, sinks=None):
-    """Causal GQA attention, differentiable in q, k and v. q (B,T,nh,dh);
-    k, v (B,T,nkv,dh); mask (B,T) key validity. ``scale`` overrides
-    1/sqrt(dh). Returns (B,T,nh,dh) in q.dtype."""
-    _not_ported("flash_attention", window, softcap, sinks)
-    return flash_attention_lse(q, k, v, mask, causal=causal, scale=scale)[0]
+    """Causal GQA attention, differentiable in q, k, v and sinks. q
+    (B,T,nh,dh); k, v (B,T,nkv,dh); mask (B,T) key validity. ``scale``
+    overrides 1/sqrt(dh); ``window`` > 0 bands the mask to the last
+    ``window`` positions (by index, as JAX); ``sinks`` (nh,) f32 are GPT-OSS
+    attention-sink logits. Returns (B,T,nh,dh) in q.dtype."""
+    _not_ported("flash_attention", softcap)
+    return flash_attention_lse(q, k, v, mask, causal=causal, scale=scale, window=window,
+                               sinks=sinks)[0]
 
 
 def flash_attention_cached(q, k, v, kv_valid, qstart, *, scale=None, window=0,
                            softcap=0.0, sinks=None):
     """Rectangular attention of T new queries (B,T,nh,dh) over the whole
     cache k, v (B,S,nkv,dh) with cache-column validity kv_valid (B,S) and
-    per-row query offset qstart ((B,) or scalar). Forward only."""
-    _not_ported("flash_attention_cached", window, softcap, sinks)
+    per-row query offset qstart ((B,) or scalar); ``window`` bands by cache
+    slot, ``sinks`` fold as in :func:`flash_attention`. Forward only."""
+    _not_ported("flash_attention_cached", softcap)
     B = q.shape[0]
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     qstart = torch.as_tensor(qstart, device=q.device).reshape(-1).expand(B)
-    return _forward(q, k, v, kv_valid, qstart, scale, "flash_attention_cached")[0]
+    return _forward(q, k, v, kv_valid, qstart, scale, "flash_attention_cached", int(window),
+                    sinks)[0]

@@ -1,7 +1,7 @@
 """Ragged one-token decode attention — Hopper kernel + plain version.
 
-Port of the bf16 and int8-cache entries of
-``lapha_tpu/ops/ragged_decode_attention.py``: row
+Port of the four entries of ``lapha_tpu/ops/ragged_decode_attention.py``
+(bf16 and int8 caches, each with and without attention sinks): row
 b's query group attends to the slots of one layer of the slot-uniform
 (L, B, nkv, S, dh) decode cache that lie in
 
@@ -19,9 +19,18 @@ attention scale, and the V scale multiplies the probabilities, after the
 softmax denominator in the kernel and after the normalisation in the plain
 version (the JAX dense int8 path, ``qwen2.decode_step``) — the same values.
 
-A CPU tensor takes the plain version (dense masked attention over the same
-validity); a CUDA tensor launches the kernel or raises. Not ported yet: the
-attention-sink entries (Pallas ``_kernel_sink``, ``_kernel_q8_sink``).
+``sinks`` (nh,) f32, GPT-OSS's learned per-head sink logits (the Pallas
+``_kernel_sink`` and ``_kernel_q8_sink``): an extra softmax column of zero
+value, which the kernel realises by starting each query head's online
+softmax at (max = sink, sum = 1). A sliding-window layer passes the
+window-clipped ranges, pstart = clip(positions - W + 1, 0, lens) and
+dstart' = max(dstart, slot - W + 1); nothing in the kernel knows the window.
+
+The kernel takes head dims 64 and 128, at most 8 query heads per KV head.
+Launches are counted per entry: ``ragged_decode_attention``, ``_q8``,
+``_sink`` and ``_q8_sink``. A CPU tensor takes the plain version (dense
+masked attention over the same validity); a CUDA tensor launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -36,11 +45,18 @@ NEG_INF = -1e30
 
 __all__ = ["ragged_decode_attention", "ragged_decode_plain"]
 
+# launch-count name -> C entry of csrc/ragged_decode_attention.cu
+_ENTRIES = {"ragged_decode_attention": "lapha_ragged_decode",
+            "ragged_decode_attention_q8": "lapha_ragged_decode_q8",
+            "ragged_decode_attention_sink": "lapha_ragged_decode_sink",
+            "ragged_decode_attention_q8_sink": "lapha_ragged_decode_q8_sink"}
+
 
 def ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart, slot,
-                        pstart=None, scale=None, *, cache_scale=None):
+                        pstart=None, scale=None, *, cache_scale=None, sinks=None):
     """Dense masked decode attention, float32 inside; same arguments and
-    result as :func:`ragged_decode_attention`."""
+    result as :func:`ragged_decode_attention`. The sink column joins the
+    softmax's max and denominator (JAX ``_sink_softmax``)."""
     B, nh, dh = q.shape
     k, v = k_cache[layer], v_cache[layer]  # (B, nkv, S, dh)
     nkv, S = k.shape[1], k.shape[2]
@@ -55,16 +71,25 @@ def ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart, slot,
     if cache_scale is not None:
         s = s * cache_scale[0][layer].float()[:, :, None, :]
     s = torch.where(valid, s, NEG_INF)
-    p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
-    p = p / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    m = s.amax(dim=-1, keepdim=True)
+    if sinks is not None:
+        sk = sinks.float().reshape(1, nkv, nh // nkv, 1)
+        m = torch.maximum(m, sk)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    den = p.sum(dim=-1, keepdim=True)
+    if sinks is not None:
+        den = den + torch.exp(sk - m)
+    p = p / den.clamp(min=1e-30)
     if cache_scale is not None:
         p = p * cache_scale[1][layer].float()[:, :, None, :]
     o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
     return o.reshape(B, nh, dh).to(q.dtype)
 
 
-def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, cache_scale):
-    name = "ragged_decode_attention" if cache_scale is None else "ragged_decode_attention_q8"
+def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, cache_scale,
+                 sinks):
+    name = ("ragged_decode_attention" + ("" if cache_scale is None else "_q8")
+            + ("" if sinks is None else "_sink"))
     B, nh, dh = q.shape
     dev = q.device
     if cache_scale is None:
@@ -82,9 +107,11 @@ def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, 
     _cuda.require(tuple(v_cache.shape) == tuple(k_cache.shape) and Bc == B
                   and dhc == dh, name,
                   f"shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)}")
-    _cuda.require(dh == 128, name, f"head dim {dh} (the kernel takes 128)")
+    _cuda.require(dh in (64, 128), name, f"head dim {dh} (the kernel takes 64 and 128)")
     _cuda.require(nh % nkv == 0 and nh // nkv <= 8, name,
                   f"{nh} query heads over {nkv} KV heads (group <= 8)")
+    if sinks is not None:  # its shape is checked by ragged_decode_attention
+        _cuda.require_cuda(name, dev, torch.float32, aligned=False, sinks=sinks)
     layer, slot = int(layer), int(slot)
     _cuda.require(0 <= layer < L and 0 <= slot < S, name,
                   f"layer {layer} / slot {slot} outside the cache")
@@ -93,16 +120,12 @@ def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, 
     pstart = (torch.zeros((B,), dtype=torch.int32, device=dev) if pstart is None
               else _cuda.int32_on(pstart, dev, (B,)))
     out = torch.empty((B, nh, dh), dtype=q.dtype, device=dev)
-    if cache_scale is None:
-        err = _cuda.lib().lapha_ragged_decode(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-            dstart.data_ptr(), pstart.data_ptr(), layer, slot, out.data_ptr(),
-            B, nh, nkv, S, dh, float(scale), _cuda.stream_of(q))
-    else:
-        err = _cuda.lib().lapha_ragged_decode_q8(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_scale[0].data_ptr(),
-            cache_scale[1].data_ptr(), lens.data_ptr(), dstart.data_ptr(), pstart.data_ptr(),
-            layer, slot, out.data_ptr(), B, nh, nkv, S, dh, float(scale), _cuda.stream_of(q))
+    scales = [] if cache_scale is None else [cache_scale[0].data_ptr(), cache_scale[1].data_ptr()]
+    sink = [] if sinks is None else [sinks.data_ptr()]
+    err = getattr(_cuda.lib(), _ENTRIES[name])(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales, lens.data_ptr(),
+        dstart.data_ptr(), pstart.data_ptr(), *sink, layer, slot, out.data_ptr(),
+        B, nh, nkv, S, dh, float(scale), _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1
     return out
@@ -112,15 +135,16 @@ def ragged_decode_attention(q, k_cache, v_cache, layer, lens, dstart, slot,
                             pstart=None, scale=None, *, cache_scale=None,
                             sinks=None):
     """q (B,nh,dh); k_cache, v_cache (L,B,nkv,S,dh), bf16 or (with
-    ``cache_scale``) int8; layer and slot ints; lens, dstart, pstart (B,).
-    Returns (B,nh,dh) in q.dtype."""
-    if sinks is not None:
-        raise NotImplementedError("ragged_decode_attention: sinks are not ported yet")
+    ``cache_scale``) int8; layer and slot ints; lens, dstart, pstart (B,);
+    ``sinks`` (nh,) f32 or None. Returns (B,nh,dh) in q.dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if sinks is not None and tuple(sinks.shape) != (q.shape[1],):
+        raise ValueError(f"ragged_decode_attention: sinks {tuple(sinks.shape)} for "
+                         f"{q.shape[1]} query heads")
     if q.device.type == "cpu":
         return ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart,
-                                   slot, pstart, scale, cache_scale=cache_scale)
+                                   slot, pstart, scale, cache_scale=cache_scale, sinks=sinks)
     if q.device.type == "cuda":
         return _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot,
-                            pstart, scale, cache_scale)
+                            pstart, scale, cache_scale, sinks)
     raise ValueError(f"ragged_decode_attention: no kernel for device {q.device}")

@@ -87,11 +87,15 @@ def test_flash_attention_cached_matches_jax(T, S, qstart):
 
 
 def test_flash_options_not_ported_raise():
+    """The logit softcap is not ported; a window needs causal attention.
+    (Windows and sinks are held against JAX in tests/test_torch_gptoss.py.)"""
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, q, q, window=2)
+        tfa.flash_attention(q, q, q, softcap=30.0)
     with pytest.raises(NotImplementedError):
-        tfa.flash_attention_cached(q, q, q, torch.ones(1, 4), 0, sinks=torch.zeros(2))
+        tfa.flash_attention_cached(q, q, q, torch.ones(1, 4), 0, softcap=30.0)
+    with pytest.raises(ValueError, match="causal"):
+        tfa.flash_attention(q, q, q, causal=False, window=2)
 
 
 def _ragged_case(rng, L, B, nkv, S, nh, dh):
@@ -139,5 +143,9 @@ def test_ragged_variants_not_ported_raise():
     q = torch.zeros(1, 2, 8)
     c = torch.zeros(1, 1, 1, 4, 8)
     lens = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        t_ragged(q, c, c, 0, lens, lens, 2, sinks=torch.zeros(2))
+    # sinks (held against JAX in tests/test_torch_gptoss.py) take one logit
+    # per query head; a device without a kernel raises
+    with pytest.raises(ValueError, match="sinks"):
+        t_ragged(q, c, c, 0, lens, lens, 2, sinks=torch.zeros(3))
+    with pytest.raises(ValueError, match="no kernel"):
+        t_ragged(q.to("meta"), c.to("meta"), c.to("meta"), 0, lens, lens, 2)

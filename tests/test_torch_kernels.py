@@ -26,6 +26,12 @@ plain version forms the same exact bf16 products and sums them in f32 in
 another order: max |diff| <= 1e-3 · max |plain|. Group sizes shifted by one
 row (a planted fault) must fail that check.
 
+The sink entries of the ragged decode kernel (K5s, bf16 and int8 caches)
+keep the tolerances of their entries without sinks (3e-2; the int8 rule);
+sinks of the next head (a planted fault) must fail them. Windowed K1/K3 keep
+3e-2, and a window off by one (a planted fault) must fail it. Both at head
+dims 64 and 128.
+
 The backward kernels (dq; dk/dv) are held against the plain backward on the
 same bf16 inputs and the same saved LSE. They round P and dS to bf16 before
 each product and write bf16, each at most 2^-9 relative, so the tolerance
@@ -148,8 +154,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fa.flash_attention(q, q[:, :, :2], q[:, :, :2])  # f32, not bf16
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError):
-        fa.flash_attention(qb[..., :64].contiguous(), qb[:, :, :2, :64].contiguous(),
-                           qb[:, :, :2, :64].contiguous())  # head dim 64
+        fa.flash_attention(qb[..., :96].contiguous(), qb[:, :, :2, :96].contiguous(),
+                           qb[:, :, :2, :96].contiguous())  # head dim 96
     c = torch.zeros((1, 1, 2, 16, 128), dtype=torch.bfloat16, device=dev)
     lens = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
@@ -593,3 +599,149 @@ def test_moe_block_on_the_card_matches_the_cpu_without_syncs(dev):
                              routing=(topw.float().cpu(), topi.cpu()))
     assert float((routed.float().cpu() - ref).norm() / ref.norm()) <= 2e-2
     assert torch.isfinite(got.float()).all()
+
+
+# ---------------------------------------------------------------- GPT-OSS: K5s, windowed K1/K3, dh 64
+
+def _sink_case(rng, dev, dh, nh, nkv, int8):
+    """24 decode rows over S=640, prompts up to 512, a 128-token window's
+    clipped ranges on half the rows; random sinks."""
+    L, B, S, slot, W = 2, 24, 640, 560, 128
+    q = _bf16(rng, (B, nh, dh), dev)
+    kc, vc = _bf16(rng, (L, B, nkv, S, dh), dev), _bf16(rng, (L, B, nkv, S, dh), dev)
+    scl = None
+    if int8:
+        (kc, ks), (vc, vs) = _quantize_kv(kc), _quantize_kv(vc)
+        scl = (ks, vs)
+    lens = torch.from_numpy(rng.integers(1, 513, B).astype(np.int32)).to(dev)
+    dstart = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    pos = lens + (slot - 512)
+    pstart = torch.minimum(torch.clamp(pos - (W - 1), min=0), lens).to(torch.int32)
+    pstart[::2] = 0
+    dstart = torch.where(torch.arange(B, device=dev) % 2 == 1,
+                         torch.clamp(dstart, min=slot - (W - 1)), dstart)
+    # sinks of alternating sign, large against the logits' LSE (~6), so that
+    # each head's output depends on its own sink and the planted fault shows
+    sinks = rng.normal(size=nh) + np.where(np.arange(nh) % 2 == 0, 8.0, -8.0)
+    return q, kc, vc, scl, lens, dstart, pstart, slot, torch.from_numpy(
+        sinks.astype(np.float32)).to(dev)
+
+
+def _sink_err(out, ref, int8):
+    if int8:
+        return _q8_excess(out, ref)
+    return (out.float() - ref.float()).abs().max().item() - ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dh,nh,nkv", [(64, 64, 8), (128, 12, 2), (64, 6, 6)])
+def test_ragged_sink_kernels_match_plain(dev, int8, dh, nh, nkv):
+    """K5s (bf16 and int8 entries) at dh 64 (GPT-OSS's 64/8 heads) and 128,
+    full and window-clipped ranges; the sinks of the next head fail."""
+    rng = np.random.default_rng(200 + dh + nh + int8)
+    q, kc, vc, scl, lens, dstart, pstart, slot, sinks = _sink_case(rng, dev, dh, nh, nkv, int8)
+    name = "ragged_decode_attention_q8_sink" if int8 else "ragged_decode_attention_sink"
+    for layer in (0, 1):
+        before = _cuda.LAUNCHES[name]
+        out = rda.ragged_decode_attention(q, kc, vc, layer, lens, dstart, slot, pstart,
+                                          cache_scale=scl, sinks=sinks)
+        ref = rda.ragged_decode_plain(q, kc, vc, layer, lens, dstart, slot, pstart,
+                                      cache_scale=scl, sinks=sinks)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[name] == before + 1
+        assert torch.isfinite(out.float()).all()
+        assert _sink_err(out, ref, int8) <= 0
+    bad = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, cache_scale=scl,
+                                      sinks=sinks.roll(-1).contiguous())
+    torch.cuda.synchronize()
+    assert _sink_err(bad, ref, int8) > 0
+
+
+@pytest.mark.cuda
+def test_ragged_sink_kernel_rows_without_keys_are_zero(dev):
+    """A row whose prompt segment is empty and whose decode segment starts
+    past the slot sees no key: 0, the whole mass on the sink."""
+    rng = np.random.default_rng(9)
+    q = _bf16(rng, (2, 8, 64), dev)
+    c = _bf16(rng, (1, 2, 1, 64, 64), dev)
+    lens = torch.tensor([5, 5], dtype=torch.int32, device=dev)
+    pstart = torch.tensor([0, 5], dtype=torch.int32, device=dev)
+    dstart = torch.tensor([10, 11], dtype=torch.int32, device=dev)
+    out = rda.ragged_decode_attention(q, c, c, 0, lens, dstart, 10, pstart,
+                                      sinks=torch.zeros(8, device=dev))
+    torch.cuda.synchronize()
+    assert (out[1] == 0).all() and out[0].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,nh,nkv", [(64, 64, 8), (128, 12, 2)])
+@pytest.mark.parametrize("T,qstart", [(64, 512), (512, 0), (37, (30, 5, 200))])
+def test_flash_window_kernels_match_plain(dev, dh, nh, nkv, T, qstart):
+    """Windowed K3 (W=128: a suffix prefill at qstart 512, a fresh prefill,
+    per-row offsets with a hole) and dh 64/128, counted under the windowed
+    name; a window off by one fails the check."""
+    rng = np.random.default_rng(300 + dh + T)
+    B, S, W = 3, 640, 128
+    q, k, v = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, S, nkv, dh), dev), _bf16(rng, (B, S, nkv, dh), dev)
+    qs = torch.as_tensor(qstart, device=dev).reshape(-1).expand(B).to(torch.int32)
+    kv_valid = (torch.arange(S, device=dev)[None, :] < (qs + T)[:, None]).to(torch.int32)
+    kv_valid[:, 3:9] = 0
+    scale = dh ** -0.5
+    before = dict(_cuda.LAUNCHES)
+    out, lse = fa._attention_cuda(q, k, v, kv_valid, qs, scale, "flash_attention_cached", W)
+    ref, ref_lse = fa.attention_plain(q, k, v, kv_valid, qs, scale, W)
+    bad = fa._attention_cuda(q, k, v, kv_valid, qs, scale, "flash_attention_cached", W + 1)[0]
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention_cached_window"] == (
+        before["flash_attention_cached_window"] + 2)
+    assert _cuda.LAUNCHES["flash_attention_cached"] == before["flash_attention_cached"]
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    seen = ref_lse > -1e29
+    assert (lse[seen] - ref_lse[seen]).abs().max().item() <= 1e-3
+    assert (bad.float() - ref.float()).abs().max().item() > ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 128])
+def test_flash_dh64_no_cache_window_and_sinks(dev, window):
+    """K1 at dh 64 (the GPT-OSS value forward): padded rows, the window,
+    the sinks folded outside the kernel."""
+    rng = np.random.default_rng(400 + window)
+    B, T, nh, nkv, dh = 3, 512, 64, 8, 64
+    q, k, v = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nkv, dh), dev), _bf16(rng, (B, T, nkv, dh), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, 400:] = 0
+    mask[2, :100] = 0
+    sinks = torch.from_numpy(rng.normal(size=nh).astype(np.float32)).to(dev)
+    name = "flash_attention_window" if window else "flash_attention"
+    before = _cuda.LAUNCHES[name]
+    out = fa.flash_attention(q, k, v, mask, window=window, sinks=sinks).float()
+    ref = fa.attention_plain(q, k, v, mask, torch.zeros(B, dtype=torch.int32, device=dev),
+                             dh ** -0.5, window, sinks)[0].float()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == before + 1
+    assert (out - ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.cuda
+def test_windowed_and_dh64_backward_raise_on_the_card(dev):
+    """No gradient goes missing in silence: the windowed backward and the
+    dh-64 backward raise; the sink backward at dh 128 without a window runs
+    the K2 kernels."""
+    rng = np.random.default_rng(11)
+    for dh, window, err in ((128, 16, NotImplementedError), (64, 0, ValueError)):
+        q = _bf16(rng, (1, 32, 4, dh), dev).requires_grad_(True)
+        k = _bf16(rng, (1, 32, 2, dh), dev)
+        out = fa.flash_attention(q, k, k, window=window, sinks=torch.zeros(4, device=dev))
+        with pytest.raises(err):
+            out.float().sum().backward()
+    q = _bf16(rng, (1, 32, 4, 128), dev).requires_grad_(True)
+    sinks = torch.zeros(4, device=dev, requires_grad=True)
+    before = _cuda.LAUNCHES["flash_attention_bwd_dq"]
+    out = fa.flash_attention(q, _bf16(rng, (1, 32, 2, 128), dev), _bf16(rng, (1, 32, 2, 128), dev),
+                             sinks=sinks)
+    gq, gs = torch.autograd.grad(out.float().sum(), (q, sinks))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention_bwd_dq"] == before + 1
+    assert torch.isfinite(gq.float()).all() and torch.isfinite(gs).all() and gs.abs().max() > 0

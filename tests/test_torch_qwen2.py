@@ -198,4 +198,4 @@ def test_unported_configs_are_refused():
                                 "num_attention_heads": 1, "use_sliding_window": True,
                                 "sliding_window": 4})
     with pytest.raises(ValueError, match="not yet ported"):
-        tq.Qwen2Config.tiny(rope_scaling=("yarn", 4.0, 1.0, 32.0, 1.0, 4096, True))
+        tq.Qwen2Config.tiny(rope_scaling=("dynamic", 4.0))
