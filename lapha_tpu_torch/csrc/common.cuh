@@ -12,6 +12,21 @@ namespace lapha {
 // to 0 for any real m, and NEG - NEG stays 0 rather than NaN.
 constexpr float NEG = -1e30f;
 
+// Dynamic shared memory above 48 KB needs an opt-in per kernel, and the
+// opt-in holds for the current device only: it is made at a kernel's first
+// launch on each device, `done` being that kernel's record of the devices.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+inline cudaError_t smem_opt_in(Kernel kernel, int smem, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }

@@ -30,12 +30,15 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_cached": 0,
-            "flash_attention_window": 0, "flash_attention_cached_window": 0,
-            "ragged_decode_attention": 0, "ragged_decode_attention_q8": 0,
-            "ragged_decode_attention_sink": 0, "ragged_decode_attention_q8_sink": 0,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "int4_matmul": 0, "grouped_gemm": 0}
+# the attention kernels count windowed and softcapped launches apart
+LAUNCHES = {name + cap: 0
+            for name in ("flash_attention", "flash_attention_cached", "flash_attention_window",
+                         "flash_attention_cached_window", "ragged_decode_attention",
+                         "ragged_decode_attention_q8", "ragged_decode_attention_sink",
+                         "ragged_decode_attention_q8_sink")
+            for cap in ("", "_softcap")}
+LAUNCHES.update({"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                 "int4_matmul": 0, "grouped_gemm": 0})
 
 _lib = None
 build_log = ""  # nvcc's output of the build this process ran (ptxas register/smem report)
@@ -103,20 +106,21 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         dll = ctypes.CDLL(build())
+        # the last float of the attention entries is the softcap (0 = off)
         dll.lapha_flash_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _I, _I, _I, _F, _P]
+                                        _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_flash_fwd.restype = _I
         dll.lapha_ragged_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P,
-                                            _I, _I, _I, _I, _I, _F, _P]
+                                            _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_ragged_decode.restype = _I
         dll.lapha_ragged_decode_q8.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                                               _I, _I, _I, _I, _I, _F, _P]
+                                               _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_ragged_decode_q8.restype = _I
         dll.lapha_ragged_decode_sink.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                                                 _I, _I, _I, _I, _I, _F, _P]
+                                                 _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_ragged_decode_sink.restype = _I
         dll.lapha_ragged_decode_q8_sink.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                                    _P, _I, _I, _I, _I, _I, _F, _P]
+                                                    _P, _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_ragged_decode_q8_sink.restype = _I
         dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         dll.lapha_int4_matmul.restype = _I

@@ -26,8 +26,14 @@ softmax at (max = sink, sum = 1). A sliding-window layer passes the
 window-clipped ranges, pstart = clip(positions - W + 1, 0, lens) and
 dstart' = max(dstart, slot - W + 1); nothing in the kernel knows the window.
 
-The kernel takes head dims 64 and 128, at most 8 query heads per KV head.
-Launches are counted per entry: ``ragged_decode_attention``, ``_q8``,
+``softcap`` > 0 (Gemma-2) caps each true logit, cap·tanh(s/cap), before
+the mask and the softmax: after the attention scale and, on an int8 cache,
+after the K scale, as JAX's dense decode (``qwen2.decode_step``
+``dense_att``) applies it. It is a runtime argument of every entry (0 =
+off); a softcapped launch is counted under its entry's name + "_softcap".
+
+The kernel takes head dims 64, 128 and 256, at most 8 query heads per KV
+head. Launches are counted per entry: ``ragged_decode_attention``, ``_q8``,
 ``_sink`` and ``_q8_sink``. A CPU tensor takes the plain version (dense
 masked attention over the same validity); a CUDA tensor launches the kernel
 or raises.
@@ -53,7 +59,7 @@ _ENTRIES = {"ragged_decode_attention": "lapha_ragged_decode",
 
 
 def ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart, slot,
-                        pstart=None, scale=None, *, cache_scale=None, sinks=None):
+                        pstart=None, scale=None, *, cache_scale=None, sinks=None, softcap=0.0):
     """Dense masked decode attention, float32 inside; same arguments and
     result as :func:`ragged_decode_attention`. The sink column joins the
     softmax's max and denominator (JAX ``_sink_softmax``)."""
@@ -70,6 +76,8 @@ def ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart, slot,
     s = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * scale
     if cache_scale is not None:
         s = s * cache_scale[0][layer].float()[:, :, None, :]
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     if sinks is not None:
@@ -87,9 +95,10 @@ def ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart, slot,
 
 
 def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, cache_scale,
-                 sinks):
-    name = ("ragged_decode_attention" + ("" if cache_scale is None else "_q8")
-            + ("" if sinks is None else "_sink"))
+                 sinks, softcap=0.0):
+    entry = ("ragged_decode_attention" + ("" if cache_scale is None else "_q8")
+             + ("" if sinks is None else "_sink"))
+    name = entry + ("_softcap" if softcap else "")
     B, nh, dh = q.shape
     dev = q.device
     if cache_scale is None:
@@ -107,7 +116,9 @@ def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, 
     _cuda.require(tuple(v_cache.shape) == tuple(k_cache.shape) and Bc == B
                   and dhc == dh, name,
                   f"shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)}")
-    _cuda.require(dh in (64, 128), name, f"head dim {dh} (the kernel takes 64 and 128)")
+    _cuda.require(dh in (64, 128, 256), name,
+                  f"head dim {dh} (the kernel takes 64, 128 and 256)")
+    _cuda.require(softcap >= 0.0, name, f"softcap {softcap} (0 = off)")
     _cuda.require(nh % nkv == 0 and nh // nkv <= 8, name,
                   f"{nh} query heads over {nkv} KV heads (group <= 8)")
     if sinks is not None:  # its shape is checked by ragged_decode_attention
@@ -122,10 +133,10 @@ def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, 
     out = torch.empty((B, nh, dh), dtype=q.dtype, device=dev)
     scales = [] if cache_scale is None else [cache_scale[0].data_ptr(), cache_scale[1].data_ptr()]
     sink = [] if sinks is None else [sinks.data_ptr()]
-    err = getattr(_cuda.lib(), _ENTRIES[name])(
+    err = getattr(_cuda.lib(), _ENTRIES[entry])(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales, lens.data_ptr(),
         dstart.data_ptr(), pstart.data_ptr(), *sink, layer, slot, out.data_ptr(),
-        B, nh, nkv, S, dh, float(scale), _cuda.stream_of(q))
+        B, nh, nkv, S, dh, float(scale), float(softcap), _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1
     return out
@@ -133,18 +144,19 @@ def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, 
 
 def ragged_decode_attention(q, k_cache, v_cache, layer, lens, dstart, slot,
                             pstart=None, scale=None, *, cache_scale=None,
-                            sinks=None):
+                            sinks=None, softcap=0.0):
     """q (B,nh,dh); k_cache, v_cache (L,B,nkv,S,dh), bf16 or (with
     ``cache_scale``) int8; layer and slot ints; lens, dstart, pstart (B,);
-    ``sinks`` (nh,) f32 or None. Returns (B,nh,dh) in q.dtype."""
+    ``sinks`` (nh,) f32 or None; ``softcap`` > 0 caps the logits. Returns
+    (B,nh,dh) in q.dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if sinks is not None and tuple(sinks.shape) != (q.shape[1],):
         raise ValueError(f"ragged_decode_attention: sinks {tuple(sinks.shape)} for "
                          f"{q.shape[1]} query heads")
     if q.device.type == "cpu":
-        return ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart,
-                                   slot, pstart, scale, cache_scale=cache_scale, sinks=sinks)
+        return ragged_decode_plain(q, k_cache, v_cache, layer, lens, dstart, slot, pstart,
+                                   scale, cache_scale=cache_scale, sinks=sinks, softcap=softcap)
     if q.device.type == "cuda":
         return _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot,
-                            pstart, scale, cache_scale, sinks)
+                            pstart, scale, cache_scale, sinks, float(softcap))
     raise ValueError(f"ragged_decode_attention: no kernel for device {q.device}")

@@ -87,13 +87,15 @@ def test_flash_attention_cached_matches_jax(T, S, qstart):
 
 
 def test_flash_options_not_ported_raise():
-    """The logit softcap is not ported; a window needs causal attention.
+    """A window needs causal attention. The logit softcap is ported: both
+    entries take it (its parity with JAX is in tests/test_torch_gemma.py).
     (Windows and sinks are held against JAX in tests/test_torch_gptoss.py.)"""
     q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, q, q, softcap=30.0)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_cached(q, q, q, torch.ones(1, 4), 0, softcap=30.0)
+    qs = torch.randn(1, 4, 2, 8, generator=torch.Generator().manual_seed(0)) * 8
+    for fn in (lambda **kw: tfa.flash_attention(qs, qs, qs, **kw),
+               lambda **kw: tfa.flash_attention_cached(qs, qs, qs, torch.ones(1, 4), 0, **kw)):
+        capped, free = fn(softcap=1.0), fn()
+        assert torch.isfinite(capped).all() and not torch.allclose(capped, free)
     with pytest.raises(ValueError, match="causal"):
         tfa.flash_attention(q, q, q, causal=False, window=2)
 

@@ -745,3 +745,126 @@ def test_windowed_and_dh64_backward_raise_on_the_card(dev):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["flash_attention_bwd_dq"] == before + 1
     assert torch.isfinite(gq.float()).all() and torch.isfinite(gs).all() and gs.abs().max() > 0
+
+
+# ---------------------------------------------------------------- Gemma: softcap and dh 256
+
+def _gemma_qkv(rng, dev, B, T, S, nh, nkv, q_scale):
+    """dh-256 inputs; q ~ N(0, q_scale^2): with q_scale 25, q·k/16 reaches
+    2-3x a softcap of 50 (with unit q the cap would move a logit by ~1e-5)."""
+    dh = 256
+    q = torch.from_numpy((rng.normal(size=(B, T, nh, dh)) * q_scale).astype(np.float32))
+    return (q.to(dev, torch.bfloat16), _bf16(rng, (B, S, nkv, dh), dev),
+            _bf16(rng, (B, S, nkv, dh), dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("nh,nkv,window", [(8, 4, 4096), (8, 4, 0), (4, 1, 512), (4, 1, 0)])
+@pytest.mark.parametrize("T,S,qstart", [(64, 640, 512), (512, 640, 0), (37, 300, (30, 5, 200))])
+def test_flash_dh256_softcap_kernels_match_plain(dev, softcap, nh, nkv, window, T, S, qstart):
+    """K3 at dh 256 (Gemma-2's 8/4 heads with its 4096 window, Gemma-3's
+    4/1 with 512, and unbanded): a suffix prefill at qstart 512, a fresh
+    prefill, per-row offsets with a hole; with and without the softcap of
+    50, counted under their own names. With the softcap the kernel run
+    without it (a planted fault) fails the check."""
+    rng = np.random.default_rng(500 + T + nh + window)
+    B = 3
+    q, k, v = _gemma_qkv(rng, dev, B, T, S, nh, nkv, 25.0 if softcap else 1.0)
+    qs = torch.as_tensor(qstart, device=dev).reshape(-1).expand(B).to(torch.int32)
+    kv_valid = (torch.arange(S, device=dev)[None, :] < (qs + T)[:, None]).to(torch.int32)
+    kv_valid[:, 3:9] = 0
+    scale = 1.0 / 16
+    name = fa.launch_name("flash_attention_cached", window, softcap)
+    before = _cuda.LAUNCHES[name]
+    out, lse = fa._attention_cuda(q, k, v, kv_valid, qs, scale, "flash_attention_cached", window,
+                                  softcap)
+    ref, ref_lse = fa.attention_plain(q, k, v, kv_valid, qs, scale, window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    seen = ref_lse > -1e29
+    assert (lse[seen] - ref_lse[seen]).abs().max().item() <= 1e-3
+    if softcap:
+        s = torch.einsum("bthd,bshd->bhts", q.float()[:, :, :nkv], k.float()) * scale
+        assert s.abs().max().item() > softcap  # the cap bites
+        bad = fa._attention_cuda(q, k, v, kv_valid, qs, scale, "flash_attention_cached", window)[0]
+        torch.cuda.synchronize()
+        assert (bad.float() - ref.float()).abs().max().item() > ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_flash_dh256_no_cache_kernel_and_backward_raise(dev, softcap):
+    """K1 at dh 256 (the value forward) with padded rows, Gemma-2's window
+    and softcap; its backward raises NotImplementedError (the softcapped and
+    dh-256 K2 are not ported), as does a softcapped backward at dh 128."""
+    rng = np.random.default_rng(600 + int(softcap))
+    B, T, nh, nkv = 3, 512, 8, 4
+    q, k, v = _gemma_qkv(rng, dev, B, T, T, nh, nkv, 25.0 if softcap else 1.0)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, 400:] = 0
+    mask[2, :100] = 0
+    name = fa.launch_name("flash_attention", 0, softcap)
+    before = _cuda.LAUNCHES[name]
+    out = fa.flash_attention(q, k, v, mask, scale=1.0 / 16, softcap=softcap).float()
+    ref = fa.attention_plain(q, k, v, mask, torch.zeros(B, dtype=torch.int32, device=dev),
+                             1.0 / 16, softcap=softcap)[0].float()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == before + 1
+    assert (out - ref).abs().max().item() <= ATOL
+    for dh, cap in ((256, softcap), (128, 50.0)):
+        qg = _bf16(rng, (1, 32, 4, dh), dev).requires_grad_(True)
+        kg = _bf16(rng, (1, 32, 2, dh), dev)
+        o = fa.flash_attention(qg, kg, kg, softcap=cap)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            o.float().sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("nh,nkv,W", [(8, 4, 4096), (4, 1, 512)])
+def test_ragged_dh256_softcap_kernels_match_plain(dev, int8, softcap, nh, nkv, W):
+    """K4/K5 at dh 256 at the Gemma shapes (24 rows over S=640, prompts up
+    to 512, the window's clipped ranges on half the rows), with and without
+    the softcap of 50, the int8 entry's K scale folded before the cap; with
+    the softcap the kernel run without it (a planted fault) fails."""
+    rng = np.random.default_rng(700 + nh + int8 + int(softcap))
+    L, B, S, slot, dh = 2, 24, 640, 560, 256
+    q = torch.from_numpy((rng.normal(size=(B, nh, dh)) * (25.0 if softcap else 1.0)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    kc, vc = _bf16(rng, (L, B, nkv, S, dh), dev), _bf16(rng, (L, B, nkv, S, dh), dev)
+    scl = None
+    if int8:
+        (kc, ks), (vc, vs) = _quantize_kv(kc), _quantize_kv(vc)
+        scl = (ks, vs)
+    lens = torch.from_numpy(rng.integers(1, 513, B).astype(np.int32)).to(dev)
+    pos = lens + (slot - 512)
+    pstart = torch.minimum(torch.clamp(pos - (W - 1), min=0), lens).to(torch.int32)
+    pstart[::2] = 0
+    dstart = torch.where(torch.arange(B, device=dev) % 2 == 1,
+                         torch.full_like(lens, max(512, slot - (W - 1))),
+                         torch.full_like(lens, 512)).to(torch.int32)
+    name = ("ragged_decode_attention" + ("_q8" if int8 else "")
+            + ("_softcap" if softcap else ""))
+    kw = dict(scale=1.0 / 16, cache_scale=scl)
+
+    def err(out, ref):
+        return _q8_excess(out, ref) if int8 else (out.float() - ref.float()).abs().max().item() - ATOL
+
+    for layer in (0, 1):
+        before = _cuda.LAUNCHES[name]
+        out = rda.ragged_decode_attention(q, kc, vc, layer, lens, dstart, slot, pstart,
+                                          softcap=softcap, **kw)
+        ref = rda.ragged_decode_plain(q, kc, vc, layer, lens, dstart, slot, pstart,
+                                      softcap=softcap, **kw)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[name] == before + 1
+        assert torch.isfinite(out.float()).all()
+        assert err(out, ref) <= 0
+    if softcap:
+        bad = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, **kw)
+        torch.cuda.synchronize()
+        assert err(bad, ref) > 0

@@ -189,7 +189,7 @@ def test_value_head_artifacts_load(tmp_path):
 
 def test_unported_configs_are_refused():
     with pytest.raises(ValueError, match="not yet ported"):
-        tq.Qwen2Config.from_hf({"model_type": "gemma2", "vocab_size": 8, "hidden_size": 8,
+        tq.Qwen2Config.from_hf({"model_type": "starcoder2", "vocab_size": 8, "hidden_size": 8,
                                 "intermediate_size": 8, "num_hidden_layers": 1,
                                 "num_attention_heads": 1})
     with pytest.raises(ValueError, match="not yet ported"):
