@@ -12,7 +12,13 @@
 //   dS = P ∘ (dO·Vᵀ - D),  D = rowsum(dO ∘ O) (computed by the caller)
 //   dQ = scale·dS·K,  dK = scale·dSᵀ·Q,  dV = Pᵀ·dO
 // A row whose LSE is the -1e30 sentinel saw no key and contributes nothing
-// (the `row_ok` guard of the Pallas kernels).
+// (the `row_ok` guard of the Pallas kernels). With a window W > 0 (a
+// sliding-window layer) key j is seen only where also j > qstart[b] + t - W:
+// the window terms of _dq_kernel (:130-131, band start :158-159) and
+// _dkv_kernel (:190-191, band end :215-219). The dq kernel starts at the key
+// tile of the band's first key, the dk/dv kernel stops after the last query
+// tile that sees its key block, and both mask inside the band. Head dims 64
+// (GPT-OSS) and 128, a template parameter; W is a runtime argument (0 = off).
 //
 // What bounds it on an H100: at the training shape (B=8, T=4096, 12/2
 // heads, dh 128) each kernel does ~2.5x the forward's matrix work (dq: two
@@ -33,9 +39,12 @@
 // revisits a VMEM-resident output block; here one CTA loops over the
 // group's query heads and, for each, over 32-query tiles from the key
 // block's causal horizon on, so the sum stays in registers and needs no
-// atomics. dK and dV (2 x 16x128 f32 per warp) are the register budget, so K
+// atomics. dK and dV (2 x 16xDH f32 per warp) are the register budget, so K
 // and V stay in shared memory and their fragments are read per tile rather
-// than held; shared memory is 52.7 KB (dynamic).
+// than held; shared memory is 52.7 KB at dh 128, 28.2 KB at dh 64 (dynamic).
+// A windowed dq CTA walks at most ceil((W + 63) / 32) + 1 key tiles and a
+// windowed dk/dv CTA at most ceil((W + 63) / 32) + 1 query tiles per head,
+// so a band of W = 128 costs O(T·W), not O(T²).
 
 #include "common.cuh"
 
@@ -49,10 +58,6 @@ using lapha::pack_f32;
 using lapha::pack_raw;
 using bf16 = __nv_bfloat16;
 
-constexpr int DH = 128;         // head dim (the only one on the slice)
-constexpr int LDS = DH + 8;     // padded smem row: 272 B, conflict-free fragment reads
-constexpr int KS_D = DH / 16;   // k-steps over the head dim
-constexpr int NT_D = DH / 8;    // n-tiles over the head dim
 constexpr int NTHREADS = 128;
 
 constexpr int DQ_BQ = 64;            // query rows per dq CTA (4 warps x 16)
@@ -64,14 +69,25 @@ constexpr int KV_BK = 64;            // key rows per dk/dv CTA (4 warps x 16)
 constexpr int KV_BQ = 32;            // queries per tile
 constexpr int KV_NT = KV_BQ / 8;     // n-tiles of a transposed logits tile
 constexpr int KV_KS = KV_BQ / 16;    // k-steps of Pᵀ·dO and dSᵀ·Q
-constexpr size_t KV_SMEM = (2 * KV_BK + 2 * KV_BQ) * LDS * sizeof(bf16)
-                           + 2 * KV_BQ * sizeof(float) + KV_BK * sizeof(int);
+
+// Per head dim: the padded smem row (DH + 8: 144 or 272 B, conflict-free
+// fragment reads), the k-steps and n-tiles over the head dim, and the dk/dv
+// kernel's dynamic shared memory (K, V, a Q and a dO tile, LSE, D, validity).
+template <int DH>
+struct Dims {
+  static constexpr int LDS = DH + 8;
+  static constexpr int KS_D = DH / 16;
+  static constexpr int NT_D = DH / 8;
+  static constexpr size_t KV_SMEM = (2 * KV_BK + 2 * KV_BQ) * LDS * sizeof(bf16)
+                                    + 2 * KV_BQ * sizeof(float) + KV_BK * sizeof(int);
+};
 
 // Stage ROWS rows of DH bf16 (row r0 + r of a (rows, stride) panel) into a
 // padded smem tile; rows at or past `limit` are zero.
-template <int ROWS>
+template <int ROWS, int DH>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t stride,
                                            int r0, int limit, int tid) {
+  constexpr int LDS = Dims<DH>::LDS;
   for (int i = tid; i < ROWS * (DH / 8); i += NTHREADS) {
     const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -82,11 +98,13 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t st
 
 // B fragment of a (k = tile row, n = head-dim column) operand held row-major
 // in a padded smem tile: two rows per register. p = tile + (16kk + 2t4)·LDS + 8dt + g.
+template <int LDS>
 __device__ __forceinline__ void b_rows(const bf16* p, uint32_t& b0, uint32_t& b1) {
   b0 = pack_raw(p[0], p[LDS]);
   b1 = pack_raw(p[8 * LDS], p[9 * LDS]);
 }
 
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
                     const bf16* __restrict__ k,        // (B, S, nkv, DH)
@@ -97,7 +115,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
                     const int* __restrict__ kv_valid,  // (B, S)
                     const int* __restrict__ qstart,    // (B,)
                     bf16* __restrict__ dq,             // (B, T, nh, DH)
-                    int T, int S, int nh, int nkv, float scale) {
+                    int T, int S, int nh, int nkv, int window, float scale) {
+  constexpr int LDS = Dims<DH>::LDS, KS_D = Dims<DH>::KS_D, NT_D = Dims<DH>::NT_D;
   __shared__ __align__(16) bf16 sK[DQ_BK * LDS];
   __shared__ __align__(16) bf16 sV[DQ_BK * LDS];
   __shared__ int sValid[DQ_BK];
@@ -139,18 +158,20 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
 #pragma unroll
   for (int i = 0; i < NT_D; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  // Keys past the frontier of this CTA's last real query row are never visible.
+  // Keys past the frontier of this CTA's last real query row are never
+  // visible, nor (with a window) keys below the band of its first row.
   const int last_row = min(q0 + DQ_BQ, T) - 1;
   const int kend = min(S, qs + last_row + 1);
   const int nkb = (kend + DQ_BK - 1) / DQ_BK;
+  const int kb0 = window > 0 ? max(qs + q0 - (window - 1), 0) / DQ_BK : 0;
   const size_t kv_stride = static_cast<size_t>(nkv) * DH;
   const bf16* kbase = k + (static_cast<size_t>(b) * S * nkv + hk) * DH;
   const bf16* vbase = v + (static_cast<size_t>(b) * S * nkv + hk) * DH;
 
-  for (int kb = 0; kb < nkb; ++kb) {
+  for (int kb = kb0; kb < nkb; ++kb) {
     const int k0 = kb * DQ_BK;
-    stage_rows<DQ_BK>(sK, kbase, kv_stride, k0, S, tid);
-    stage_rows<DQ_BK>(sV, vbase, kv_stride, k0, S, tid);
+    stage_rows<DQ_BK, DH>(sK, kbase, kv_stride, k0, S, tid);
+    stage_rows<DQ_BK, DH>(sV, vbase, kv_stride, k0, S, tid);
     if (tid < DQ_BK) sValid[tid] = (k0 + tid < S) ? kv_valid[static_cast<size_t>(b) * S + k0 + tid] : 0;
     __syncthreads();
 
@@ -175,7 +196,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
       for (int e = 0; e < 4; ++e) {
         const int col = nt * 8 + t4 * 2 + (e & 1);
         const int r = e >> 1;
-        const bool vis = ok_r[r] && sValid[col] != 0 && (k0 + col) <= qs + row[r];
+        const bool vis = ok_r[r] && sValid[col] != 0 && (k0 + col) <= qs + row[r] &&
+                         (window <= 0 || (k0 + col) > qs + row[r] - window);
         const float p = vis ? __expf(s[nt][e] * scale - lse_r[r]) : 0.f;
         s[nt][e] = p * (dp[nt][e] - d_r[r]);
       }
@@ -188,7 +210,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
 #pragma unroll
       for (int dt = 0; dt < NT_D; ++dt) {
         uint32_t b0, b1;
-        b_rows(kp + dt * 8, b0, b1);
+        b_rows<LDS>(kp + dt * 8, b0, b1);
         mma_bf16_16816(acc[dt], a, b0, b1);
       }
     }
@@ -206,6 +228,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
   }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
                      const bf16* __restrict__ k,        // (B, S, nkv, DH)
@@ -217,7 +240,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
                      const int* __restrict__ qstart,    // (B,)
                      bf16* __restrict__ dk,             // (B, S, nkv, DH)
                      bf16* __restrict__ dv,             // (B, S, nkv, DH)
-                     int T, int S, int nh, int nkv, float scale) {
+                     int T, int S, int nh, int nkv, int window, float scale) {
+  constexpr int LDS = Dims<DH>::LDS, KS_D = Dims<DH>::KS_D, NT_D = Dims<DH>::NT_D;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
   bf16* sV = sK + KV_BK * LDS;
@@ -237,8 +261,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
 
   const size_t kv_stride = static_cast<size_t>(nkv) * DH;
   const size_t kvoff = (static_cast<size_t>(b) * S * nkv + hk) * DH;
-  stage_rows<KV_BK>(sK, k + kvoff, kv_stride, k0, S, tid);
-  stage_rows<KV_BK>(sV, v + kvoff, kv_stride, k0, S, tid);
+  stage_rows<KV_BK, DH>(sK, k + kvoff, kv_stride, k0, S, tid);
+  stage_rows<KV_BK, DH>(sV, v + kvoff, kv_stride, k0, S, tid);
   if (tid < KV_BK) sValid[tid] = (k0 + tid < S) ? kv_valid[static_cast<size_t>(b) * S + k0 + tid] : 0;
 
   float dka[NT_D][4], dva[NT_D][4];
@@ -248,9 +272,15 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
     dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
   }
 
-  // The first query that can see key k0 is t = k0 - qs (the causal horizon).
+  // The first query that can see key k0 is t = k0 - qs (the causal horizon);
+  // with a window the last that sees the block's last key is
+  // t = k0 + KV_BK - 1 + W - 1 - qs.
   const int qb0 = max(0, k0 - qs) / KV_BQ;
-  const int nqb = (T + KV_BQ - 1) / KV_BQ;
+  int nqb = (T + KV_BQ - 1) / KV_BQ;
+  if (window > 0) {
+    const int t_last = k0 + KV_BK + window - 2 - qs;
+    nqb = t_last < 0 ? 0 : min(nqb, t_last / KV_BQ + 1);
+  }
   const size_t q_stride = static_cast<size_t>(nh) * DH;
 
   for (int gi = 0; gi < group; ++gi) {
@@ -261,8 +291,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
     for (int qb = qb0; qb < nqb; ++qb) {
       const int t0 = qb * KV_BQ;
       __syncthreads();  // the previous tile's readers are done (and K/V are staged)
-      stage_rows<KV_BQ>(sQ, q + qoff, q_stride, t0, T, tid);
-      stage_rows<KV_BQ>(sO, dout + qoff, q_stride, t0, T, tid);
+      stage_rows<KV_BQ, DH>(sQ, q + qoff, q_stride, t0, T, tid);
+      stage_rows<KV_BQ, DH>(sO, dout + qoff, q_stride, t0, T, tid);
       if (tid < KV_BQ) {
         const int t = t0 + tid;
         sL[tid] = t < T ? lrow[t] : NEG;
@@ -299,7 +329,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
           const int qc = nt * 8 + t4 * 2 + (e & 1);
           const int r = e >> 1;
           const float l = sL[qc];
-          const bool vis = l > 0.5f * NEG && sValid[kl[r]] != 0 && (k0 + kl[r]) <= qs + t0 + qc;
+          const bool vis = l > 0.5f * NEG && sValid[kl[r]] != 0 && (k0 + kl[r]) <= qs + t0 + qc &&
+                           (window <= 0 || (k0 + kl[r]) > qs + t0 + qc - window);
           const float p = vis ? __expf(st[nt][e] * scale - l) : 0.f;
           st[nt][e] = p;
           dpt[nt][e] = p * (dpt[nt][e] - sD[qc]);
@@ -315,9 +346,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
 #pragma unroll
         for (int dt = 0; dt < NT_D; ++dt) {
           uint32_t b0, b1;
-          b_rows(op + dt * 8, b0, b1);
+          b_rows<LDS>(op + dt * 8, b0, b1);
           mma_bf16_16816(dva[dt], ap, b0, b1);
-          b_rows(qp + dt * 8, b0, b1);
+          b_rows<LDS>(qp + dt * 8, b0, b1);
           mma_bf16_16816(dka[dt], as, b0, b1);
         }
       }
@@ -338,38 +369,64 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q,        // (B, T, nh, DH)
   }
 }
 
-bool bad_shape(int B, int T, int S, int nh, int nkv, int dh) {
-  return dh != DH || nkv <= 0 || nh % nkv != 0 || B <= 0 || T <= 0 || S <= 0;
+bool bad_shape(int B, int T, int S, int nh, int nkv, int dh, int window) {
+  return (dh != 64 && dh != 128) || nkv <= 0 || nh % nkv != 0 || B <= 0 || T <= 0 || S <= 0 ||
+         window < 0;
+}
+
+template <int DH>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* delta, const int* kv_valid, const int* qstart, void* dq, int B, int T,
+              int S, int nh, int nkv, int window, float scale, cudaStream_t stream) {
+  const dim3 grid((T + DQ_BQ - 1) / DQ_BQ, nh, B);
+  flash_bwd_dq_kernel<DH><<<grid, NTHREADS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, kv_valid, qstart, static_cast<bf16*>(dq),
+      T, S, nh, nkv, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, const int* kv_valid, const int* qstart, void* dk, void* dv,
+               int B, int T, int S, int nh, int nkv, int window, float scale,
+               cudaStream_t stream) {
+  constexpr size_t smem = Dims<DH>::KV_SMEM;
+  static bool opted[lapha::kMaxDevices] = {};
+  cudaError_t err = lapha::smem_opt_in(flash_bwd_dkv_kernel<DH>, static_cast<int>(smem), opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + KV_BK - 1) / KV_BK, nkv, B);
+  flash_bwd_dkv_kernel<DH><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, kv_valid, qstart, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), T, S, nh, nkv, window, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// `window` > 0 bands the keys to the last `window` positions (0 = off).
 extern "C" int lapha_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                   const float* lse, const float* delta, const int* kv_valid,
                                   const int* qstart, void* dq, int B, int T, int S, int nh,
-                                  int nkv, int dh, float scale, void* stream) {
-  if (bad_shape(B, T, S, nh, nkv, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((T + DQ_BQ - 1) / DQ_BQ, nh, B);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, kv_valid, qstart, static_cast<bf16*>(dq),
-      T, S, nh, nkv, scale);
-  return static_cast<int>(cudaGetLastError());
+                                  int nkv, int dh, int window, float scale, void* stream) {
+  if (bad_shape(B, T, S, nh, nkv, dh, window)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return dh == 64 ? launch_dq<64>(q, k, v, dout, lse, delta, kv_valid, qstart, dq, B, T, S, nh,
+                                  nkv, window, scale, st)
+                  : launch_dq<128>(q, k, v, dout, lse, delta, kv_valid, qstart, dq, B, T, S, nh,
+                                   nkv, window, scale, st);
 }
 
 extern "C" int lapha_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                    const float* lse, const float* delta, const int* kv_valid,
                                    const int* qstart, void* dk, void* dv, int B, int T, int S,
-                                   int nh, int nkv, int dh, float scale, void* stream) {
-  if (bad_shape(B, T, S, nh, nkv, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(KV_SMEM));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + KV_BK - 1) / KV_BK, nkv, B);
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, KV_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, kv_valid, qstart, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), T, S, nh, nkv, scale);
-  return static_cast<int>(cudaGetLastError());
+                                   int nh, int nkv, int dh, int window, float scale,
+                                   void* stream) {
+  if (bad_shape(B, T, S, nh, nkv, dh, window)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return dh == 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, kv_valid, qstart, dk, dv, B, T, S,
+                                   nh, nkv, window, scale, st)
+                  : launch_dkv<128>(q, k, v, dout, lse, delta, kv_valid, qstart, dk, dv, B, T,
+                                    S, nh, nkv, window, scale, st);
 }

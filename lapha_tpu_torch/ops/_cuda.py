@@ -37,8 +37,10 @@ LAUNCHES = {name + cap: 0
                          "ragged_decode_attention_q8", "ragged_decode_attention_sink",
                          "ragged_decode_attention_q8_sink")
             for cap in ("", "_softcap")}
-LAUNCHES.update({"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-                 "int4_matmul": 0, "grouped_gemm": 0})
+LAUNCHES.update({name: 0 for name in (
+    "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_bwd_dq_window",
+    "flash_attention_bwd_dkv_window", "int4_matmul", "grouped_gemm", "grouped_gemm_dx",
+    "grouped_gemm_tgmm")})
 
 _lib = None
 build_log = ""  # nvcc's output of the build this process ran (ptxas register/smem report)
@@ -126,10 +128,14 @@ def lib() -> ctypes.CDLL:
         dll.lapha_int4_matmul.restype = _I
         dll.lapha_grouped_gemm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         dll.lapha_grouped_gemm.restype = _I
+        for entry in (dll.lapha_grouped_gemm_dx, dll.lapha_grouped_gemm_tgmm):
+            entry.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+            entry.restype = _I
         bwd = [_P, _P, _P, _P, _P, _P, _P, _P]  # q k v dout lse delta kv_valid qstart
-        dll.lapha_flash_bwd_dq.argtypes = bwd + [_P, _I, _I, _I, _I, _I, _I, _F, _P]
+        # ... then the outputs, B T S nh nkv dh window, scale, stream
+        dll.lapha_flash_bwd_dq.argtypes = bwd + [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
         dll.lapha_flash_bwd_dq.restype = _I
-        dll.lapha_flash_bwd_dkv.argtypes = bwd + [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+        dll.lapha_flash_bwd_dkv.argtypes = bwd + [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
         dll.lapha_flash_bwd_dkv.restype = _I
         dll.lapha_error_string.argtypes = [_I]
         dll.lapha_error_string.restype = ctypes.c_char_p

@@ -12,11 +12,23 @@ device: every block finds its (expert, row tile) from their prefix sums, so
 the MoE layer never waits on the host. It takes bf16 xs and w and K a
 multiple of 8.
 
-A CPU tensor takes the plain version, a per-expert loop of f32 matmuls over
-the row groups (it reads the sizes to the host). A CUDA tensor launches the
-kernel or raises. The function is a ``torch.autograd.Function``: on the CPU
-its backward is the plain version's autograd; on CUDA the backward is not
-ported yet and raises (ROADMAP B2), so no gradient is ever silently missing.
+The function is a ``torch.autograd.Function`` whose backward is megablox's
+``_gmm_bwd`` (jax 0.9.0 ``megablox/ops.py:63-105``): the f32 cotangent dY
+is rounded once to the operands' dtype (as ``qwen2._MmF32``'s backward
+rounds it), then
+
+- dX = dY @ w_gᵀ over the same row groups, in xs' dtype
+  (``gmm(grad, rhs, transpose_rhs=True)``); rows past the groups get 0;
+- dW_g = xs_gᵀ @ dY_g, in w's dtype (``tgmm``); an expert without rows
+  gets exact zeros.
+
+On CUDA these are two kernels of the same source (``grouped_gemm_dx``,
+K8 reading rows of w_g, and ``grouped_gemm_tgmm``), the group sizes again
+never leaving the device; they take N a multiple of 8 too.
+
+A CPU tensor takes the plain versions, per-expert loops of f32 matmuls over
+the row groups (they read the sizes to the host). A CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -25,7 +37,8 @@ import torch
 
 from . import _cuda
 
-__all__ = ["grouped_gemm", "grouped_gemm_plain"]
+__all__ = ["grouped_gemm", "grouped_gemm_plain", "grouped_gemm_dx_plain",
+           "grouped_gemm_tgmm_plain"]
 
 GMAX = 1024  # most groups the kernel's shared prefix sums hold (csrc GMAX)
 
@@ -33,15 +46,41 @@ GMAX = 1024  # most groups the kernel's shared prefix sums hold (csrc GMAX)
 def grouped_gemm_plain(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """xs (M, K) @ w (G, K, N) over the row groups, one f32 matmul per
     expert; rows past the groups are 0. -> (M, N) f32."""
-    M = xs.shape[0]
-    out = torch.zeros((M, w.shape[-1]), dtype=torch.float32, device=xs.device)
+    out = torch.zeros((xs.shape[0], w.shape[-1]), dtype=torch.float32, device=xs.device)
+    for g, start, end in _groups(group_sizes, xs.shape[0]):
+        out[start:end] = xs[start:end].float() @ w[g].float()
+    return out
+
+
+def _groups(group_sizes: torch.Tensor, M: int):
+    """(g, start, end) of each non-empty group, clipped at M rows."""
     start = 0
     for g, size in enumerate(group_sizes.tolist()):
         end = min(start + max(int(size), 0), M)
         if end > start:
-            out[start:end] = xs[start:end].float() @ w[g].float()
+            yield g, start, end
         start = end
-    return out
+
+
+def grouped_gemm_dx_plain(dy: torch.Tensor, w: torch.Tensor,
+                          group_sizes: torch.Tensor) -> torch.Tensor:
+    """dX = dy (M, N) @ w_gᵀ (N, K) over the row groups, one f32 matmul per
+    expert; rows past the groups are 0. -> (M, K) in dy's dtype."""
+    out = torch.zeros((dy.shape[0], w.shape[1]), dtype=torch.float32, device=dy.device)
+    for g, start, end in _groups(group_sizes, dy.shape[0]):
+        out[start:end] = dy[start:end].float() @ w[g].float().T
+    return out.to(dy.dtype)
+
+
+def grouped_gemm_tgmm_plain(xs: torch.Tensor, dy: torch.Tensor,
+                            group_sizes: torch.Tensor) -> torch.Tensor:
+    """dW_g = xs_gᵀ (K, m_g) @ dy_g (m_g, N) per expert, one f32 matmul
+    each; an expert without rows gets zeros. -> (G, K, N) in xs' dtype."""
+    G = group_sizes.shape[0]
+    out = torch.zeros((G, xs.shape[1], dy.shape[1]), dtype=torch.float32, device=xs.device)
+    for g, start, end in _groups(group_sizes, xs.shape[0]):
+        out[g] = xs[start:end].float().T @ dy[start:end].float()
+    return out.to(xs.dtype)
 
 
 def _check_shapes(xs, w, group_sizes) -> None:
@@ -75,6 +114,58 @@ def _grouped_gemm_cuda(xs, w, group_sizes):
     return out
 
 
+def _bwd_args(name, dy, other, group_sizes):
+    """Checks the backward kernels' operands; the group sizes as int32 on the device."""
+    dev = dy.device
+    M, N = dy.shape
+    G = group_sizes.shape[0]
+    _cuda.require(N % 8 == 0, name, f"N = {N} (the backward kernels take N a multiple of 8)")
+    _cuda.require(1 <= G <= GMAX, name, f"{G} groups (the kernel takes 1..{GMAX})")
+    _cuda.require_cuda_bf16(name, dev, dy=dy, other=other)
+    return _cuda.int32_on(group_sizes, dev, (G,))
+
+
+def grouped_gemm_dx_cuda(dy, w, group_sizes):
+    """The dX kernel (csrc/grouped_gemm.cu): dy (M, N) bf16, w (G, K, N) bf16
+    -> (M, K) bf16; arguments as the plain version's."""
+    name = "grouped_gemm_dx"
+    M, N = dy.shape
+    G, K, _ = w.shape
+    gs = _bwd_args(name, dy, w, group_sizes)
+    dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
+    if M == 0:
+        return dx
+    err = _cuda.lib().lapha_grouped_gemm_dx(dy.data_ptr(), w.data_ptr(), gs.data_ptr(),
+                                            dx.data_ptr(), M, K, N, G, _cuda.stream_of(dy))
+    _cuda.check_launch(err, name)
+    _cuda.LAUNCHES[name] += 1
+    return dx
+
+
+def grouped_gemm_tgmm_cuda(xs, dy, group_sizes, out=None):
+    """The dW kernel (csrc/grouped_gemm.cu): xs (M, K) bf16, dy (M, N) bf16 ->
+    (G, K, N) bf16, written into ``out`` when given (every element is
+    written: an expert without rows gets zeros)."""
+    name = "grouped_gemm_tgmm"
+    M, K = xs.shape
+    N = dy.shape[1]
+    G = group_sizes.shape[0]
+    _cuda.require(K % 8 == 0, name, f"K = {K} (the kernel takes K a multiple of 8)")
+    _cuda.require(dy.shape[0] == M, name, f"xs {tuple(xs.shape)} vs dy {tuple(dy.shape)}")
+    gs = _bwd_args(name, dy, xs, group_sizes)
+    if out is None:
+        out = torch.empty((G, K, N), dtype=xs.dtype, device=xs.device)
+    _cuda.require(tuple(out.shape) == (G, K, N), name, f"out {tuple(out.shape)}")
+    _cuda.require_cuda_bf16(name, xs.device, out=out)
+    if M == 0:
+        return out.zero_()
+    err = _cuda.lib().lapha_grouped_gemm_tgmm(xs.data_ptr(), dy.data_ptr(), gs.data_ptr(),
+                                              out.data_ptr(), M, K, N, G, _cuda.stream_of(xs))
+    _cuda.check_launch(err, name)
+    _cuda.LAUNCHES[name] += 1
+    return out
+
+
 class _GroupedGemm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xs, w, group_sizes):
@@ -86,18 +177,15 @@ class _GroupedGemm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         xs, w, group_sizes = ctx.saved_tensors
-        if xs.device.type == "cuda":
-            raise NotImplementedError(
-                "grouped_gemm backward on CUDA is not ported yet (ROADMAP B2: dX is K8 on "
-                "the transposed weights, dW a transposed grouped GEMM); MoE training on the "
-                "card waits for it")
-        need = ctx.needs_input_grad[:2]
-        leaves = [t.detach().requires_grad_(n) for t, n in zip((xs, w), need)]
-        with torch.enable_grad():
-            out = grouped_gemm_plain(leaves[0], leaves[1], group_sizes)
-            grads = torch.autograd.grad(out, [t for t in leaves if t.requires_grad], dout)
-        grads = iter(grads)
-        return (*(next(grads) if n else None for n in need), None)
+        dy = dout.to(xs.dtype).contiguous()  # rounded once, as _MmF32's backward
+        cuda = xs.device.type == "cuda"
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (grouped_gemm_dx_cuda if cuda else grouped_gemm_dx_plain)(dy, w, group_sizes)
+        if ctx.needs_input_grad[1]:
+            dw = (grouped_gemm_tgmm_cuda if cuda else grouped_gemm_tgmm_plain)(
+                xs, dy, group_sizes).to(w.dtype)
+        return dx, dw, None
 
 
 def grouped_gemm(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:

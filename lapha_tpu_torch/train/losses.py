@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models import qwen2
 from ..ops.latent import masked_mean, pool_mask, value_head_apply
+from . import optim
 
 
 # ----------------------------------------------------------------- pytrees
@@ -362,7 +363,7 @@ def make_update_fn(model_cfg: qwen2.Qwen2Config, optimizer, *, loss_kwargs: dict
         if extra_grads is not None:
             grads = [g + e.to(g.dtype) for g, e in zip(grads, extra_grads)]
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        metrics["grad_norm"] = optim.global_norm(grads)
         optimizer.apply(leaves, grads, opt_state)
         return params, head, opt_state, metrics
 

@@ -24,7 +24,10 @@ order: max |diff| <= 1e-3 · max |plain|.
 The grouped GEMM (K8) takes bf16 xs and expert weights and writes f32; the
 plain version forms the same exact bf16 products and sums them in f32 in
 another order: max |diff| <= 1e-3 · max |plain|. Group sizes shifted by one
-row (a planted fault) must fail that check.
+row (a planted fault) must fail that check. Its backward kernels (dX,
+tgmm) write bf16: against the plain versions in f32 on the same
+bf16-rounded cotangent, per element |diff| <= 1e-3 · max |plain| + 2^-8 ·
+|plain| (the store's rounding).
 
 The sink entries of the ragged decode kernel (K5s, bf16 and int8 caches)
 keep the tolerances of their entries without sinks (3e-2; the int8 rule);
@@ -32,8 +35,9 @@ sinks of the next head (a planted fault) must fail them. Windowed K1/K3 keep
 3e-2, and a window off by one (a planted fault) must fail it. Both at head
 dims 64 and 128.
 
-The backward kernels (dq; dk/dv) are held against the plain backward on the
-same bf16 inputs and the same saved LSE. They round P and dS to bf16 before
+The backward kernels (dq; dk/dv, at head dims 64 and 128, banded or not)
+are held against the plain backward on the same bf16 inputs and the same
+saved LSE; a window off by one (a planted fault) must fail that check. They round P and dS to bf16 before
 each product and write bf16, each at most 2^-9 relative, so the tolerance
 is relative to the largest gradient entry, with a floor for gradients that
 are pure cancellation (T=1: dS = P·(dP - D) is 0 up to rounding):
@@ -202,21 +206,23 @@ def test_ragged_kernel_groups_and_edges(dev, nh, nkv):
     assert (out - ref).abs().max().item() <= ATOL
 
 
-def _bwd_pair(q, k, v, mask, qstart, do):
-    """Kernel and plain (dq, dk, dv) from the kernel forward's out and LSE."""
+def _bwd_pair(q, k, v, mask, qstart, do, window=0):
+    """Kernel and plain (dq, dk, dv) from the kernel forward's out and LSE;
+    ``window`` > 0 bands both (the launches counted under the _window names)."""
     B = q.shape[0]
     qs = torch.as_tensor(qstart, device=q.device).reshape(-1).expand(B).to(torch.int32)
     scale = q.shape[-1] ** -0.5
-    out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention")
+    out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention", window)
     delta = (do.float() * out.float()).sum(-1)
-    args = (q, k, v, mask, qs, lse, do, delta, scale)
+    args = (q, k, v, mask, qs, lse, do, delta, scale, window)
     before = dict(_cuda.LAUNCHES)
     dq = fa.attention_bwd_dq_cuda(*args)
     dk, dv = fa.attention_bwd_dkv_cuda(*args)
     ref = fa.attention_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
-    assert _cuda.LAUNCHES["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        name = fa.launch_name(name, window)
+        assert _cuda.LAUNCHES[name] == before[name] + 1, name
     return (dq, dk, dv), ref
 
 
@@ -261,6 +267,33 @@ def test_flash_bwd_kernels_left_padding_and_noncausal(dev):
     assert (got[0][1, :70] == 0).all() and (got[1][1, :70] == 0).all()
     got, ref = _bwd_pair(q, k, v, mask, T, do)
     _assert_bwd_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,nh,nkv", [(64, 64, 8), (64, 8, 8), (128, 12, 2)])
+@pytest.mark.parametrize("T,window", [(300, 128), (1000, 128), (77, 16), (130, 1)])
+def test_flash_bwd_window_kernels_match_plain(dev, dh, nh, nkv, T, window):
+    """K2 with the window band (B6) at GPT-OSS's heads (64/8 of dim 64), a
+    group of one, and dh 128: the band longer and shorter than a tile, W = 1
+    (each query sees itself), a right-padded row and a hole; a window off by
+    one (a planted fault) fails the check."""
+    rng = np.random.default_rng(dh + nh + T + window)
+    B = 2
+    q, do = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dh), dev)
+    k, v = _bf16(rng, (B, T, nkv, dh), dev), _bf16(rng, (B, T, nkv, dh), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, (3 * T) // 4 + 1:] = 0
+    mask[0, T // 3:T // 3 + T // 10] = 0
+    got, ref = _bwd_pair(q, k, v, mask, 0, do, window)
+    _assert_bwd_close(got, ref)
+    # the backward kernels banded at W + 1 on the same forward's out and LSE
+    qs, scale = torch.zeros(B, dtype=torch.int32, device=dev), dh ** -0.5
+    out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention", window)
+    args = (q, k, v, mask, qs, lse, do, (do.float() * out.float()).sum(-1), scale, window + 1)
+    bad = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        _assert_bwd_close(bad, ref)
 
 
 @pytest.mark.cuda
@@ -518,6 +551,15 @@ def _gg_err(out, ref):
     return (out - ref).abs().max().item() / (GG_RTOL * ref.abs().max().item())
 
 
+def _gg_bf16_err(out, ref):
+    """The same for a bf16 output (K8's dX and dW) against the plain version
+    in f32: the store's rounding (at most 2^-8 of each element) is taken out
+    first."""
+    out, ref = out.float(), ref.float()
+    excess = ((out - ref).abs() - 2.0 ** -8 * ref.abs()).max().item()
+    return max(excess, 0.0) / (GG_RTOL * ref.abs().max().item())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sizes,K,N", [
     ((3, 0, 1, 70, 0, 5, 130), 64, 64),       # empty groups, groups shorter than a tile
@@ -557,17 +599,46 @@ def test_grouped_gemm_kernel_zeroes_rows_past_the_groups_and_catches_a_planted_f
 
 
 @pytest.mark.cuda
-def test_grouped_gemm_cuda_backward_raises_and_wrapper_rejects(dev):
-    rng = np.random.default_rng(6)
-    xs, w, gs = _gg_inputs(rng, (4, 4), 32, 16, dev)
+@pytest.mark.parametrize("sizes,K,N,M", [
+    ((3, 0, 1, 70, 0, 5, 130), 64, 64, None),   # empty groups, groups shorter than a tile
+    ((9, 0, 40, 3), 136, 200, 80),              # 28 rows past the groups; K, N off the tiles
+    ((0,) * 5 + (200,) + (0,) * 5, 96, 72, None),  # one expert takes every row
+    ((12,) * 40 + (0,) * 20, 2048, 1408, None),  # Qwen1.5-MoE's gate/up, 20 empty experts
+])
+def test_grouped_gemm_cuda_backward_raises_and_wrapper_rejects(dev, sizes, K, N, M):
+    """K8's backward on the card (B2): dX (grouped_gemm_dx) and dW
+    (grouped_gemm_tgmm) through the autograd Function against the plain
+    versions on the same bf16-rounded cotangent, at K8's limit; rows past the
+    groups get dX 0 and an empty expert's dW is exact zeros even where the
+    output held NaN. The wrappers still reject what the kernels do not take."""
+    rng = np.random.default_rng(6 + len(sizes))
+    xs, w, gs = _gg_inputs(rng, sizes, K, N, dev, M=M)
     xs.requires_grad_(True)
-    out = gg.grouped_gemm(xs, w, gs)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        out.sum().backward()
+    w.requires_grad_(True)
+    dout = torch.from_numpy(rng.normal(size=(xs.shape[0], N)).astype(np.float32)).to(dev)
+    before = dict(_cuda.LAUNCHES)
+    dx, dw = torch.autograd.grad(gg.grouped_gemm(xs, w, gs), (xs, w), dout)
+    dy = dout.to(torch.bfloat16)  # the plain versions in f32 on the same rounded dY
+    ref_dx = gg.grouped_gemm_dx_plain(dy.float(), w.detach().float(), gs)
+    ref_dw = gg.grouped_gemm_tgmm_plain(xs.detach().float(), dy.float(), gs)
+    nan_out = torch.full_like(w, float("nan"))
+    dw2 = gg.grouped_gemm_tgmm_cuda(xs.detach(), dy, gs, out=nan_out)
+    torch.cuda.synchronize()
+    for name in ("grouped_gemm_dx", "grouped_gemm_tgmm"):
+        assert _cuda.LAUNCHES[name] > before[name], name
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert _gg_bf16_err(dx, ref_dx) <= 1.0
+    assert _gg_bf16_err(dw, ref_dw) <= 1.0
+    assert torch.equal(dw2, dw)  # deterministic, and every element written
+    assert not dx[sum(sizes):].any()
+    empty = torch.nonzero(gs == 0).flatten()
+    assert not dw2[empty].any() and torch.isfinite(dw2.float()).all()
     with pytest.raises(ValueError):  # K not a multiple of 8
-        gg.grouped_gemm(_bf16(rng, (8, 36), dev), _bf16(rng, (2, 36, 16), dev), gs)
+        gg.grouped_gemm(_bf16(rng, (8, 36), dev), _bf16(rng, (2, 36, 16), dev), gs[:2])
     with pytest.raises(ValueError):  # f32 operands
-        gg.grouped_gemm(xs.detach().float(), w.float(), gs)
+        gg.grouped_gemm(xs.detach().float(), w.detach().float(), gs)
+    with pytest.raises(ValueError):  # the backward kernels take N a multiple of 8
+        gg.grouped_gemm_dx_cuda(_bf16(rng, (8, 36), dev), _bf16(rng, (2, 16, 36), dev), gs[:2])
 
 
 @pytest.mark.cuda
@@ -726,16 +797,38 @@ def test_flash_dh64_no_cache_window_and_sinks(dev, window):
 
 @pytest.mark.cuda
 def test_windowed_and_dh64_backward_raise_on_the_card(dev):
-    """No gradient goes missing in silence: the windowed backward and the
-    dh-64 backward raise; the sink backward at dh 128 without a window runs
-    the K2 kernels."""
+    """The windowed and the dh-64 backward (B6) run the K2 kernels on the
+    card, through the autograd Function with sinks, against the plain
+    backward at K2's limit; dh 256 and a softcap still raise, naming their
+    ROADMAP items (B3-bwd, B4-bwd); the sink backward at dh 128 without a
+    window runs the K2 kernels."""
     rng = np.random.default_rng(11)
-    for dh, window, err in ((128, 16, NotImplementedError), (64, 0, ValueError)):
-        q = _bf16(rng, (1, 32, 4, dh), dev).requires_grad_(True)
-        k = _bf16(rng, (1, 32, 2, dh), dev)
-        out = fa.flash_attention(q, k, k, window=window, sinks=torch.zeros(4, device=dev))
-        with pytest.raises(err):
-            out.float().sum().backward()
+    for dh, window in ((128, 16), (64, 0), (64, 24)):
+        B, T, nh, nkv = 2, 100, 8, 2
+        q, k, v = (_bf16(rng, (B, T, n, dh), dev).requires_grad_(True)
+                   for n in (nh, nkv, nkv))
+        sinks = torch.from_numpy(rng.normal(size=nh).astype(np.float32)).to(dev)
+        sinks.requires_grad_(True)
+        mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+        mask[1, 80:] = 0
+        do = _bf16(rng, (B, T, nh, dh), dev)
+        name = fa.launch_name("flash_attention_bwd_dq", window)
+        before = _cuda.LAUNCHES[name]
+        got = torch.autograd.grad(fa.flash_attention(q, k, v, mask, window=window, sinks=sinks),
+                                  (q, k, v, sinks), do)
+        cpu = [t.detach().float().cpu().requires_grad_(True) for t in (q, k, v, sinks)]
+        ref = torch.autograd.grad(fa.flash_attention(*cpu[:3], mask.cpu(), window=window,
+                                                     sinks=cpu[3]), cpu, do.float().cpu())
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[name] == before + 1
+        _assert_bwd_close([g.cpu() for g in got[:3]], ref[:3])
+        assert (got[3].cpu() - ref[3]).abs().max().item() <= BWD_RTOL * ref[3].abs().max() + 1e-3
+    for dh, cap, item in ((256, 0.0, "B3-bwd"), (128, 50.0, "B4-bwd")):
+        qg = _bf16(rng, (1, 32, 4, dh), dev).requires_grad_(True)
+        kg = _bf16(rng, (1, 32, 2, dh), dev)
+        o = fa.flash_attention(qg, kg, kg, softcap=cap)
+        with pytest.raises(NotImplementedError, match=item):
+            o.float().sum().backward()
     q = _bf16(rng, (1, 32, 4, 128), dev).requires_grad_(True)
     sinks = torch.zeros(4, device=dev, requires_grad=True)
     before = _cuda.LAUNCHES["flash_attention_bwd_dq"]

@@ -123,7 +123,7 @@ def test_grouped_gemm_plain_matches_jax(sizes):
     if sum(sizes) < M:
         assert not tout[sum(sizes):].any()
 
-    # gradients: the CPU backward is the plain version's autograd
+    # gradients: the CPU backward is the plain dX and tgmm
     dout = rng.normal(size=(M, N)).astype(np.float32)
     _, vjp = jax.vjp(lambda a, b: jmoe._grouped_gemm(a, b, jnp.asarray(gs)),
                      jnp.asarray(xs), jnp.asarray(w))
