@@ -1,0 +1,202 @@
+"""Time builds of the flash-attention backward (K2) from several sources, in
+turns, on one card.
+
+    python3 -m lapha_tpu_torch.bench_k2 A/flash_attention_bwd.cu B/flash_attention_bwd.cu ...
+
+Each source (for example the file of an unpacked parent checkout beside the
+working tree's) is compiled by its own ``nvcc``, all started together, with
+the package's flags into a library of its own under ``_build/bench_k2/``;
+``common.cuh`` is taken from the source's directory if it has one, else from
+the package. A source whose C entries take no ``softcap`` (those written
+before the cap) is called without it and skips the capped shapes.
+
+The shapes are those of ``chip_smoke.py``'s K2 checks: phase 1b (B=4 T=1024,
+12/2 heads of dim 128, ragged masks and a hole), phase 1h (64/8 heads of dim
+64, W=128 and full) and phase 1i's Gemma rows (dh 256: 8/4 heads with the cap
+of 50 and W=4096, 4/1 heads at W=512). Every build's dq, dk and dv are held
+to the plain backward at the smoke script's limits first. Then each kernel is
+timed with CUDA events (20 launches a reading) in rounds that visit the
+builds in order and back (A B C C B A), three rounds, and the mean of each
+build's six readings is printed beside its ratio to the first build's, with
+the card's name and power limit. ptxas's register and spill lines of each
+build are printed too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from lapha_tpu_torch.ops import _cuda
+from lapha_tpu_torch.ops import flash_attention as fa
+
+BWD_RTOL, BWD_ATOL = 1e-2, 1e-3  # chip_smoke.py's K2 limits
+ROUNDS, REPS = 3, 20
+# (label, B, T, heads, KV heads, head dim, window, softcap, q scaled by)
+SHAPES = (("1b dh128 12/2", 4, 1024, 12, 2, 128, 0, 0.0, 1.0),
+          ("1h dh64 64/8 W=128", 4, 1024, 64, 8, 64, 128, 0.0, 1.0),
+          ("1h dh64 64/8 W=0", 4, 1024, 64, 8, 64, 0, 0.0, 1.0),
+          ("1i dh256 8/4 cap50 W=4096", 4, 1024, 8, 4, 256, 4096, 50.0, 25.0),
+          ("1i dh256 4/1 W=512", 4, 1024, 4, 1, 256, 512, 0.0, 1.0))
+
+
+def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, bool, str]]:
+    """(library, takes a softcap, ptxas report) of each source."""
+    out_dir = os.path.join(_cuda.BUILD_DIR, "bench_k2")
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _cuda._nvcc()
+    cmds, sos = [], []
+    for src in srcs:
+        with open(src, "rb") as f:
+            tag = hashlib.sha1(f.read() + " ".join(_cuda.NVCC_FLAGS).encode()).hexdigest()[:12]
+        so = os.path.join(out_dir, f"k2_{tag}.so")
+        sos.append(so)
+        here = os.path.dirname(os.path.abspath(src))
+        cmds.append([nvcc, *_cuda.NVCC_FLAGS, "-shared", "-I", here, "-I", _cuda.CSRC, "-o", so,
+                     src])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {p.returncode}:\n{' '.join(c)}\n{log}")
+    libs = []
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for src, so, log in zip(srcs, sos, logs):
+        with open(src) as f:
+            text = f.read()
+        cap = re.search(r"lapha_flash_bwd_dq\([^)]*float softcap", text) is not None
+        dll = ctypes.CDLL(so)
+        tail = [F, F, P] if cap else [F, P]  # scale(, softcap), stream
+        dll.lapha_flash_bwd_dq.argtypes = [P] * 9 + [I] * 7 + tail
+        dll.lapha_flash_bwd_dkv.argtypes = [P] * 10 + [I] * 7 + tail
+        dll.lapha_flash_bwd_dq.restype = dll.lapha_flash_bwd_dkv.restype = I
+        report = [ln.strip() for ln in log.splitlines()
+                  if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
+        libs.append((dll, cap, "\n".join(report)))
+    return libs
+
+
+def _calls(dll, cap: bool, args):
+    """The dq and the dk/dv call of one build on the kernels' arguments."""
+    q, k, v, mask, qs, lse, do, delta, scale, window, softcap = args
+    B, T, nh, dh = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    delta_t = delta.transpose(1, 2).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream().cuda_stream
+    tail = (float(scale), float(softcap), stream) if cap else (float(scale), stream)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta_t.data_ptr(), mask.data_ptr(), qs.data_ptr())
+
+    def run_dq():
+        err = dll.lapha_flash_bwd_dq(*common, dq.data_ptr(), B, T, S, nh, nkv, dh, window, *tail)
+        if err:
+            raise RuntimeError(f"dq launch failed: {err}")
+        return dq
+
+    def run_dkv():
+        err = dll.lapha_flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), B, T, S, nh, nkv,
+                                      dh, window, *tail)
+        if err:
+            raise RuntimeError(f"dk/dv launch failed: {err}")
+        return dk, dv
+
+    return run_dq, run_dkv
+
+
+def _time_ms(fn) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+def _inputs(dev, B, T, nh, nkv, dh, window, cap, q_sd, rng):
+    def bf16(*shape, sd=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * sd).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    scale = 1.0 / 16 if dh == 256 else dh ** -0.5
+    q, do = bf16(B, T, nh, dh, sd=q_sd), bf16(B, T, nh, dh)
+    k, v = bf16(B, T, nkv, dh), bf16(B, T, nkv, dh)
+    lens = (T, (700 * T) // 1024, (1000 * T) // 1024, (333 * T) // 1024)[:B]
+    mask = (torch.arange(T, device=dev)[None, :]
+            < torch.as_tensor(lens, device=dev)[:, None]).to(torch.int32)
+    mask[0, 100:140] = 0  # a hole of invalid keys
+    qs = torch.zeros(B, dtype=torch.int32, device=dev)
+    out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention", window, cap)
+    delta = (do.float() * out.float()).sum(-1)
+    return q, k, v, mask, qs, lse, do, delta, scale, window, cap
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sources", nargs="+", help="flash_attention_bwd.cu files, the first the base")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_k2: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    print(card, flush=True)
+    libs = _build(args.sources)
+    # a build is named by its source's directory in the timing lines
+    names = [os.path.basename(os.path.dirname(os.path.abspath(s))) for s in args.sources]
+    for name, src, (_, cap, report) in zip(names, args.sources, libs):
+        print(f"== {name}: {src} (softcap argument: {cap})\n{report}", flush=True)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    for label, B, T, nh, nkv, dh, window, cap, q_sd in SHAPES:
+        kargs = _inputs(dev, B, T, nh, nkv, dh, window, cap, q_sd, rng)
+        ref = fa.attention_bwd_plain(*kargs)
+        builds = []
+        for build, (dll, has_cap, _) in zip(names, libs):
+            if cap and not has_cap:
+                continue
+            run_dq, run_dkv = _calls(dll, has_cap, kargs)
+            try:
+                got = (run_dq(), *run_dkv())
+            except RuntimeError as e:  # a source written before this head dim
+                print(f"{label}: {build} skipped ({e})", flush=True)
+                continue
+            torch.cuda.synchronize()
+            for part, a, b in zip(("dq", "dk", "dv"), got, ref):
+                err, top = float((a.float() - b.float()).abs().max()), float(b.abs().max())
+                if not err <= BWD_RTOL * top + BWD_ATOL:
+                    raise SystemExit(f"{build} {label} {part}: max|diff| {err} vs max|plain| {top}")
+            builds.append((build, (run_dq, run_dkv)))
+        for kernel in (0, 1):
+            times = {build: [] for build, _ in builds}
+            order = builds + builds[::-1]
+            for _ in range(ROUNDS):
+                for build, fns in order:
+                    times[build].append(_time_ms(fns[kernel]))
+            base = sum(times[builds[0][0]]) / len(times[builds[0][0]])
+            cells = []
+            for build, _ in builds:
+                ms = sum(times[build]) / len(times[build])
+                cells.append(f"{build} {ms:.4f} ms ({ms / base:.3f}x, readings "
+                             f"{min(times[build]):.4f}-{max(times[build]):.4f})")
+            print(f"{label} {('dq', 'dk/dv')[kernel]}: " + "; ".join(cells) + f" [{card}]",
+                  flush=True)
+        del kargs, ref, builds
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,14 +38,14 @@ lse_t = logaddexp(lse, sink), out_t = out · exp(lse - lse_t). The backward
 reruns the backward pair with (out_t, lse_t) and adds
 dsink = -Σ exp(sink - lse_t)·D (JAX ``_sink_bwd``).
 
-On the card the backward pair takes head dims 64 and 128 and the window
-band (counted as ``flash_attention_bwd_dq_window`` /
-``flash_attention_bwd_dkv_window`` when banded). A softcapped or dh-256
-backward raises NotImplementedError (ROADMAP B4-bwd, B3-bwd) rather than
-return a gradient. The plain backward on the CPU has the softcap's chain
-rule, dc/ds = 1 - (c/cap)² (the Pallas ``_dq_kernel`` and
-``_dkv_kernel``). Not ported yet: a V narrower than Q/K on the card
-(ROADMAP B5).
+On the card the backward pair takes head dims 64, 128 and 256, the window
+band and the softcap, in any combination; a launch is counted under
+:func:`launch_name` (``flash_attention_bwd_dq_window``,
+``flash_attention_bwd_dkv_window_softcap``, ...). Both the kernels and the
+plain backward on the CPU apply the softcap's chain rule, dc/ds = 1 -
+(c/cap)² (the Pallas ``_dq_kernel`` and ``_dkv_kernel``). Not ported yet: a
+V narrower than Q/K on the card (ROADMAP B5), which raises, as does a head
+dim outside {64, 128, 256} (dh 96 is ROADMAP B3-96).
 """
 
 from __future__ import annotations
@@ -186,16 +186,18 @@ def _dkv_from(p, ds, q, k, v, do, scale):
     return (dk * scale).to(k.dtype), dv.to(v.dtype)
 
 
-def attention_bwd_dq_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0):
+def attention_bwd_dq_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0,
+                           softcap=0.0):
     """dQ = scale·dS·K (B,T,nh,dh) in q.dtype: the plain version of the dq kernel."""
-    _, ds = _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale, window)
+    _, ds = _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale, window, softcap)
     return _dq_from(ds, q, k, scale)
 
 
-def attention_bwd_dkv_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0):
+def attention_bwd_dkv_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0,
+                            softcap=0.0):
     """(dK = scale·dSᵀ·Q, dV = Pᵀ·dO), each summed over the GQA group, in
     k.dtype/v.dtype: the plain version of the dk/dv kernel."""
-    p, ds = _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale, window)
+    p, ds = _bwd_plain_ds(q, k, v, kv_valid, qstart, lse, do, delta, scale, window, softcap)
     return _dkv_from(p, ds, q, k, v, do, scale)
 
 
@@ -215,8 +217,8 @@ def _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta):
     S, nkv = k.shape[1], k.shape[2]
     dev = q.device
     _cuda.require_cuda_bf16(name, dev, q=q, k=k, v=v, do=do)
-    _cuda.require(dh in (64, 128), name, f"head dim {dh} (the kernel takes 64 and 128; "
-                  "dh 256 is ROADMAP B3-bwd)")
+    _cuda.require(dh in (64, 128, 256), name, f"head dim {dh} (the kernel takes 64, 128 and "
+                  "256; dh 96 is ROADMAP B3-96)")
     _cuda.require(tuple(v.shape) == tuple(k.shape), name,
                   "v must have k's shape (a narrower V is ROADMAP B5)")
     _cuda.require(tuple(do.shape) == tuple(q.shape), name, "dout must have q's shape")
@@ -230,9 +232,10 @@ def _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta):
             lse.contiguous(), delta.transpose(1, 2).contiguous())
 
 
-def attention_bwd_dq_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0):
+def attention_bwd_dq_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0,
+                          softcap=0.0):
     """The dq kernel (csrc/flash_attention_bwd.cu); arguments as the plain version's."""
-    name = launch_name("flash_attention_bwd_dq", window)
+    name = launch_name("flash_attention_bwd_dq", window, softcap)
     B, T, nh, dh = q.shape
     S, nkv = k.shape[1], k.shape[2]
     kv_valid, qstart, lse, delta_t = _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta)
@@ -240,15 +243,16 @@ def attention_bwd_dq_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, wind
     err = _cuda.lib().lapha_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta_t.data_ptr(), kv_valid.data_ptr(), qstart.data_ptr(), dq.data_ptr(),
-        B, T, S, nh, nkv, dh, int(window), float(scale), _cuda.stream_of(q))
+        B, T, S, nh, nkv, dh, int(window), float(scale), float(softcap), _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1
     return dq
 
 
-def attention_bwd_dkv_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0):
+def attention_bwd_dkv_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0,
+                           softcap=0.0):
     """The dk/dv kernel (csrc/flash_attention_bwd.cu); arguments as the plain version's."""
-    name = launch_name("flash_attention_bwd_dkv", window)
+    name = launch_name("flash_attention_bwd_dkv", window, softcap)
     B, T, nh, dh = q.shape
     S, nkv = k.shape[1], k.shape[2]
     kv_valid, qstart, lse, delta_t = _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta)
@@ -256,7 +260,8 @@ def attention_bwd_dkv_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, win
     err = _cuda.lib().lapha_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta_t.data_ptr(), kv_valid.data_ptr(), qstart.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, T, S, nh, nkv, dh, int(window), float(scale), _cuda.stream_of(q))
+        dv.data_ptr(), B, T, S, nh, nkv, dh, int(window), float(scale), float(softcap),
+        _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1
     return dk, dv
@@ -272,11 +277,7 @@ def _backward(q, k, v, kv_valid, qstart, out, lse, do, scale, window=0, softcap=
         return (*attention_bwd_plain(q, k, v, kv_valid, qstart, lse, do, delta, scale, window,
                                      softcap), delta)
     if q.device.type == "cuda":
-        if softcap or q.shape[-1] == 256:
-            raise NotImplementedError(
-                "flash_attention backward: the softcapped and dh-256 backward kernels are "
-                "not ported yet (ROADMAP B4-bwd, B3-bwd, Gemma training)")
-        args = (q, k, v, kv_valid, qstart, lse, do, delta, scale, window)
+        args = (q, k, v, kv_valid, qstart, lse, do, delta, scale, window, softcap)
         dq = attention_bwd_dq_cuda(*args)
         dk, dv = attention_bwd_dkv_cuda(*args)
         return dq, dk, dv, delta

@@ -35,12 +35,14 @@ sinks of the next head (a planted fault) must fail them. Windowed K1/K3 keep
 3e-2, and a window off by one (a planted fault) must fail it. Both at head
 dims 64 and 128.
 
-The backward kernels (dq; dk/dv, at head dims 64 and 128, banded or not)
-are held against the plain backward on the same bf16 inputs and the same
-saved LSE; a window off by one (a planted fault) must fail that check. They round P and dS to bf16 before
-each product and write bf16, each at most 2^-9 relative, so the tolerance
-is relative to the largest gradient entry, with a floor for gradients that
-are pure cancellation (T=1: dS = P·(dP - D) is 0 up to rounding):
+The backward kernels (dq; dk/dv, at head dims 64, 128 and 256, banded or
+not, with or without the softcap) are held against the plain backward on
+the same bf16 inputs and the same saved LSE; a window off by one and the
+softcap dropped from the kernel call (planted faults) must fail that check.
+They round P and dS to bf16 before each product and write bf16, each at most
+2^-9 relative, so the tolerance is relative to the largest gradient entry,
+with a floor for gradients that are pure cancellation (T=1: dS = P·(dP - D)
+is 0 up to rounding):
 max |diff| <= 1e-2 · max |plain| + 1e-3.
 """
 
@@ -206,22 +208,23 @@ def test_ragged_kernel_groups_and_edges(dev, nh, nkv):
     assert (out - ref).abs().max().item() <= ATOL
 
 
-def _bwd_pair(q, k, v, mask, qstart, do, window=0):
+def _bwd_pair(q, k, v, mask, qstart, do, window=0, softcap=0.0, scale=None):
     """Kernel and plain (dq, dk, dv) from the kernel forward's out and LSE;
-    ``window`` > 0 bands both (the launches counted under the _window names)."""
+    ``window`` > 0 bands both, ``softcap`` > 0 caps both (the launches
+    counted under their :func:`fa.launch_name`)."""
     B = q.shape[0]
     qs = torch.as_tensor(qstart, device=q.device).reshape(-1).expand(B).to(torch.int32)
-    scale = q.shape[-1] ** -0.5
-    out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention", window)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention", window, softcap)
     delta = (do.float() * out.float()).sum(-1)
-    args = (q, k, v, mask, qs, lse, do, delta, scale, window)
+    args = (q, k, v, mask, qs, lse, do, delta, scale, window, softcap)
     before = dict(_cuda.LAUNCHES)
     dq = fa.attention_bwd_dq_cuda(*args)
     dk, dv = fa.attention_bwd_dkv_cuda(*args)
     ref = fa.attention_bwd_plain(*args)
     torch.cuda.synchronize()
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        name = fa.launch_name(name, window)
+        name = fa.launch_name(name, window, softcap)
         assert _cuda.LAUNCHES[name] == before[name] + 1, name
     return (dq, dk, dv), ref
 
@@ -797,38 +800,40 @@ def test_flash_dh64_no_cache_window_and_sinks(dev, window):
 
 @pytest.mark.cuda
 def test_windowed_and_dh64_backward_raise_on_the_card(dev):
-    """The windowed and the dh-64 backward (B6) run the K2 kernels on the
-    card, through the autograd Function with sinks, against the plain
-    backward at K2's limit; dh 256 and a softcap still raise, naming their
-    ROADMAP items (B3-bwd, B4-bwd); the sink backward at dh 128 without a
-    window runs the K2 kernels."""
+    """The windowed, dh-64, dh-256 and softcapped backward run the K2
+    kernels on the card, through the autograd Function (with sinks where
+    the model has them), against the plain backward at K2's limit; a V
+    narrower than Q/K (ROADMAP B5) and a head dim the kernels do not take
+    (dh 96, B3-96) still raise, naming their ROADMAP items; the sink
+    backward at dh 128 without a window runs the K2 kernels."""
     rng = np.random.default_rng(11)
-    for dh, window in ((128, 16), (64, 0), (64, 24)):
+    for dh, window, cap, sink in ((128, 16, 0.0, True), (64, 0, 0.0, True), (64, 24, 0.0, True),
+                                  (256, 0, 0.0, False), (256, 16, 50.0, False),
+                                  (128, 0, 50.0, False)):
         B, T, nh, nkv = 2, 100, 8, 2
-        q, k, v = (_bf16(rng, (B, T, n, dh), dev).requires_grad_(True)
-                   for n in (nh, nkv, nkv))
+        q_sd = 25.0 if cap else 1.0  # the cap bites: |q·k|/sqrt(dh) reaches 2-3x it
+        q = (_bf16(rng, (B, T, nh, dh), dev) * q_sd).requires_grad_(True)
+        k, v = (_bf16(rng, (B, T, nkv, dh), dev).requires_grad_(True) for _ in range(2))
         sinks = torch.from_numpy(rng.normal(size=nh).astype(np.float32)).to(dev)
         sinks.requires_grad_(True)
         mask = torch.ones((B, T), dtype=torch.int32, device=dev)
         mask[1, 80:] = 0
         do = _bf16(rng, (B, T, nh, dh), dev)
-        name = fa.launch_name("flash_attention_bwd_dq", window)
+        leaves = (q, k, v, sinks) if sink else (q, k, v)
+        name = fa.launch_name("flash_attention_bwd_dq", window, cap)
         before = _cuda.LAUNCHES[name]
-        got = torch.autograd.grad(fa.flash_attention(q, k, v, mask, window=window, sinks=sinks),
-                                  (q, k, v, sinks), do)
-        cpu = [t.detach().float().cpu().requires_grad_(True) for t in (q, k, v, sinks)]
-        ref = torch.autograd.grad(fa.flash_attention(*cpu[:3], mask.cpu(), window=window,
-                                                     sinks=cpu[3]), cpu, do.float().cpu())
+        kw = dict(window=window, softcap=cap, sinks=sinks if sink else None)
+        got = torch.autograd.grad(fa.flash_attention(q, k, v, mask, **kw), leaves, do)
+        cpu = [t.detach().float().cpu().requires_grad_(True) for t in leaves]
+        kw["sinks"] = cpu[3] if sink else None
+        ref = torch.autograd.grad(fa.flash_attention(*cpu[:3], mask.cpu(), **kw), cpu,
+                                  do.float().cpu())
         torch.cuda.synchronize()
-        assert _cuda.LAUNCHES[name] == before + 1
+        assert _cuda.LAUNCHES[name] == before + 1, name
         _assert_bwd_close([g.cpu() for g in got[:3]], ref[:3])
-        assert (got[3].cpu() - ref[3]).abs().max().item() <= BWD_RTOL * ref[3].abs().max() + 1e-3
-    for dh, cap, item in ((256, 0.0, "B3-bwd"), (128, 50.0, "B4-bwd")):
-        qg = _bf16(rng, (1, 32, 4, dh), dev).requires_grad_(True)
-        kg = _bf16(rng, (1, 32, 2, dh), dev)
-        o = fa.flash_attention(qg, kg, kg, softcap=cap)
-        with pytest.raises(NotImplementedError, match=item):
-            o.float().sum().backward()
+        if sink:
+            assert ((got[3].cpu() - ref[3]).abs().max().item()
+                    <= BWD_RTOL * ref[3].abs().max() + 1e-3)
     q = _bf16(rng, (1, 32, 4, 128), dev).requires_grad_(True)
     sinks = torch.zeros(4, device=dev, requires_grad=True)
     before = _cuda.LAUNCHES["flash_attention_bwd_dq"]
@@ -838,6 +843,17 @@ def test_windowed_and_dh64_backward_raise_on_the_card(dev):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["flash_attention_bwd_dq"] == before + 1
     assert torch.isfinite(gq.float()).all() and torch.isfinite(gs).all() and gs.abs().max() > 0
+    # what K2 does not take raises, naming the ROADMAP item
+    for dh, dv_w, item in ((256, 128, "B5"), (96, 96, "B3-96")):
+        q, do = _bf16(rng, (1, 32, 4, dh), dev), _bf16(rng, (1, 32, 4, dv_w), dev)
+        k, v = _bf16(rng, (1, 32, 2, dh), dev), _bf16(rng, (1, 32, 2, dv_w), dev)
+        mask = torch.ones((1, 32), dtype=torch.int32, device=dev)
+        qs = torch.zeros(1, dtype=torch.int32, device=dev)
+        lse = torch.zeros((1, 4, 32), device=dev)
+        delta = torch.zeros((1, 32, 4), device=dev)
+        for fn in (fa.attention_bwd_dq_cuda, fa.attention_bwd_dkv_cuda):
+            with pytest.raises(ValueError, match=item):
+                fn(q, k, v, mask, qs, lse, do, delta, 0.1)
 
 
 # ---------------------------------------------------------------- Gemma: softcap and dh 256
@@ -890,9 +906,11 @@ def test_flash_dh256_softcap_kernels_match_plain(dev, softcap, nh, nkv, window, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("softcap", [0.0, 50.0])
 def test_flash_dh256_no_cache_kernel_and_backward_raise(dev, softcap):
-    """K1 at dh 256 (the value forward) with padded rows, Gemma-2's window
-    and softcap; its backward raises NotImplementedError (the softcapped and
-    dh-256 K2 are not ported), as does a softcapped backward at dh 128."""
+    """K1 at dh 256 (the value forward and the training forward) with padded
+    rows, Gemma-2's window and softcap; its backward through the autograd
+    Function runs the dh-256 K2 kernels (softcapped ones with the cap) and
+    matches the plain backward on the CPU, as does a softcapped backward at
+    dh 128."""
     rng = np.random.default_rng(600 + int(softcap))
     B, T, nh, nkv = 3, 512, 8, 4
     q, k, v = _gemma_qkv(rng, dev, B, T, T, nh, nkv, 25.0 if softcap else 1.0)
@@ -908,11 +926,53 @@ def test_flash_dh256_no_cache_kernel_and_backward_raise(dev, softcap):
     assert _cuda.LAUNCHES[name] == before + 1
     assert (out - ref).abs().max().item() <= ATOL
     for dh, cap in ((256, softcap), (128, 50.0)):
-        qg = _bf16(rng, (1, 32, 4, dh), dev).requires_grad_(True)
-        kg = _bf16(rng, (1, 32, 2, dh), dev)
-        o = fa.flash_attention(qg, kg, kg, softcap=cap)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            o.float().sum().backward()
+        sd = 25.0 if cap else 1.0
+        qg = (_bf16(rng, (2, 96, 4, dh), dev) * sd).requires_grad_(True)
+        kg, vg = (_bf16(rng, (2, 96, 2, dh), dev).requires_grad_(True) for _ in range(2))
+        do = _bf16(rng, (2, 96, 4, dh), dev)
+        bwd = fa.launch_name("flash_attention_bwd_dkv", 0, cap)
+        before = _cuda.LAUNCHES[bwd]
+        got = torch.autograd.grad(fa.flash_attention(qg, kg, vg, softcap=cap), (qg, kg, vg), do)
+        cpu = [t.detach().float().cpu().requires_grad_(True) for t in (qg, kg, vg)]
+        ref = torch.autograd.grad(fa.flash_attention(*cpu, softcap=cap), cpu, do.float().cpu())
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[bwd] == before + 1
+        _assert_bwd_close([g.cpu() for g in got], ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,nh,nkv", [(256, 8, 4), (256, 4, 1), (128, 12, 2), (64, 64, 8)])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("T,window", [(300, 0), (1000, 128), (77, 16), (130, 1)])
+def test_flash_bwd_dh256_softcap_kernels_match_plain(dev, dh, nh, nkv, softcap, T, window):
+    """K2 at dh 256 (Gemma-2's 8/4 heads, Gemma-3's 4/1) and with the softcap
+    at every head dim, full and banded (a band longer and shorter than a
+    tile, W = 1), a right-padded row and a hole, Gemma's scale 1/16 at dh
+    256; with the softcap q is scaled so that the logits reach 1-3x the cap,
+    and the kernels run without it (a planted fault) fail the check."""
+    rng = np.random.default_rng(dh + nh + T + window + int(softcap))
+    B = 2
+    q, do = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dh), dev)
+    if softcap:
+        q = (q.float() * 25.0).to(torch.bfloat16)
+    k, v = _bf16(rng, (B, T, nkv, dh), dev), _bf16(rng, (B, T, nkv, dh), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, (3 * T) // 4 + 1:] = 0
+    mask[0, T // 3:T // 3 + T // 10] = 0
+    scale = 1.0 / 16 if dh == 256 else dh ** -0.5
+    got, ref = _bwd_pair(q, k, v, mask, 0, do, window, softcap, scale)
+    _assert_bwd_close(got, ref)
+    if softcap:
+        s = torch.einsum("bthd,bshd->bhts", q.float()[:, :, :nkv], k.float()) * scale
+        assert s.abs().max().item() > softcap  # the cap bites
+        qs = torch.zeros(B, dtype=torch.int32, device=dev)
+        out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention", window,
+                                      softcap)
+        args = (q, k, v, mask, qs, lse, do, (do.float() * out.float()).sum(-1), scale, window)
+        bad = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+        torch.cuda.synchronize()
+        with pytest.raises(AssertionError):
+            _assert_bwd_close(bad, ref)
 
 
 @pytest.mark.cuda
