@@ -73,6 +73,14 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    (planted faults) must fail; timed beside SDPA's backward (cap-free)
    or the compiled flex_attention's backward with the softcap as its
    score_mod, itself held to the plain backward first.
+1j. K1/K3 with V narrower than Q/K at DeepSeek-V2-Lite's shapes (16/16
+   heads, Q/K 192, V 128, scale 1/sqrt(192)): K3 fresh prefill (B=4 T=512
+   S=640), K3 suffix prefill (T=64 at qstart 512, ragged kv_valid), K1 (B=4
+   T=512, padded rows), phase 1's limit; the scale of 1/sqrt(128) and each
+   head's V taken from the next head (planted faults) must fail it; timed
+   in turns beside SDPA (the first backend that takes V of 128 and agrees
+   with the plain version, else V padded to 192, else the math backend);
+   phase 1's (128, 128) K3 row timed again beside it.
 2d. Two full-width Qwen1.5-MoE-A2.7B layers, card (kernels, bf16) against
    CPU (plain versions, f32): prefill + one decode step, relative error of
    the logits <= 5e-2, with the count of (token, layer) routing choices
@@ -132,6 +140,24 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    windowed-short install engaged for Gemma-3's children only; phase 4's
    checks, a warm round timed, peak device memory, one decode step
    profiled as in phase 9. Each model is freed before the next is made.
+2h. Two full-width DeepSeek-V2-Lite layers (layer 0 dense, layer 1 MoE),
+   phase 2's check with one decode step over the bf16 latent cache and one
+   over its int8 quantization: the routing choices that differ between the
+   card and the CPU are counted, then the check (rel err <= 5e-2) is made
+   with the card's routing replayed on the CPU.
+15. DeepSeek MLA serving at the full width and depth of DeepSeek-V2-Lite,
+   from its published config.json through ``DeepseekConfig.from_hf`` (27
+   layers, H 2048, 16 heads, kv_lora 512, Q/K 192 (nope 128 + rope 64), V
+   128, YaRN x40, one dense layer of I 10944, then 64 experts top-6 of
+   width 1408 + 2 shared, V 102400, untied; random bf16 weights from the
+   seed, 31.4 GB): the phase-3 round with the bf16 latent cache, then with
+   ``kv_quant="int8"``, launch counts zeroed before and read after under
+   "serve_deepseek" (the narrow-V K1 and K3 and K8 must have run; no dh = dv
+   flash instance and no decode kernel may: MLA decode is torch products);
+   phase 4's checks (the fused-h0 check with the engine's routing replayed
+   into the value forward where routing flips push it past the limit), a
+   warm round timed, peak device memory, one decode step at 24 rows
+   profiled as in phase 9. The model is freed before the dense one is made.
 2. Check the kernel path against the plain path on a small input: two
    layers of the full-width model, prefill + one decode step, on the card
    (kernels, bf16) and on the CPU (plain versions, f32); relative error of
@@ -218,7 +244,8 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    ("train_step_gemma2").
 
 Launch counts are read per path (serve_moe: phase 10; serve_gptoss: phase
-11; serve_gemma2 and serve_gemma3: phase 12; serve: phase 3;
+11; serve_gemma2 and serve_gemma3: phase 12; serve_deepseek: phase 15;
+serve: phase 3;
 serve_quantized: phase 8; train_step: phase 6; update: phase 7;
 update_moe, update_gptoss and train_step_moe: phase 13; update_gemma2,
 update_gemma3 and train_step_gemma2: phase 14). Prints the card's name and power
@@ -317,6 +344,28 @@ GEMMA3_1B_CONFIG = {
     "rms_norm_eps": 1e-06, "rope_local_base_freq": 10000, "rope_scaling": None,
     "rope_theta": 1000000, "sliding_window": 512, "sliding_window_pattern": 6,
     "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 262144,
+}
+
+# DeepSeek-V2-Lite's published config.json (HF deepseek-ai/DeepSeek-V2-Lite),
+# the model phases 2h and 15 serve at full width and depth through
+# DeepseekConfig.from_hf (the auto_map entry of the remote code left out)
+DEEPSEEK_V2_LITE_CONFIG = {
+    "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2",
+    "attention_bias": False, "attention_dropout": 0.0, "aux_loss_alpha": 0.001,
+    "bos_token_id": 100000, "eos_token_id": 100001, "first_k_dense_replace": 1,
+    "hidden_act": "silu", "hidden_size": 2048, "initializer_range": 0.02,
+    "intermediate_size": 10944, "kv_lora_rank": 512, "max_position_embeddings": 163840,
+    "moe_intermediate_size": 1408, "moe_layer_freq": 1, "n_group": 1, "n_routed_experts": 64,
+    "n_shared_experts": 2, "norm_topk_prob": False, "num_attention_heads": 16,
+    "num_experts_per_tok": 6, "num_hidden_layers": 27, "num_key_value_heads": 16,
+    "pretraining_tp": 1, "q_lora_rank": None, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+    "rms_norm_eps": 1e-06,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
+                     "mscale_all_dim": 0.707, "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+    "rope_theta": 10000, "routed_scaling_factor": 1.0, "scoring_func": "softmax",
+    "seq_aux": True, "tie_word_embeddings": False, "topk_group": 1, "topk_method": "greedy",
+    "torch_dtype": "bfloat16", "use_cache": True, "v_head_dim": 128, "vocab_size": 102400,
 }
 
 
@@ -1777,22 +1826,26 @@ def _gptoss_model(dev, card, layers=None):
     return params, head, cfg
 
 
-def check_h0_routing_replayed(eng, vf, cfg, rng, plen: int, extra: int, new: int, label: str):
+def check_h0_routing_replayed(eng, vf, cfg, rng, plen: int, extra: int, new: int, label: str,
+                              router: str = "route_topk_softmax"):
     """Phase 11's fused-h0 check (ROADMAP C5) with routing flips taken out:
     one fresh parent of ``plen`` tokens and its child (``extra`` more, a
     prefix hit), n = 1, generated with every routing choice of row 0
     recorded by (layer, position) (the parent's below ``plen``, the child's
     prefill and decode above); then the value forward over child +
-    completion, free and with the recorded choices replayed. Returns the
-    two relative errors of the pooled h0 (free, replayed)."""
+    completion, free and with the recorded choices replayed. ``router``
+    names the ``ops.moe`` routing function of the model (the config's
+    model module's forward and decode_step are tagged). Returns the two
+    relative errors of the pooled h0 (free, replayed)."""
     import numpy as np
     import torch
 
     from lapha_tpu_torch.engine import SamplingParams
-    from lapha_tpu_torch.models import qwen2
+    from lapha_tpu_torch.models import model_module
     from lapha_tpu_torch.ops import moe
 
-    fwd, step, route = qwen2.forward, qwen2.decode_step, moe.route_topk_softmax
+    mod = model_module(cfg)
+    fwd, step, route = mod.forward, mod.decode_step, getattr(moe, router)
     ctx = {"T": 0, "layer": 0}
     rec, replay, counts = {}, {}, {"replayed": 0, "free": 0}
 
@@ -1821,8 +1874,8 @@ def check_h0_routing_replayed(eng, vf, cfg, rng, plen: int, extra: int, new: int
         ctx.update(T=1, pos=[int(positions[0])], real=[True], layer=0)
         return step(params, c, tok, positions, *a, **kw)
 
-    def routing(x, router_w, router_b, top_k):
-        topw, topi = route(x, router_w, router_b, top_k)
+    def routing(x, *args, **kw):
+        topw, topi = route(x, *args, **kw)
         layer, T = ctx["layer"], ctx["T"]
         ctx["layer"] += 1
         keys = [(t, (layer, p)) for t, (p, r) in enumerate(zip(ctx["pos"], ctx["real"])) if r]
@@ -1843,7 +1896,8 @@ def check_h0_routing_replayed(eng, vf, cfg, rng, plen: int, extra: int, new: int
     parent = rng.integers(2, cfg.vocab_size, plen)
     child = np.concatenate([parent, rng.integers(2, cfg.vocab_size, extra)])
     sp = SamplingParams(n=1, temperature=0.8, top_p=0.95, top_k=20, max_tokens=new, seed=3)
-    qwen2.forward, qwen2.decode_step, moe.route_topk_softmax = tagged_forward, tagged_step, routing
+    mod.forward, mod.decode_step = tagged_forward, tagged_step
+    setattr(moe, router, routing)
     try:
         eng.generate([_text(parent)], sp)
         for k in [k for k in rec if k[1] >= plen]:  # the parent's own completion
@@ -1861,7 +1915,8 @@ def check_h0_routing_replayed(eng, vf, cfg, rng, plen: int, extra: int, new: int
             errs.append(float(np.linalg.norm(out.pooled_hidden - h_ref[0])
                               / np.linalg.norm(h_ref[0])))
     finally:
-        qwen2.forward, qwen2.decode_step, moe.route_topk_softmax = fwd, step, route
+        mod.forward, mod.decode_step = fwd, step
+        setattr(moe, router, route)
     print(f"fused value check with the engine's routing replayed ({label}; {full.shape[1]} "
           f"tokens, {counts['replayed']} (token, layer) choices replayed, {counts['free']} "
           f"free): engine pooled h0 vs value forward rel err {errs[0]:.3e} free, {errs[1]:.3e} "
@@ -1932,6 +1987,315 @@ def serve_gptoss(dev, card):
     del params, head
     torch.cuda.empty_cache()
     print(f"phases 2e and 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def _sdpa_narrow(q, k, v, allowed, scale, ref):
+    """One PyTorch call for attention with V narrower than Q/K (nh = nkv):
+    SDPA through the first fused backend (cuDNN, memory-efficient, flash)
+    that takes V of its own width and agrees with the plain output ``ref``
+    at the kernels' limit on the rows that see a key, else the first that
+    does so with V zero-padded to Q/K's width (the same first columns), else
+    the math backend. Returns (fn giving (B, T, nh, dv), what it ran, its
+    max |diff|)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    dv = v.shape[-1]
+    qt, kt, m = q.transpose(1, 2), k.transpose(1, 2), allowed[:, None]
+    seen = allowed.any(-1)
+    vp = F.pad(v, (0, q.shape[-1] - dv))
+    fused = (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.FLASH_ATTENTION)
+    tries = ([(v, f"V of {dv}", b) for b in fused] + [(vp, f"V zero-padded to {q.shape[-1]}", b)
+                                                        for b in fused]
+             + [(v, f"V of {dv}", SDPBackend.MATH)])
+    for vv, how, backend in tries:
+        vt = vv.transpose(1, 2)
+
+        def fn(vt=vt, backend=backend):
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, scale=scale)
+            return out[..., :dv].transpose(1, 2)
+
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # this backend does not take these inputs
+            print(f"    sdpa {backend.name} with {how}: not taken ({str(e).splitlines()[0][:80]})",
+                  flush=True)
+            continue
+        err = float((out.float() - ref.float())[seen].abs().max())
+        if torch.isfinite(out[seen].float()).all() and err <= KERNEL_ATOL:
+            return fn, f"sdpa ({backend.name}, {how})", err
+        print(f"    sdpa {backend.name} with {how}: max|diff| {err:.3e} from the plain version, "
+              f"not used", flush=True)
+    raise RuntimeError("no SDPA backend computes attention with Q/K 192 and V 128")
+
+
+def check_deepseek_kernels(dev, card):
+    """Phase 1j: K3 (fresh prefill B=4 T=512 S=640; suffix prefill T=64 at
+    qstart 512 over ragged kv_valid) and K1 (B=4 T=512, padded rows) with V
+    narrower than Q/K at DeepSeek-V2-Lite's shapes (16/16 heads, Q/K 192 =
+    nope 128 + rope 64, V 128, its scale) against the plain version, timed
+    in turns beside one SDPA call; planted faults (the scale of 1/sqrt(128)
+    in place of the model's, each head's V taken from the next head) must
+    fail the check. Phase 1's (128, 128) K3 row is timed again beside it."""
+    import torch
+
+    from lapha_tpu_torch.models.deepseek import DeepseekConfig
+    from lapha_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    cfg = DeepseekConfig.from_hf(DEEPSEEK_V2_LITE_CONFIG)
+    nh, dh, dv, scale = cfg.num_attention_heads, cfg.qk_head_dim_, cfg.v_head_dim, cfg.attn_scale_
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    results = {}
+    for name, B, T, S, qstart, lens, pad in (
+            ("flash_attention_cached", 4, 512, 640, 0, (512, 450, 300, 512), False),
+            ("flash_attention_cached", 4, 64, 640, 512, (576, 560, 576, 530), False),
+            ("flash_attention", 4, 512, 512, 0, (512, 400, 512, 130), True)):
+        q, k, v = bf16(B, T, nh, dh), bf16(B, S, nh, dh), bf16(B, S, nh, dv)
+        qs = torch.full((B,), qstart, dtype=torch.int32, device=dev)
+        kv_valid = (torch.arange(S, device=dev)[None, :]
+                    < torch.tensor(lens, device=dev)[:, None]).to(torch.int32)
+        if not pad:
+            kv_valid[2, 100:140] = 0  # a hole of invalid keys
+        args = (q, k, v, kv_valid, qs, scale)
+        out, lse = fa._attention_cuda(*args, name)
+        ref, ref_lse = fa.attention_plain(*args)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        seen = ref_lse > -1e29
+        rk = fa.launch_name(name, narrowv=True)
+        label = f"{rk} {nh}/{nh} heads q/k {dh} v {dv} B={B} T={T} S={S} qstart={qstart}"
+        check(out.shape == (B, T, nh, dv) and bool(torch.isfinite(out.float()).all())
+              and err <= KERNEL_ATOL, f"{label}: {err}")
+        check(float((lse[seen] - ref_lse[seen]).abs().max()) <= 1e-3, f"{label} LSE")
+        bad = {"scale 1/sqrt(128)": fa._attention_cuda(q, k, v, kv_valid, qs, 128 ** -0.5, name)[0],
+               "V of the next head": fa._attention_cuda(q, k, v.roll(-1, dims=2).contiguous(),
+                                                        kv_valid, qs, scale, name)[0]}
+        torch.cuda.synchronize()
+        faults = []
+        for what, o in bad.items():
+            e = float((o.float() - ref.float()).abs().max())
+            check(e > KERNEL_ATOL, f"the {label} check missed a planted fault ({what}): {e}")
+            faults.append(f"{what} {e:.3e}")
+        allowed = _allowed(kv_valid, qs, T)
+        lib_fn, lib_name, lib_err = _sdpa_narrow(q, k, v, allowed, scale, ref)
+        ms, plain_ms, lib_ms = _ab_ms(lambda: fa._attention_cuda(*args, name),
+                                      lambda: fa.attention_plain(*args), lib_fn)
+        # q, the seen keys' K and V rows, the mask and qstart read; out and LSE written
+        seen_keys = int(allowed.any(1).sum())
+        nbytes = _nbytes(q, out, lse, kv_valid, qs) + seen_keys * nh * (dh + dv) * 2
+        row = _row(err, ms, plain_ms, lib_ms, nbytes, 2 * (dh + dv) * nh * int(allowed.sum()))
+        print(f"kernel {label}: max|diff| {err:.3e}, {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+              f"{lib_name} {lib_ms:.4f} ms (max|diff| {lib_err:.3e}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); planted faults caught: "
+              f"{', '.join(faults)} [{card}]", flush=True)
+        if rk not in results:  # the table keeps the first shape of each
+            results[rk] = row
+        else:
+            results[rk]["max_abs_err"] = max(results[rk]["max_abs_err"], err)
+    # phase 1's (128, 128) K3 shape again, beside the narrow-V instance
+    B, T, S = 4, 512, 640
+    q, k, v = bf16(B, T, 12, 128), bf16(B, S, 2, 128), bf16(B, S, 2, 128)
+    kv_valid = (torch.arange(S, device=dev)[None, :]
+                < torch.tensor((512, 300, 450, 77), device=dev)[:, None]).to(torch.int32)
+    qs = torch.zeros(B, dtype=torch.int32, device=dev)
+    ms = _time_ms(lambda: fa._attention_cuda(q, k, v, kv_valid, qs, 128 ** -0.5,
+                                             "flash_attention_cached"))
+    print(f"kernel flash_attention_cached 12/2 heads dh 128 B=4 T=512 S=640 (phase 1's row, "
+          f"timed again): {ms:.4f} ms [{card}]", flush=True)
+    print(f"phase 1j took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results
+
+
+def _deepseek_model(dev, card):
+    """DeepSeek-V2-Lite at full width and depth from its published config,
+    random bf16 weights from the seed (the JAX init's scales)."""
+    import torch
+
+    from lapha_tpu_torch.models import deepseek, quant, value_model
+
+    cfg = deepseek.DeepseekConfig.from_hf(DEEPSEEK_V2_LITE_CONFIG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = deepseek.init_params(cfg, gen)
+    head = value_model.init_value_head(cfg.hidden_size, gen)
+    torch.cuda.synchronize()
+    print(f"DeepSeek-V2-Lite weights ({cfg.num_hidden_layers} layers: {cfg.num_dense_layers_} "
+          f"dense of I {cfg.intermediate_size}, {cfg.num_moe_layers_} MoE; H {cfg.hidden_size}, "
+          f"{cfg.num_attention_heads} heads, MLA kv_lora {cfg.kv_lora_rank}, q/k "
+          f"{cfg.qk_head_dim_}, v {cfg.v_head_dim}, {cfg.n_routed_experts} experts top-"
+          f"{cfg.num_experts_per_tok} of {cfg.moe_intermediate_size} + {cfg.n_shared_experts} "
+          f"shared, V {cfg.vocab_size}, rope {cfg.rope_scaling[:2]}; random bf16): "
+          f"{quant.params_nbytes(params) / 1e9:.2f} GB made in {time.perf_counter() - t0:.2f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]", flush=True)
+    return params, head, cfg
+
+
+def _deepseek_reference(params, cfg, dev, T=96, S=128, strict=True, note=""):
+    """Phase 2h's run: layers 0 (dense) and 1 (MoE) of the full-width
+    model, kernels (card, bf16) vs plain versions (CPU, f32): cached
+    prefill logits of prompts of T and T - 26 tokens, then one decode step
+    over the bf16 latent cache and one over its int8 quantization."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine.engine import Engine
+    from lapha_tpu_torch.models import deepseek
+    from lapha_tpu_torch.train.losses import tree_map
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    sub = {k: v for k, v in params.items() if k != "moe_layers"}
+    sub["moe_layers"] = tree_map(lambda t: t[:1], params["moe_layers"])
+    cpu = tree_map(lambda t: t.detach().to("cpu", torch.float32), sub)
+    rng = np.random.default_rng(SEED + 21)
+    B = 2
+    ids = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, T)))
+    lens = torch.tensor([T, T - 26])
+    mask = (torch.arange(T)[None, :] < lens[:, None]).long()
+    kv_valid = torch.zeros((B, S), dtype=torch.bool)
+    kv_valid[:, :T] = mask > 0
+    pos = (mask.cumsum(1) - 1).clamp(min=0)
+    nxt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B,)))
+
+    def run(p, c, device):
+        with torch.inference_mode():
+            cache = deepseek.init_kv_cache(c, B, S, device)
+            logits, _, cache = deepseek.forward(p, c, ids.to(device), positions=pos.to(device),
+                                                kv_cache=cache, cache_pos=0,
+                                                kv_valid=kv_valid.to(device))
+            ck, cv = (x.permute(0, 1, 3, 2, 4).contiguous() for x in cache)
+            steps = []
+            for k, v, scl in ((ck.clone(), cv, None), Engine._quantize_cache(ck, cv)):
+                steps.append(deepseek.decode_step(
+                    p, c, nxt.to(device), lens.to(device), k, v, T, lens.to(device, torch.int32),
+                    torch.full((B,), T, dtype=torch.int32, device=device),
+                    cache_scale=scl)[0].float().cpu())
+        return logits.float().cpu(), steps
+
+    g_logits, g_steps = run(sub, cfg2, dev)
+    c_logits, c_steps = run(cpu, dataclasses.replace(cfg2, dtype=torch.float32),
+                            torch.device("cpu"))
+    errs = [_rel(g_logits[mask > 0], c_logits[mask > 0])] + [
+        _rel(a, b) for a, b in zip(g_steps, c_steps)]
+    print(f"reference check (DeepSeek-V2-Lite layers 0 dense + 1 MoE{note}; card kernels bf16 "
+          f"vs CPU plain f32): prefill logits rel err {errs[0]:.3e}, decode logits rel err "
+          f"{errs[1]:.3e} (bf16 latent cache), {errs[2]:.3e} (int8 latent cache)", flush=True)
+    check(not strict or max(errs) <= REF_RTOL, f"DeepSeek reference rel errs {errs}")
+
+
+def check_deepseek_reference(params, cfg, dev):
+    """Phase 2h: ``_deepseek_reference`` with the routing choices of the
+    card and the CPU counted, then with the card's routing replayed on the
+    CPU (phase 2e's recipe): the check is held on the replayed run."""
+    from lapha_tpu_torch.ops import moe
+
+    seen, route = [], moe.route_deepseek
+
+    def recording(x, *a, **kw):
+        topw, topi = route(x, *a, **kw)
+        seen.append((topw.float().cpu(), topi.cpu()))
+        return topw, topi
+
+    t0 = time.perf_counter()
+    moe.route_deepseek = recording
+    try:
+        _deepseek_reference(params, cfg, dev, strict=False, note=", routing free")
+    finally:
+        moe.route_deepseek = route
+    half = len(seen) // 2  # the card's calls, then the CPU's, in the same order
+    card = seen[:half]
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for (_, a), (_, b) in zip(card, seen[half:]))
+    rows = sum(a.shape[0] for _, a in card)
+    print(f"routing: {flips} of {rows} (token, layer) top-{cfg.num_experts_per_tok} choices "
+          f"differ between the card (bf16) and the CPU (f32) in the DeepSeek two-layer check",
+          flush=True)
+    replay = iter(card)
+    calls = iter(range(2 * half))
+
+    def replaying(x, *a, **kw):  # the card's calls come first
+        return route(x, *a, **kw) if next(calls) < half else next(replay)
+
+    moe.route_deepseek = replaying
+    try:
+        _deepseek_reference(params, cfg, dev, note=", the card's routing replayed on the CPU")
+    finally:
+        moe.route_deepseek = route
+    print(f"phase 2h took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def serve_deepseek(dev, card):
+    """Phases 2h and 15 on DeepSeek-V2-Lite, made here and freed before the
+    return. Returns the launch counts of the counted rounds."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine import Engine, SamplingParams
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.search import ValueFunction
+
+    t_phase = time.perf_counter()
+    params, head, cfg = _deepseek_model(dev, card)
+    check_deepseek_reference(params, cfg, dev)
+
+    P, n, plen, new = 4, 6, 512, 64
+    kw = dict(max_model_len=plen + 2 * new + 128, max_batch=P * n, decode_chunk=32,
+              pad_multiple=128, batch_bucket=1, eos_token_ids=[], seed=SEED, collect_h0=True)
+    engines = {kv: Engine(params, cfg, IdTok(), kv_quant=kv, **kw) for kv in (None, "int8")}
+    vf = ValueFunction(params, head, cfg, max_model_len=1024, pad_multiple=128, batch_bucket=P)
+    sp = SamplingParams(n=n, temperature=0.8, top_p=0.95, top_k=20, max_tokens=new, seed=1)
+    rng = np.random.default_rng(SEED + 22)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    runs = {kv: _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, P, new)
+            for kv, eng in engines.items()}
+    launches = dict(_cuda.LAUNCHES)
+    ran = ("flash_attention_narrowv", "flash_attention_cached_narrowv", "grouped_gemm")
+    for name in ran:
+        check(launches[name] > 0, f"{name} never launched on the DeepSeek served path")
+    for name, count in launches.items():  # no dh = dv flash instance, no decode kernel
+        check(name in ran or count == 0, f"{name} ran {count} times on the DeepSeek served path")
+    for kv, run in runs.items():
+        label = f"DeepSeek-V2-Lite, {'bf16' if kv is None else 'int8'} latent cache"
+        limit = REF_RTOL if kv is None else FUSED_Q8_RTOL
+        e_free = _check_round(run, vf, cfg.vocab_size, cfg.hidden_size, P, n, P, new, None)
+        if e_free > limit:  # routing flips: replay the engine's routing (phase 11's C5 check)
+            _, e_free = check_h0_routing_replayed(engines[kv], vf, cfg, rng, plen, new, new,
+                                                  label, router="route_deepseek")
+        check(e_free <= limit, f"fused value rel err {e_free} ({label})")
+        print(f"{label}: first (cold) round {run['t_all']:.2f} s [{card}]", flush=True)
+    print(f"launches on the DeepSeek served path (a bf16-latent round, then an int8-latent "
+          f"round): {launches}", flush=True)
+    # the cache pair's inert second plane (JAX's contract), at the decode install
+    S = -(-(plen + new) // 128) * 128  # the engine's slab: prompt + budget, in pad_multiple
+    plane = cfg.num_hidden_layers * P * n * S * cfg.cache_width_
+    print(f"DeepSeek latent cache at {P * n} rows x S={S}: {plane * 2 / 1e6:.1f} MB a plane in "
+          f"bf16 ({plane * 1 / 1e6:.1f} MB int8 + {plane // cfg.cache_width_ * 4 / 1e6:.1f} MB "
+          f"of scales); the inert second plane doubles it", flush=True)
+
+    for kv, eng in engines.items():
+        warm = _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, P, new)
+        _report_warm(f"DeepSeek-V2-Lite ({'bf16' if kv is None else 'int8'} latent cache)", warm,
+                     params, P, n, new, card)
+    del engines, vf, runs, warm
+    torch.cuda.empty_cache()
+    _profile_served("DeepSeek-V2-Lite", params, cfg, P * n, plen, plen + 2 * new, SEED + 23, card)
+    del params, head
+    torch.cuda.empty_cache()
+    print(f"phases 2h and 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -2974,8 +3338,9 @@ def _serve_round(eng, vf, sp, rng, vocab: int, P: int, plen: int, n_kids: int, k
 
 
 def _check_round(run, vf, vocab: int, H: int, P: int, n: int, n_kids: int, new: int,
-                 fused_rtol: float) -> float:
-    """Phase 4's checks on a round's outputs; returns the fused-h0 error."""
+                 fused_rtol: float | None) -> float:
+    """Phase 4's checks on a round's outputs; returns the fused-h0 error
+    (checked against ``fused_rtol`` unless it is None: the caller's check)."""
     import numpy as np
 
     check(run["hits"] == n_kids, f"expected {n_kids} prefix-cache hits, got {run['hits']}")
@@ -3005,7 +3370,7 @@ def _check_round(run, vf, vocab: int, H: int, P: int, n: int, n_kids: int, new: 
     e_fused = float(np.linalg.norm(run["pooled"][0] - h_ref[0]) / np.linalg.norm(h_ref[0]))
     print(f"fused value check: engine pooled h0 vs value forward rel err {e_fused:.3e} "
           f"(limit {fused_rtol})", flush=True)
-    check(e_fused <= fused_rtol, f"fused value rel err {e_fused}")
+    check(fused_rtol is None or e_fused <= fused_rtol, f"fused value rel err {e_fused}")
     return e_fused
 
 
@@ -3103,15 +3468,16 @@ def _profile_decode(label, p, cfg, tok, lens, cache, cache_scale, prompt: int, s
 
     import torch
 
-    from lapha_tpu_torch.models import qwen2
+    from lapha_tpu_torch.models import model_module
 
     B, S = tok.shape[0], cache[0].shape[3]
     slot = prompt
+    decode_step = model_module(cfg).decode_step
 
     def step():
         nonlocal slot
-        qwen2.decode_step(p, cfg, tok, lens.long() + (slot - prompt), cache[0], cache[1],
-                          slot, lens, lens, cache_scale=cache_scale)
+        decode_step(p, cfg, tok, lens.long() + (slot - prompt), cache[0], cache[1],
+                    slot, lens, lens, cache_scale=cache_scale)
         slot += 1
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -3188,6 +3554,7 @@ def main(argv=None) -> int:
     kernels.update(check_grouped_gemm_backward(dev, card))
     kernels.update(check_backward_window_kernels(dev, card))
     kernels.update(check_backward_gemma_kernels(dev, card))
+    kernels.update(check_deepseek_kernels(dev, card))
 
     # ---------------- MoE serving at full width and depth, counted; freed after
     launches = {"serve_moe": serve_moe(dev, card)}
@@ -3200,6 +3567,8 @@ def main(argv=None) -> int:
     # Gemma-3's two-layer check at prompts past its 512-token window
     launches["serve_gemma3"] = serve_gemma(dev, card, GEMMA3_1B_CONFIG, "Gemma-3-1B", (None,),
                                            {"T": 560, "S": 592})
+    # ---------------- DeepSeek-V2-Lite serving at full width and depth, counted; freed after
+    launches["serve_deepseek"] = serve_deepseek(dev, card)
 
     cfg = qwen2.Qwen2Config(
         vocab_size=151936, hidden_size=1536, intermediate_size=8960,
@@ -3309,6 +3678,11 @@ def main(argv=None) -> int:
                                           "lapha_tpu/ops/flash_attention.py:108"),
         "flash_attention_bwd_dkv_window": ("lapha_tpu_torch/csrc/flash_attention_bwd.cu",
                                            "lapha_tpu/ops/flash_attention.py:165"),
+        # V narrower than Q/K (DeepSeek MLA): the same kernels' dv <= dh
+        "flash_attention_narrowv": ("lapha_tpu_torch/csrc/flash_attention.cu",
+                                    "lapha_tpu/ops/flash_attention.py:46"),
+        "flash_attention_cached_narrowv": ("lapha_tpu_torch/csrc/flash_attention.cu",
+                                           "lapha_tpu/ops/flash_attention.py:395"),
     }
     # the softcapped launches (Gemma-2) are counted apart; the dh-256 rows
     # without a softcap (Gemma-3's shapes) count their kernel's launches on

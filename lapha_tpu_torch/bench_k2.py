@@ -48,16 +48,18 @@ SHAPES = (("1b dh128 12/2", 4, 1024, 12, 2, 128, 0, 0.0, 1.0),
           ("1i dh256 4/1 W=512", 4, 1024, 4, 1, 256, 512, 0.0, 1.0))
 
 
-def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, bool, str]]:
-    """(library, takes a softcap, ptxas report) of each source."""
-    out_dir = os.path.join(_cuda.BUILD_DIR, "bench_k2")
+def compile_sources(srcs: list[str], subdir: str) -> list[tuple[str, str, str]]:
+    """Compile each source into a shared library of its own under
+    ``_build/<subdir>/``, one ``nvcc`` each, all started together: (source
+    text, library path, ptxas's entry, register and spill lines)."""
+    out_dir = os.path.join(_cuda.BUILD_DIR, subdir)
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _cuda._nvcc()
     cmds, sos = [], []
     for src in srcs:
         with open(src, "rb") as f:
             tag = hashlib.sha1(f.read() + " ".join(_cuda.NVCC_FLAGS).encode()).hexdigest()[:12]
-        so = os.path.join(out_dir, f"k2_{tag}.so")
+        so = os.path.join(out_dir, f"{subdir}_{tag}.so")
         sos.append(so)
         here = os.path.dirname(os.path.abspath(src))
         cmds.append([nvcc, *_cuda.NVCC_FLAGS, "-shared", "-I", here, "-I", _cuda.CSRC, "-o", so,
@@ -68,20 +70,28 @@ def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, bool, str]]:
     for c, p, log in zip(cmds, procs, logs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed with code {p.returncode}:\n{' '.join(c)}\n{log}")
-    libs = []
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    out = []
     for src, so, log in zip(srcs, sos, logs):
         with open(src) as f:
             text = f.read()
+        report = [ln.strip() for ln in log.splitlines()
+                  if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
+        out.append((text, so, "\n".join(report)))
+    return out
+
+
+def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, bool, str]]:
+    """(library, takes a softcap, ptxas report) of each source."""
+    libs = []
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for text, so, report in compile_sources(srcs, "bench_k2"):
         cap = re.search(r"lapha_flash_bwd_dq\([^)]*float softcap", text) is not None
         dll = ctypes.CDLL(so)
         tail = [F, F, P] if cap else [F, P]  # scale(, softcap), stream
         dll.lapha_flash_bwd_dq.argtypes = [P] * 9 + [I] * 7 + tail
         dll.lapha_flash_bwd_dkv.argtypes = [P] * 10 + [I] * 7 + tail
         dll.lapha_flash_bwd_dq.restype = dll.lapha_flash_bwd_dkv.restype = I
-        report = [ln.strip() for ln in log.splitlines()
-                  if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
-        libs.append((dll, cap, "\n".join(report)))
+        libs.append((dll, cap, report))
     return libs
 
 

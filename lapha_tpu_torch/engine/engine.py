@@ -20,6 +20,9 @@
   fan-out gather and the transpose), and decode writes and reads it
   through ``decode_step(cache_scale=)``. Quantized weights
   (``models/quant.py``) need nothing of the engine.
+- The model module comes from the config (``models.model_module``): qwen2,
+  or deepseek, whose MLA latent cache rides the same layout code
+  MQA-shaped (one "head" of the latent width, ``deepseek.init_kv_cache``).
 - Sliding-window stacks (GPT-OSS): the decode install keeps the windowed
   layers in a short cache, each row's last ``Wpad`` prompt slots plus the
   decode columns (``decode_step(win_cache=)``; JAX ``_install_win_impl``),
@@ -41,7 +44,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..models import qwen2
+from ..models import model_module, qwen2
 from ..models.quant import leaf_device
 from . import sampling
 from .adapter import CompletionOutput, RequestOutput, SamplingParams
@@ -56,7 +59,7 @@ class Engine:
     def __init__(
         self,
         params: Any,
-        cfg: qwen2.Qwen2Config,
+        cfg,
         tokenizer,
         *,
         max_model_len: int = 4096,
@@ -84,6 +87,7 @@ class Engine:
         self.kv_quant = kv_quant
         self.params = params
         self.cfg = cfg
+        self._mod = model_module(cfg)
         self.tokenizer = tokenizer
         self.device = (torch.device(device) if device is not None
                        else leaf_device(params["embed"]["weight"]))
@@ -138,13 +142,13 @@ class Engine:
         """ids/mask (P, Lp) right-padded; plen (P,) real lengths. Returns
         (last_logits (P, V), (ck, cv) (L, P, S, nkv, dh), h_sum (P, H))."""
         P, Lp = ids.shape
-        cache = qwen2.init_kv_cache(self.cfg, P, S, self.device)
+        cache = self._mod.init_kv_cache(self.cfg, P, S, self.device)
         kv_valid = torch.zeros((P, S), dtype=torch.bool, device=self.device)
         kv_valid[:, :Lp] = mask > 0
         positions = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
         # only the last real token's logits are used: the hidden states come
         # back and the LM head runs on those rows alone
-        _, hidden, cache = qwen2.forward(
+        _, hidden, cache = self._mod.forward(
             self.params, self.cfg, ids, positions=positions, kv_cache=cache,
             cache_pos=0, kv_valid=kv_valid, return_hidden=True,
             compute_logits=False)
@@ -158,7 +162,7 @@ class Engine:
         S = cache_k.shape[2]
         kv_valid = torch.arange(S, device=self.device)[None, :] < (starts + real_lens)[:, None]
         positions = starts[:, None] + (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
-        _, hidden, cache = qwen2.forward(
+        _, hidden, cache = self._mod.forward(
             self.params, self.cfg, ids, positions=positions,
             kv_cache=(cache_k, cache_v), cache_pos=starts, kv_valid=kv_valid,
             return_hidden=True, compute_logits=False)
@@ -240,7 +244,7 @@ class Engine:
             emitted += live.long()
             if use_presence:
                 presence[rows, tok] = torch.maximum(presence[rows, tok], live.to(presence.dtype))
-            logits, hidden, cache_k, cache_v, *_ = qwen2.decode_step(
+            logits, hidden, cache_k, cache_v, *_ = self._mod.decode_step(
                 self.params, self.cfg, tok, positions, cache_k, cache_v, slot,
                 lens, dstart, return_hidden=self.collect_h0, ragged=True,
                 cache_scale=cache_scale, win_cache=win_cache, win_pad=win_pad)

@@ -12,7 +12,6 @@ import math
 import torch
 
 from ..ops.latent import latent_project, masked_mean, pool_mask, value_head_apply
-from . import qwen2
 
 
 def init_value_head(hidden_size: int, generator: torch.Generator, device=None) -> dict:
@@ -34,7 +33,7 @@ def make_value_head(head_type: str, hidden_size: int, generator: torch.Generator
 def value_forward(
     params: dict,
     head: dict,
-    cfg: qwen2.Qwen2Config,
+    cfg,
     input_ids: torch.Tensor,
     attention_mask: torch.Tensor,
     response_mask: torch.Tensor | None = None,
@@ -47,13 +46,16 @@ def value_forward(
 ):
     """Returns (y_state (B,H) f32 ball points, v_pred (B,) f32, h0_raw (B,H) f32).
 
-      last_hidden = base_lm(input_ids)
+      last_hidden = base_lm(input_ids)      # the config's model module
       h0_raw  = masked_mean(last_hidden, pool)
       y_state = exp0((h0_raw - root_h0)/√H)
       v_pred  = sigmoid(W·h0_raw + b)           # on the uncentred h0
     """
-    _, hidden, _ = qwen2.forward(params, cfg, input_ids, attention_mask=attention_mask,
-                                 return_hidden=True, compute_logits=False)
+    from . import model_module  # lazy: the package imports this module first
+
+    _, hidden, _ = model_module(cfg).forward(params, cfg, input_ids,
+                                             attention_mask=attention_mask,
+                                             return_hidden=True, compute_logits=False)
     pm = pool_mask(attention_mask, response_mask, prompt_mask)
     h0_raw = masked_mean(hidden, pm)
     y_state = latent_project(h0_raw, root_h0, scale=no_head_scale, c=curvature)

@@ -30,10 +30,12 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
-# the attention kernels count windowed and softcapped launches apart
+# the attention kernels count windowed, softcapped and narrow-V launches apart
 LAUNCHES = {name + cap: 0
             for name in ("flash_attention", "flash_attention_cached", "flash_attention_window",
-                         "flash_attention_cached_window", "ragged_decode_attention",
+                         "flash_attention_cached_window", "flash_attention_narrowv",
+                         "flash_attention_cached_narrowv", "flash_attention_narrowv_window",
+                         "flash_attention_cached_narrowv_window", "ragged_decode_attention",
                          "ragged_decode_attention_q8", "ragged_decode_attention_sink",
                          "ragged_decode_attention_q8_sink", "flash_attention_bwd_dq",
                          "flash_attention_bwd_dkv", "flash_attention_bwd_dq_window",
@@ -108,9 +110,10 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         dll = ctypes.CDLL(build())
-        # the last float of the attention entries is the softcap (0 = off)
+        # the last float of the attention entries is the softcap (0 = off);
+        # the forward's ints: B T S nh nkv dh dv window
         dll.lapha_flash_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+                                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_flash_fwd.restype = _I
         dll.lapha_ragged_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P,
                                             _I, _I, _I, _I, _I, _F, _F, _P]

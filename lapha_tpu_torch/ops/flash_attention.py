@@ -23,10 +23,14 @@ Semantics: query t of row b sits at absolute position qstart[b] + t and sees
 key j iff kv_valid[b, j] and j <= qstart[b] + t, and with ``window`` W > 0
 (a sliding-window layer) j > qstart[b] + t - W. With ``softcap`` > 0
 (Gemma-2) the scaled logit s becomes cap·tanh(s/cap) before the mask, as in
-the Pallas kernels. The kernel takes head dims 64, 128 and 256; a windowed
-launch is counted under its own name (``flash_attention_window``,
-``flash_attention_cached_window``), and a softcapped one adds ``_softcap``
-(``flash_attention_cached_window_softcap``, ...). A row that
+the Pallas kernels. The forward kernel takes head dims (of Q/K, of V) (64,
+64), (128, 128), (256, 256) and (192, 128), the last DeepSeek MLA's V
+narrower than Q/K (the Pallas kernels' dv <= dh); a launch with dv < dh is
+counted under its own name (``flash_attention_narrowv``,
+``flash_attention_cached_narrowv``), a windowed one adds ``_window``
+(``flash_attention_window``, ``flash_attention_cached_window``) and a
+softcapped one ``_softcap`` (``flash_attention_cached_window_softcap``, ...).
+A row that
 sees no key gives 0 and LSE -1e30 here, never NaN. The JAX versions give a
 finite average of V there (their masked probabilities are exp(0) = 1); such
 rows are padding that nothing reads.
@@ -43,9 +47,10 @@ band and the softcap, in any combination; a launch is counted under
 :func:`launch_name` (``flash_attention_bwd_dq_window``,
 ``flash_attention_bwd_dkv_window_softcap``, ...). Both the kernels and the
 plain backward on the CPU apply the softcap's chain rule, dc/ds = 1 -
-(c/cap)² (the Pallas ``_dq_kernel`` and ``_dkv_kernel``). Not ported yet: a
-V narrower than Q/K on the card (ROADMAP B5), which raises, as does a head
-dim outside {64, 128, 256} (dh 96 is ROADMAP B3-96).
+(c/cap)² (the Pallas ``_dq_kernel`` and ``_dkv_kernel``). Not ported yet: the
+backward of a V narrower than Q/K on the card (ROADMAP B5 backward, DeepSeek
+training), which raises, as does a head dim outside {64, 128, 256} (dh 96 is
+ROADMAP B3-96) in either direction.
 """
 
 from __future__ import annotations
@@ -99,35 +104,41 @@ def attention_plain(q, k, v, kv_valid, qstart, scale, window=0, sinks=None, soft
     return (out, lse) if sinks is None else _sink_fold(out, lse, sinks)
 
 
-def launch_name(name, window=0, softcap=0.0):
-    """The launch counter of a launch: ``name``, + "_window" when banded,
-    + "_softcap" when softcapped."""
-    return name + ("_window" if window > 0 else "") + ("_softcap" if softcap else "")
+# (head dim of Q/K, head dim of V) pairs the forward kernel is built for
+FWD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+
+
+def launch_name(name, window=0, softcap=0.0, narrowv=False):
+    """The launch counter of a launch: ``name``, + "_narrowv" when V is
+    narrower than Q/K, + "_window" when banded, + "_softcap" when softcapped."""
+    return (name + ("_narrowv" if narrowv else "") + ("_window" if window > 0 else "")
+            + ("_softcap" if softcap else ""))
 
 
 def _attention_cuda(q, k, v, kv_valid, qstart, scale, name, window=0, softcap=0.0):
     """The forward kernel, sink-free; counted under :func:`launch_name`."""
     B, T, nh, dh = q.shape
-    S, nkv = k.shape[1], k.shape[2]
+    S, nkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     dev = q.device
-    name = launch_name(name, window, softcap)
+    name = launch_name(name, window, softcap, narrowv=dv < dh)
     _cuda.require_cuda_bf16(name, dev, q=q, k=k, v=v)
-    _cuda.require(dh in (64, 128, 256), name,
-                  f"head dim {dh} (the kernel takes 64, 128 and 256)")
+    _cuda.require((dh, dv) in FWD_HEAD_DIMS, name,
+                  f"head dims (q/k {dh}, v {dv}) (the kernel takes {FWD_HEAD_DIMS})")
     _cuda.require(softcap >= 0.0, name, f"softcap {softcap} (0 = off)")
-    _cuda.require(tuple(v.shape) == tuple(k.shape), name,
-                  "v must have k's shape (a narrower V is ROADMAP B5)")
     _cuda.require(k.dim() == 4 and k.shape[0] == B and k.shape[3] == dh
                   and nh % nkv == 0, name,
                   f"shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    _cuda.require(tuple(v.shape) == (B, S, nkv, dv), name,
+                  f"v {tuple(v.shape)} must be k's shape but for its head dim")
     kv_valid = _cuda.int32_on(kv_valid, dev, (B, S))
     qstart = _cuda.int32_on(qstart, dev, (B,))
-    out = torch.empty((B, T, nh, dh), dtype=q.dtype, device=dev)
+    out = torch.empty((B, T, nh, dv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, nh, T), dtype=torch.float32, device=dev)
     err = _cuda.lib().lapha_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
         qstart.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, T, S, nh, nkv, dh, int(window), float(scale), float(softcap), _cuda.stream_of(q))
+        B, T, S, nh, nkv, dh, dv, int(window), float(scale), float(softcap),
+        _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1
     return out, lse
@@ -217,10 +228,11 @@ def _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta):
     S, nkv = k.shape[1], k.shape[2]
     dev = q.device
     _cuda.require_cuda_bf16(name, dev, q=q, k=k, v=v, do=do)
+    _cuda.require(tuple(v.shape) == tuple(k.shape), name,
+                  "v must have k's shape (a narrower V is ROADMAP B5 backward, DeepSeek "
+                  "training)")
     _cuda.require(dh in (64, 128, 256), name, f"head dim {dh} (the kernel takes 64, 128 and "
                   "256; dh 96 is ROADMAP B3-96)")
-    _cuda.require(tuple(v.shape) == tuple(k.shape), name,
-                  "v must have k's shape (a narrower V is ROADMAP B5)")
     _cuda.require(tuple(do.shape) == tuple(q.shape), name, "dout must have q's shape")
     _cuda.require(k.dim() == 4 and k.shape[0] == B and k.shape[3] == dh and nh % nkv == 0,
                   name, f"shapes q {tuple(q.shape)} k {tuple(k.shape)}")
@@ -312,7 +324,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention_lse(q, k, v, mask=None, *, causal=True, scale=None, window=0, sinks=None,
                         softcap=0.0):
-    """Returns (out (B,T,nh,dh), lse (B,nh,T) f32); see :func:`flash_attention`.
+    """Returns (out (B,T,nh,dv), lse (B,nh,T) f32); see :func:`flash_attention`.
     Differentiable in q, k, v and sinks (lse is not); lse includes the sinks."""
     B, T = q.shape[0], q.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
@@ -329,11 +341,12 @@ def flash_attention_lse(q, k, v, mask=None, *, causal=True, scale=None, window=0
 def flash_attention(q, k, v, mask=None, *, causal=True, scale=None, window=0,
                     softcap=0.0, sinks=None):
     """Causal GQA attention, differentiable in q, k, v and sinks. q
-    (B,T,nh,dh); k, v (B,T,nkv,dh); mask (B,T) key validity. ``scale``
+    (B,T,nh,dh); k (B,T,nkv,dh), v (B,T,nkv,dv), dv <= dh; mask (B,T) key
+    validity. ``scale``
     overrides 1/sqrt(dh); ``window`` > 0 bands the mask to the last
     ``window`` positions (by index, as JAX); ``softcap`` > 0 caps the scaled
     logits to ±softcap (Gemma-2); ``sinks`` (nh,) f32 are GPT-OSS
-    attention-sink logits. Returns (B,T,nh,dh) in q.dtype."""
+    attention-sink logits. Returns (B,T,nh,dv) in q.dtype."""
     return flash_attention_lse(q, k, v, mask, causal=causal, scale=scale, window=window,
                                sinks=sinks, softcap=softcap)[0]
 
@@ -341,7 +354,7 @@ def flash_attention(q, k, v, mask=None, *, causal=True, scale=None, window=0,
 def flash_attention_cached(q, k, v, kv_valid, qstart, *, scale=None, window=0,
                            softcap=0.0, sinks=None):
     """Rectangular attention of T new queries (B,T,nh,dh) over the whole
-    cache k, v (B,S,nkv,dh) with cache-column validity kv_valid (B,S) and
+    cache k (B,S,nkv,dh), v (B,S,nkv,dv) with cache-column validity kv_valid (B,S) and
     per-row query offset qstart ((B,) or scalar); ``window`` bands by cache
     slot, ``softcap`` and ``sinks`` as in :func:`flash_attention`. Forward
     only."""

@@ -13,7 +13,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models import qwen2, value_model
+from ..models import value_model
 from ..models.quant import leaf_device
 from ..ops.latent import latent_project, value_head_apply
 
@@ -34,7 +34,7 @@ class ValueFunction:
         self,
         params: Any,
         head: dict,
-        cfg: qwen2.Qwen2Config,
+        cfg,
         *,
         max_model_len: int = 4096,
         pad_multiple: int = 128,

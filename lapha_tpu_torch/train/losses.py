@@ -15,7 +15,8 @@ order (sorted keys), so gradient lists line up with the JAX package's
 leaves. The step updates the leaves in place: the engine and the value
 function hold the same tensors (the JAX package's pointer share).
 
-Not ported: ``seq_mesh`` (sequence-parallel training, multi-device) raises.
+Not ported: ``seq_mesh`` (sequence-parallel training, multi-device) and
+DeepSeek training (``check_trainable``) raise.
 """
 
 from __future__ import annotations
@@ -191,6 +192,14 @@ def check_attn_impl(attn_impl: str | None, device: torch.device) -> None:
     raise ValueError(f"unknown attn_implementation {attn_impl!r}")
 
 
+def check_trainable(model_cfg) -> None:
+    """The update runs on the qwen2 family only: a DeepSeek (MLA) config
+    needs the backward of the narrow-V flash kernel, not ported yet."""
+    if type(model_cfg).__name__ == "DeepseekConfig":
+        raise NotImplementedError("DeepSeek training: not yet ported (ROADMAP B5 backward, "
+                                  "DeepSeek training)")
+
+
 def _head_weight(params: dict, model_cfg) -> torch.Tensor:
     return (params["embed"]["weight"] if model_cfg.tie_word_embeddings
             else params["lm_head"]["weight"])
@@ -226,6 +235,7 @@ def _selective_logps_chunked(params, model_cfg, hidden, targets, temperature,
 
 
 def _hidden(params, model_cfg, batch, remat, attn_impl, seq_mesh):
+    check_trainable(model_cfg)
     if seq_mesh is not None:
         raise NotImplementedError("seq_mesh: sequence-parallel training is multi-device "
                                   "(ROADMAP A11), not ported yet")
@@ -402,6 +412,7 @@ def ref_logps_fn(ref_params, batch, model_cfg: qwen2.Qwen2Config, temperature: f
     """Frozen per-token logps under the GIVEN params: the KL penalty's
     reference term (beta > 0), and the cached old-policy logps for
     multi-epoch PPO (num_iterations > 1)."""
+    check_trainable(model_cfg)
     ids, attn = batch["ids"], batch["attn"]
     _, hidden, _ = qwen2.forward(ref_params, model_cfg, ids, attention_mask=attn,
                                  return_hidden=True, compute_logits=False)

@@ -35,6 +35,10 @@ sinks of the next head (a planted fault) must fail them. Windowed K1/K3 keep
 3e-2, and a window off by one (a planted fault) must fail it. Both at head
 dims 64 and 128.
 
+The forward kernel with V narrower than Q/K (DeepSeek MLA: Q/K 192, V
+128, 16/16 heads) keeps 3e-2 and LSE to 1e-3; V taken from the next head
+(a planted fault) must fail it; a (dh, dv) pair without an instance raises.
+
 The backward kernels (dq; dk/dv, at head dims 64, 128 and 256, banded or
 not, with or without the softcap) are held against the plain backward on
 the same bf16 inputs and the same saved LSE; a window off by one and the
@@ -1021,3 +1025,126 @@ def test_ragged_dh256_softcap_kernels_match_plain(dev, int8, softcap, nh, nkv, W
         bad = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, **kw)
         torch.cuda.synchronize()
         assert err(bad, ref) > 0
+
+
+# ---------------------------------------------------------------- DeepSeek MLA: V narrower than Q/K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,qstart,lens", [
+    (4, 512, 640, 0, (512, 300, 450, 77)),             # engine prefill, ragged prompts
+    (4, 64, 640, 512, (576, 560, 576, 530)),           # prefix-hit suffix, ragged kv_valid
+    (2, 37, 100, (30, 5), None),                       # tile edges, per-row qstart, a hole
+])
+def test_flash_narrow_v_cached_kernel_matches_plain(dev, B, T, S, qstart, lens):
+    """K3 at Q/K 192 and V 128 (DeepSeek-V2-Lite's 16/16 heads and its
+    scale 1/sqrt(192)), counted as flash_attention_cached_narrowv; the V
+    of the next head (a planted fault) fails the check."""
+    rng = np.random.default_rng(900 + T)
+    nh, dh, dv = 16, 192, 128
+    q, k, v = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, S, nh, dh), dev), _bf16(rng, (B, S, nh, dv), dev)
+    ar = torch.arange(S, device=dev)[None, :]
+    if lens is None:
+        kv_valid = (ar < torch.as_tensor(qstart, device=dev).reshape(-1, 1) + T).to(torch.int32)
+        kv_valid[:, 12:20] = 0
+    else:
+        kv_valid = (ar < torch.as_tensor(lens, device=dev)[:, None]).to(torch.int32)
+    before = _cuda.LAUNCHES["flash_attention_cached_narrowv"]
+    out, ref, lse, ref_lse = _flash_pair(q, k, v, kv_valid, qstart, "flash_attention_cached")
+    assert _cuda.LAUNCHES["flash_attention_cached_narrowv"] == before + 1
+    assert out.shape == (B, T, nh, dv) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= ATOL
+    seen = ref_lse > -1e29
+    assert (lse[seen] - ref_lse[seen]).abs().max().item() <= 1e-3
+    bad, _, _, _ = _flash_pair(q, k, v.roll(-1, dims=2).contiguous(), kv_valid, qstart,
+                               "flash_attention_cached")
+    assert (bad - ref).abs().max().item() > ATOL
+
+
+@pytest.mark.cuda
+def test_flash_narrow_v_no_cache_kernel_and_refusals(dev):
+    """K1 at Q/K 192 and V 128 with padded rows (the value forward), counted
+    as flash_attention_narrowv; its backward and a (dh, dv) pair without an
+    instance raise."""
+    rng = np.random.default_rng(901)
+    B, T, nh, dh, dv = 4, 512, 16, 192, 128
+    q, k, v = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dv), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, 400:] = 0
+    mask[3, 130:] = 0
+    before = _cuda.LAUNCHES["flash_attention_narrowv"]
+    out = fa.flash_attention(q, k, v, mask, scale=dh ** -0.5).float()
+    ref = fa.attention_plain(q, k, v, mask, torch.zeros(B, dtype=torch.int32, device=dev),
+                             dh ** -0.5)[0].float()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention_narrowv"] == before + 1
+    assert out.shape == (B, T, nh, dv)
+    assert (out - ref).abs().max().item() <= ATOL
+    with pytest.raises(ValueError, match="B5 backward"):
+        qg = q.clone().requires_grad_(True)
+        torch.autograd.grad(fa.flash_attention(qg, k, v, mask).float().sum(), qg)
+    qs = torch.zeros(B, dtype=torch.int32, device=dev)
+    for dq, dvv in ((192, 64), (128, 64), (256, 128), (192, 192)):
+        with pytest.raises(ValueError, match=f"head dims \\(q/k {dq}, v {dvv}\\)"):
+            fa._attention_cuda(q[..., :dq].contiguous() if dq <= dh else _bf16(rng, (B, T, nh, dq), dev),
+                               _bf16(rng, (B, T, nh, dq), dev), _bf16(rng, (B, T, nh, dvv), dev),
+                               mask, qs, 0.1, "flash_attention")
+
+
+@pytest.mark.cuda
+def test_deepseek_forward_and_decode_on_the_card_match_the_cpu(dev, monkeypatch):
+    """A small DeepSeek model at the served head dims (Q/K 192, V 128,
+    latent 512 + 64), one dense and one MoE layer: prefill, one decode step
+    over the bf16 latent cache and one over its int8 quantization on the
+    card (kernels, bf16; the absorbed decode's products with f32 output)
+    against the CPU (plain versions, f32, the card's routing replayed so
+    that bf16 routing flips do not count); the narrow-V K3 and K8 launch,
+    no decode kernel does."""
+    from lapha_tpu_torch.engine.engine import Engine
+    from lapha_tpu_torch.models import deepseek
+    from lapha_tpu_torch.ops import moe
+    from lapha_tpu_torch.train.losses import tree_map
+
+    cfg = deepseek.DeepseekConfig(vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                                  num_hidden_layers=2, num_attention_heads=4, n_routed_experts=8,
+                                  num_experts_per_tok=2, moe_intermediate_size=256,
+                                  n_shared_experts=1, dtype=torch.bfloat16)
+    params = deepseek.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    cpu = tree_map(lambda t: t.to("cpu", torch.float32), params)
+    cfg_cpu = deepseek.DeepseekConfig(**{**cfg.__dict__, "dtype": torch.float32})
+    rng = np.random.default_rng(2)
+    B, T, S = 3, 40, 64
+    ids = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, T)))
+    nxt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B,)))
+    lens = torch.full((B,), T, dtype=torch.int32)
+
+    def run(p, c, device):
+        with torch.inference_mode():
+            cache = deepseek.init_kv_cache(c, B, S, device)
+            logits, _, cache = deepseek.forward(p, c, ids.to(device), kv_cache=cache, cache_pos=0)
+            ck, cv = (x.permute(0, 1, 3, 2, 4).contiguous() for x in cache)
+            steps = [logits.float().cpu()]
+            for k, v, scl in ((ck.clone(), cv, None), Engine._quantize_cache(ck, cv)):
+                steps.append(deepseek.decode_step(p, c, nxt.to(device), lens.to(device), k, v, T,
+                                                  lens.to(device), lens.to(device),
+                                                  cache_scale=scl)[0].float().cpu())
+        return steps
+
+    route, seen = moe.route_deepseek, []
+
+    def recording(x, *a, **kw):
+        topw, topi = route(x, *a, **kw)
+        seen.append((topw.float().cpu(), topi.cpu()))
+        return topw, topi
+
+    monkeypatch.setattr(moe, "route_deepseek", recording)
+    before = dict(_cuda.LAUNCHES)
+    got = run(params, cfg, dev)
+    torch.cuda.synchronize()
+    for name, count in _cuda.LAUNCHES.items():
+        ran = name in ("flash_attention_cached_narrowv", "grouped_gemm")
+        assert (count > before[name]) == ran, name
+    replay = iter(seen)
+    monkeypatch.setattr(moe, "route_deepseek", lambda *a, **kw: next(replay))
+    for a, b in zip(got, run(cpu, cfg_cpu, torch.device("cpu"))):
+        assert float((a - b).norm() / b.norm()) <= 5e-2

@@ -217,8 +217,6 @@ def test_unported_moe_paths_raise(tiny):
         moe.moe_block(x, tm, top_k=2, norm_topk=False, impl="dispatch")
     with pytest.raises(NotImplementedError, match="not yet ported.*A11"):
         moe.dispatch_drop_fraction(x, tm, top_k=2, norm_topk=False)
-    with pytest.raises(NotImplementedError, match="not yet ported.*DeepSeek"):
-        moe.route_deepseek(x, tm["router"]["w"], None, top_k=2)
     with pytest.raises(ValueError, match="unknown moe impl"):
         moe.moe_block(x, tm, top_k=2, norm_topk=False, impl="sparse")
     with pytest.raises(ValueError, match="dense qwen-family tree only"):
