@@ -8,12 +8,15 @@ working tree's) is compiled by its own ``nvcc``, all started together, with
 the package's flags into a library of its own under ``_build/bench_k2/``;
 ``common.cuh`` is taken from the source's directory if it has one, else from
 the package. A source whose C entries take no ``softcap`` (those written
-before the cap) is called without it and skips the capped shapes.
+before the cap) is called without it and skips the capped shapes; one whose
+entries take no ``dv_w`` (those written before V narrower than Q/K) is called
+without it and skips the narrow-V shape.
 
 The shapes are those of ``chip_smoke.py``'s K2 checks: phase 1b (B=4 T=1024,
 12/2 heads of dim 128, ragged masks and a hole), phase 1h (64/8 heads of dim
-64, W=128 and full) and phase 1i's Gemma rows (dh 256: 8/4 heads with the cap
-of 50 and W=4096, 4/1 heads at W=512). Every build's dq, dk and dv are held
+64, W=128 and full), phase 1i's Gemma rows (dh 256: 8/4 heads with the cap
+of 50 and W=4096, 4/1 heads at W=512) and phase 1k's DeepSeek row (16/16
+heads, Q/K 192, V 128, scale 1/sqrt(192)). Every build's dq, dk and dv are held
 to the plain backward at the smoke script's limits first. Then each kernel is
 timed with CUDA events (20 launches a reading) in rounds that visit the
 builds in order and back (A B C C B A), three rounds, and the mean of each
@@ -40,12 +43,14 @@ from lapha_tpu_torch.ops import flash_attention as fa
 
 BWD_RTOL, BWD_ATOL = 1e-2, 1e-3  # chip_smoke.py's K2 limits
 ROUNDS, REPS = 3, 20
-# (label, B, T, heads, KV heads, head dim, window, softcap, q scaled by)
-SHAPES = (("1b dh128 12/2", 4, 1024, 12, 2, 128, 0, 0.0, 1.0),
-          ("1h dh64 64/8 W=128", 4, 1024, 64, 8, 64, 128, 0.0, 1.0),
-          ("1h dh64 64/8 W=0", 4, 1024, 64, 8, 64, 0, 0.0, 1.0),
-          ("1i dh256 8/4 cap50 W=4096", 4, 1024, 8, 4, 256, 4096, 50.0, 25.0),
-          ("1i dh256 4/1 W=512", 4, 1024, 4, 1, 256, 512, 0.0, 1.0))
+# (label, B, T, heads, KV heads, head dim of Q/K, of V, window, softcap, q
+# scaled by)
+SHAPES = (("1b dh128 12/2", 4, 1024, 12, 2, 128, 128, 0, 0.0, 1.0),
+          ("1h dh64 64/8 W=128", 4, 1024, 64, 8, 64, 64, 128, 0.0, 1.0),
+          ("1h dh64 64/8 W=0", 4, 1024, 64, 8, 64, 64, 0, 0.0, 1.0),
+          ("1i dh256 8/4 cap50 W=4096", 4, 1024, 8, 4, 256, 256, 4096, 50.0, 25.0),
+          ("1i dh256 4/1 W=512", 4, 1024, 4, 1, 256, 256, 512, 0.0, 1.0),
+          ("1k dh192 v128 16/16", 4, 1024, 16, 16, 192, 128, 0, 0.0, 1.0))
 
 
 def compile_sources(srcs: list[str], subdir: str) -> list[tuple[str, str, str]]:
@@ -80,26 +85,30 @@ def compile_sources(srcs: list[str], subdir: str) -> list[tuple[str, str, str]]:
     return out
 
 
-def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, bool, str]]:
-    """(library, takes a softcap, ptxas report) of each source."""
+def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, bool, bool, str]]:
+    """(library, takes a softcap, takes V's head dim, ptxas report) of each
+    source."""
     libs = []
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for text, so, report in compile_sources(srcs, "bench_k2"):
         cap = re.search(r"lapha_flash_bwd_dq\([^)]*float softcap", text) is not None
+        narrow = re.search(r"lapha_flash_bwd_dq\([^)]*int dv_w", text) is not None
         dll = ctypes.CDLL(so)
+        ints = [I] * (8 if narrow else 7)  # B T S nh nkv dh (dv_w) window
         tail = [F, F, P] if cap else [F, P]  # scale(, softcap), stream
-        dll.lapha_flash_bwd_dq.argtypes = [P] * 9 + [I] * 7 + tail
-        dll.lapha_flash_bwd_dkv.argtypes = [P] * 10 + [I] * 7 + tail
+        dll.lapha_flash_bwd_dq.argtypes = [P] * 9 + ints + tail
+        dll.lapha_flash_bwd_dkv.argtypes = [P] * 10 + ints + tail
         dll.lapha_flash_bwd_dq.restype = dll.lapha_flash_bwd_dkv.restype = I
-        libs.append((dll, cap, report))
+        libs.append((dll, cap, narrow, report))
     return libs
 
 
-def _calls(dll, cap: bool, args):
+def _calls(dll, cap: bool, narrow: bool, args):
     """The dq and the dk/dv call of one build on the kernels' arguments."""
     q, k, v, mask, qs, lse, do, delta, scale, window, softcap = args
     B, T, nh, dh = q.shape
     S, nkv = k.shape[1], k.shape[2]
+    dims = (dh, v.shape[-1]) if narrow else (dh,)
     delta_t = delta.transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream().cuda_stream
@@ -108,14 +117,15 @@ def _calls(dll, cap: bool, args):
               delta_t.data_ptr(), mask.data_ptr(), qs.data_ptr())
 
     def run_dq():
-        err = dll.lapha_flash_bwd_dq(*common, dq.data_ptr(), B, T, S, nh, nkv, dh, window, *tail)
+        err = dll.lapha_flash_bwd_dq(*common, dq.data_ptr(), B, T, S, nh, nkv, *dims, window,
+                                     *tail)
         if err:
             raise RuntimeError(f"dq launch failed: {err}")
         return dq
 
     def run_dkv():
         err = dll.lapha_flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), B, T, S, nh, nkv,
-                                      dh, window, *tail)
+                                      *dims, window, *tail)
         if err:
             raise RuntimeError(f"dk/dv launch failed: {err}")
         return dk, dv
@@ -135,14 +145,14 @@ def _time_ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def _inputs(dev, B, T, nh, nkv, dh, window, cap, q_sd, rng):
+def _inputs(dev, B, T, nh, nkv, dh, dv, window, cap, q_sd, rng):
     def bf16(*shape, sd=1.0):
         return torch.from_numpy((rng.normal(size=shape) * sd).astype(np.float32)).to(
             dev, torch.bfloat16)
 
     scale = 1.0 / 16 if dh == 256 else dh ** -0.5
-    q, do = bf16(B, T, nh, dh, sd=q_sd), bf16(B, T, nh, dh)
-    k, v = bf16(B, T, nkv, dh), bf16(B, T, nkv, dh)
+    q, do = bf16(B, T, nh, dh, sd=q_sd), bf16(B, T, nh, dv)
+    k, v = bf16(B, T, nkv, dh), bf16(B, T, nkv, dv)
     lens = (T, (700 * T) // 1024, (1000 * T) // 1024, (333 * T) // 1024)[:B]
     mask = (torch.arange(T, device=dev)[None, :]
             < torch.as_tensor(lens, device=dev)[:, None]).to(torch.int32)
@@ -166,18 +176,19 @@ def main(argv=None) -> int:
     libs = _build(args.sources)
     # a build is named by its source's directory in the timing lines
     names = [os.path.basename(os.path.dirname(os.path.abspath(s))) for s in args.sources]
-    for name, src, (_, cap, report) in zip(names, args.sources, libs):
-        print(f"== {name}: {src} (softcap argument: {cap})\n{report}", flush=True)
+    for name, src, (_, cap, narrow, report) in zip(names, args.sources, libs):
+        print(f"== {name}: {src} (softcap argument: {cap}, V head dim argument: {narrow})\n"
+              f"{report}", flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    for label, B, T, nh, nkv, dh, window, cap, q_sd in SHAPES:
-        kargs = _inputs(dev, B, T, nh, nkv, dh, window, cap, q_sd, rng)
+    for label, B, T, nh, nkv, dh, dv, window, cap, q_sd in SHAPES:
+        kargs = _inputs(dev, B, T, nh, nkv, dh, dv, window, cap, q_sd, rng)
         ref = fa.attention_bwd_plain(*kargs)
         builds = []
-        for build, (dll, has_cap, _) in zip(names, libs):
-            if cap and not has_cap:
+        for build, (dll, has_cap, narrow, _) in zip(names, libs):
+            if (cap and not has_cap) or (dv < dh and not narrow):
                 continue
-            run_dq, run_dkv = _calls(dll, has_cap, kargs)
+            run_dq, run_dkv = _calls(dll, has_cap, narrow, kargs)
             try:
                 got = (run_dq(), *run_dkv())
             except RuntimeError as e:  # a source written before this head dim

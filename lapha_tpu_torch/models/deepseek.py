@@ -32,10 +32,19 @@ cache_width) in the prefill layout, with a second plane of the same shape
 that nothing reads or writes, so that the Engine's layout code stays
 model-agnostic (``init_kv_cache``).
 
+Training: the no-cache ``forward`` is differentiable in every leaf of both
+groups (the per-layer views of ``_layers`` unbind each stacked leaf, so the
+backward stacks its L gradients once): the narrow-V flash kernel's backward
+(K2 at Q/K 192, V 128) on the card, the grouped GEMM's backward (dX, tgmm)
+under the routed experts, autograd through the router's scores. ``remat``
+recomputes each layer body in the backward (``torch.utils.checkpoint``)
+whenever it is truthy, as the JAX model checkpoints its layer scan on any
+truthy value: a named policy ("save_qkv", ...) means the full recompute
+here too.
+
 Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
 item): ``decode_step_multi`` (A8, speculative decoding), ``export_hf`` (A7,
-``save_model``), ``moe_impl="dispatch"`` (A11) and training (the backward of
-the narrow-V flash kernel, B5 backward).
+``save_model``) and ``moe_impl="dispatch"`` (A11).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention, flash_attention_cached
 from . import qwen2
@@ -254,7 +264,11 @@ def _split_kv_b(cfg: DeepseekConfig, p: dict, dtype):
 def _expand_kv(cfg: DeepseekConfig, p: dict, c: torch.Tensor, k_pe: torch.Tensor):
     """Per-head K (B, S, nh, dn + rope) and V (B, S, nh, dv) in c's dtype
     from latents c (B, S, r) and shared roped keys k_pe (B, S, rope): one
-    product with kv_b (f32 output), then split."""
+    product with kv_b (f32 output), then split. Each half is rounded to c's
+    dtype right after the product, as JAX's einsums are, so the cotangent
+    that reaches the product is already in that dtype and ``_MmF32``'s
+    rounding of it to the operands' dtype changes nothing: its backward is
+    the JAX einsum's transpose."""
     B, S, r = c.shape
     nh, dn = cfg.num_attention_heads, cfg.qk_nope_head_dim
     kv = _mm_f32(c.reshape(B * S, r), dequant(p["kv_b"]["w"], c.dtype))
@@ -359,6 +373,7 @@ def forward(
     kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     cache_pos: int | torch.Tensor = 0,
     kv_valid: torch.Tensor | None = None,
+    remat=False,
     return_hidden: bool = False,
     compute_logits: bool = True,
     return_latent: bool = False,
@@ -366,7 +381,9 @@ def forward(
     """Full forward pass, qwen2.forward's two modes and contract:
 
     * ``kv_cache=None``: causal attention over input_ids (B, T) with the
-      optional padding ``attention_mask`` (B, T);
+      optional padding ``attention_mask`` (B, T); a truthy ``remat``
+      recomputes each layer in the backward when gradients are being
+      recorded (JAX's rule: any truthy value, named policies included);
     * ``kv_cache=(ck, cv)`` of shape (L, B, S, 1, cache_width): the T
       tokens' latents are written into ck at ``cache_pos`` (in place) and
       attend where ``kv_valid`` (B, S) holds, causally by slot; ``cv`` is
@@ -388,8 +405,13 @@ def forward(
     if kv_cache is None:
         key_mask = (attention_mask if attention_mask is not None
                     else torch.ones((B, T), dtype=torch.int32, device=dev))
+        recompute = bool(remat) and torch.is_grad_enabled()
         for p in _layers(params):
-            x, lat = _layer_body(cfg, p, x, cos, sin, key_mask)
+            if recompute:
+                x, lat = checkpoint(_layer_body, cfg, p, x, cos, sin, key_mask,
+                                    use_reentrant=False)
+            else:
+                x, lat = _layer_body(cfg, p, x, cos, sin, key_mask)
             if return_latent:
                 lats.append(lat)
     else:

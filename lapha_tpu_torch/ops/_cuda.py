@@ -39,7 +39,9 @@ LAUNCHES = {name + cap: 0
                          "ragged_decode_attention_q8", "ragged_decode_attention_sink",
                          "ragged_decode_attention_q8_sink", "flash_attention_bwd_dq",
                          "flash_attention_bwd_dkv", "flash_attention_bwd_dq_window",
-                         "flash_attention_bwd_dkv_window")
+                         "flash_attention_bwd_dkv_window", "flash_attention_bwd_dq_narrowv",
+                         "flash_attention_bwd_dkv_narrowv", "flash_attention_bwd_dq_narrowv_window",
+                         "flash_attention_bwd_dkv_narrowv_window")
             for cap in ("", "_softcap")}
 LAUNCHES.update({name: 0 for name in (
     "int4_matmul", "grouped_gemm", "grouped_gemm_dx", "grouped_gemm_tgmm")})
@@ -135,11 +137,11 @@ def lib() -> ctypes.CDLL:
             entry.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
             entry.restype = _I
         bwd = [_P, _P, _P, _P, _P, _P, _P, _P]  # q k v dout lse delta kv_valid qstart
-        # ... then the outputs, B T S nh nkv dh window, scale, softcap, stream
-        dll.lapha_flash_bwd_dq.argtypes = bwd + [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+        # ... then the outputs, B T S nh nkv dh dv window, scale, softcap, stream
+        dll.lapha_flash_bwd_dq.argtypes = bwd + [_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_flash_bwd_dq.restype = _I
-        dll.lapha_flash_bwd_dkv.argtypes = bwd + [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                                                  _P]
+        dll.lapha_flash_bwd_dkv.argtypes = bwd + [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                                  _F, _P]
         dll.lapha_flash_bwd_dkv.restype = _I
         dll.lapha_error_string.argtypes = [_I]
         dll.lapha_error_string.restype = ctypes.c_char_p

@@ -42,15 +42,16 @@ lse_t = logaddexp(lse, sink), out_t = out · exp(lse - lse_t). The backward
 reruns the backward pair with (out_t, lse_t) and adds
 dsink = -Σ exp(sink - lse_t)·D (JAX ``_sink_bwd``).
 
-On the card the backward pair takes head dims 64, 128 and 256, the window
-band and the softcap, in any combination; a launch is counted under
-:func:`launch_name` (``flash_attention_bwd_dq_window``,
+On the card the backward pair takes the head-dim pairs of the forward
+(``BWD_HEAD_DIMS``: DeepSeek's V of 128 beside Q/K of 192 too, dP = dO·Vᵀ
+contracting over V's width), the window band and the softcap, in any
+combination; a launch is counted under :func:`launch_name`
+(``flash_attention_bwd_dq_window``, ``flash_attention_bwd_dkv_narrowv``,
 ``flash_attention_bwd_dkv_window_softcap``, ...). Both the kernels and the
 plain backward on the CPU apply the softcap's chain rule, dc/ds = 1 -
-(c/cap)² (the Pallas ``_dq_kernel`` and ``_dkv_kernel``). Not ported yet: the
-backward of a V narrower than Q/K on the card (ROADMAP B5 backward, DeepSeek
-training), which raises, as does a head dim outside {64, 128, 256} (dh 96 is
-ROADMAP B3-96) in either direction.
+(c/cap)² (the Pallas ``_dq_kernel`` and ``_dkv_kernel``). Not ported yet: head
+dim 96 (ROADMAP B3-96) in either direction, which raises, as does any other
+pair without an instance.
 """
 
 from __future__ import annotations
@@ -104,8 +105,10 @@ def attention_plain(q, k, v, kv_valid, qstart, scale, window=0, sinks=None, soft
     return (out, lse) if sinks is None else _sink_fold(out, lse, sinks)
 
 
-# (head dim of Q/K, head dim of V) pairs the forward kernel is built for
+# (head dim of Q/K, head dim of V) pairs the forward and the backward kernels
+# are built for
 FWD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+BWD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 
 
 def launch_name(name, window=0, softcap=0.0, narrowv=False):
@@ -225,17 +228,17 @@ def _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta):
     """Checks and converts the kernels' arguments; (kv_valid, qstart, lse,
     delta (B,nh,T)) as the kernels take them."""
     B, T, nh, dh = q.shape
-    S, nkv = k.shape[1], k.shape[2]
+    S, nkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     dev = q.device
     _cuda.require_cuda_bf16(name, dev, q=q, k=k, v=v, do=do)
-    _cuda.require(tuple(v.shape) == tuple(k.shape), name,
-                  "v must have k's shape (a narrower V is ROADMAP B5 backward, DeepSeek "
-                  "training)")
-    _cuda.require(dh in (64, 128, 256), name, f"head dim {dh} (the kernel takes 64, 128 and "
-                  "256; dh 96 is ROADMAP B3-96)")
-    _cuda.require(tuple(do.shape) == tuple(q.shape), name, "dout must have q's shape")
+    _cuda.require((dh, dv) in BWD_HEAD_DIMS, name,
+                  f"head dims (q/k {dh}, v {dv}) (the kernels take {BWD_HEAD_DIMS}; dh 96 is "
+                  "ROADMAP B3-96)")
     _cuda.require(k.dim() == 4 and k.shape[0] == B and k.shape[3] == dh and nh % nkv == 0,
                   name, f"shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    _cuda.require(tuple(v.shape) == (B, S, nkv, dv), name,
+                  f"v {tuple(v.shape)} must be k's shape but for its head dim")
+    _cuda.require(tuple(do.shape) == (B, T, nh, dv), name, "dout must be (B, T, nh, dv)")
     for key, t, shape in (("lse", lse, (B, nh, T)), ("delta", delta, (B, T, nh))):
         _cuda.require(t.device == dev and t.dtype == torch.float32
                       and tuple(t.shape) == shape, name,
@@ -247,15 +250,16 @@ def _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta):
 def attention_bwd_dq_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0,
                           softcap=0.0):
     """The dq kernel (csrc/flash_attention_bwd.cu); arguments as the plain version's."""
-    name = launch_name("flash_attention_bwd_dq", window, softcap)
     B, T, nh, dh = q.shape
-    S, nkv = k.shape[1], k.shape[2]
+    S, nkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    name = launch_name("flash_attention_bwd_dq", window, softcap, narrowv=dv < dh)
     kv_valid, qstart, lse, delta_t = _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta)
     dq = torch.empty_like(q)
     err = _cuda.lib().lapha_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta_t.data_ptr(), kv_valid.data_ptr(), qstart.data_ptr(), dq.data_ptr(),
-        B, T, S, nh, nkv, dh, int(window), float(scale), float(softcap), _cuda.stream_of(q))
+        B, T, S, nh, nkv, dh, dv, int(window), float(scale), float(softcap),
+        _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1
     return dq
@@ -264,15 +268,15 @@ def attention_bwd_dq_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, wind
 def attention_bwd_dkv_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0,
                            softcap=0.0):
     """The dk/dv kernel (csrc/flash_attention_bwd.cu); arguments as the plain version's."""
-    name = launch_name("flash_attention_bwd_dkv", window, softcap)
     B, T, nh, dh = q.shape
-    S, nkv = k.shape[1], k.shape[2]
+    S, nkv, dv_w = k.shape[1], k.shape[2], v.shape[-1]
+    name = launch_name("flash_attention_bwd_dkv", window, softcap, narrowv=dv_w < dh)
     kv_valid, qstart, lse, delta_t = _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _cuda.lib().lapha_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta_t.data_ptr(), kv_valid.data_ptr(), qstart.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, T, S, nh, nkv, dh, int(window), float(scale), float(softcap),
+        dv.data_ptr(), B, T, S, nh, nkv, dh, dv_w, int(window), float(scale), float(softcap),
         _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1

@@ -2,9 +2,10 @@
 
 Port of ``lapha_tpu/train/losses.py``. The packing and advantages are the
 same host numpy code. The loss is the same function of the same packed
-batch: the LM forward (``qwen2.forward``, flash kernels forward and
-backward on the card), per-token log-probabilities from the hidden states
-in sequence chunks (never the whole (B, L, V) logits), the GRPO family's
+batch: the LM forward (``models.model_module(cfg).forward``: the qwen2
+family or DeepSeek MLA, flash kernels forward and backward on the card),
+per-token log-probabilities from the hidden states in sequence chunks
+(never the whole (B, L, V) logits), the GRPO family's
 clipped policy loss with an optional KL term, and the value head's MSE on
 the pooled hidden state. ``make_update_fn`` returns the step the JAX
 package jits: loss, gradients of (params, head), optional extra gradients,
@@ -15,8 +16,7 @@ order (sorted keys), so gradient lists line up with the JAX package's
 leaves. The step updates the leaves in place: the engine and the value
 function hold the same tensors (the JAX package's pointer share).
 
-Not ported: ``seq_mesh`` (sequence-parallel training, multi-device) and
-DeepSeek training (``check_trainable``) raise.
+Not ported: ``seq_mesh`` (sequence-parallel training, multi-device) raises.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models import qwen2
+from ..models import model_module, qwen2
 from ..ops.latent import masked_mean, pool_mask, value_head_apply
 from . import optim
 
@@ -192,14 +192,6 @@ def check_attn_impl(attn_impl: str | None, device: torch.device) -> None:
     raise ValueError(f"unknown attn_implementation {attn_impl!r}")
 
 
-def check_trainable(model_cfg) -> None:
-    """The update runs on the qwen2 family only: a DeepSeek (MLA) config
-    needs the backward of the narrow-V flash kernel, not ported yet."""
-    if type(model_cfg).__name__ == "DeepseekConfig":
-        raise NotImplementedError("DeepSeek training: not yet ported (ROADMAP B5 backward, "
-                                  "DeepSeek training)")
-
-
 def _head_weight(params: dict, model_cfg) -> torch.Tensor:
     return (params["embed"]["weight"] if model_cfg.tie_word_embeddings
             else params["lm_head"]["weight"])
@@ -235,13 +227,13 @@ def _selective_logps_chunked(params, model_cfg, hidden, targets, temperature,
 
 
 def _hidden(params, model_cfg, batch, remat, attn_impl, seq_mesh):
-    check_trainable(model_cfg)
     if seq_mesh is not None:
         raise NotImplementedError("seq_mesh: sequence-parallel training is multi-device "
                                   "(ROADMAP A11), not ported yet")
     check_attn_impl(attn_impl, batch["ids"].device)
-    _, hidden, _ = qwen2.forward(params, model_cfg, batch["ids"], attention_mask=batch["attn"],
-                                 remat=remat, return_hidden=True, compute_logits=False)
+    _, hidden, _ = model_module(model_cfg).forward(
+        params, model_cfg, batch["ids"], attention_mask=batch["attn"], remat=remat,
+        return_hidden=True, compute_logits=False)
     return hidden
 
 
@@ -412,10 +404,10 @@ def ref_logps_fn(ref_params, batch, model_cfg: qwen2.Qwen2Config, temperature: f
     """Frozen per-token logps under the GIVEN params: the KL penalty's
     reference term (beta > 0), and the cached old-policy logps for
     multi-epoch PPO (num_iterations > 1)."""
-    check_trainable(model_cfg)
     ids, attn = batch["ids"], batch["attn"]
-    _, hidden, _ = qwen2.forward(ref_params, model_cfg, ids, attention_mask=attn,
-                                 return_hidden=True, compute_logits=False)
+    _, hidden, _ = model_module(model_cfg).forward(ref_params, model_cfg, ids,
+                                                   attention_mask=attn, return_hidden=True,
+                                                   compute_logits=False)
     logps = _selective_logps_chunked(ref_params, model_cfg, hidden[:, :-1, :],
                                      ids[:, 1:], temperature)
     return logps * batch["comp_mask"].float()[:, 1:]

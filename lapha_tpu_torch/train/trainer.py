@@ -114,7 +114,6 @@ class MTPOTrainer:
                     tokenizer.pad_token = tokenizer.eos_token
         else:
             self.params, self.model_cfg = model
-        losses.check_trainable(self.model_cfg)
         quant_leaves = _quantized_paths(self.params)
         if quant_leaves:
             # the JAX trainer's refusal: quantized weights are for serving

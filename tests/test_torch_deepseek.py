@@ -46,7 +46,6 @@ from lapha_tpu_torch.models import loader, model_module, qwen2, value_model
 from lapha_tpu_torch.ops import flash_attention as tfa
 from lapha_tpu_torch.ops import moe
 from lapha_tpu_torch.search import ValueFunction
-from lapha_tpu_torch.train import losses
 
 ATOL = 1e-4
 OP_ATOL = 1e-5
@@ -510,8 +509,8 @@ def test_value_model_and_function_match_jax(loaded):
 # ---------------------------------------------------------------- refusals
 
 def test_unported_parts_raise_naming_their_items(v2):
-    """decode_step_multi (A8), export_hf (A7), the dispatch impl (A11),
-    DeepSeek training (B5 backward) and a windowed-short cache raise."""
+    """decode_step_multi (A8), export_hf (A7), the dispatch impl (A11) and
+    a windowed-short cache raise."""
     _, _, tcfg, tp = v2
     with pytest.raises(NotImplementedError, match="A8"):
         td.decode_step_multi(tp, tcfg)
@@ -520,16 +519,6 @@ def test_unported_parts_raise_naming_their_items(v2):
     ids = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="A11"):
         td.forward(tp, dataclasses.replace(tcfg, moe_impl="dispatch"), ids)
-    with pytest.raises(NotImplementedError, match="B5 backward, DeepSeek training"):
-        losses.check_trainable(tcfg)
-    batch = {"ids": ids, "attn": torch.ones_like(ids), "comp_mask": torch.ones_like(ids)}
-    with pytest.raises(NotImplementedError, match="B5 backward"):
-        losses.ref_logps_fn(tp, batch, tcfg, 1.0)
-    from lapha_tpu_torch.train.config import MTPOConfig
-    from lapha_tpu_torch.train.trainer import MTPOTrainer
-
-    with pytest.raises(NotImplementedError, match="B5 backward"):
-        MTPOTrainer((tp, tcfg), [], MTPOConfig(), [], [])
     ck, cv = (c.permute(0, 1, 3, 2, 4) for c in td.init_kv_cache(tcfg, 1, 8))
     one = torch.ones(1, dtype=torch.int64)
     with pytest.raises(ValueError, match="sliding-window"):

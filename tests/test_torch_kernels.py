@@ -39,8 +39,9 @@ The forward kernel with V narrower than Q/K (DeepSeek MLA: Q/K 192, V
 128, 16/16 heads) keeps 3e-2 and LSE to 1e-3; V taken from the next head
 (a planted fault) must fail it; a (dh, dv) pair without an instance raises.
 
-The backward kernels (dq; dk/dv, at head dims 64, 128 and 256, banded or
-not, with or without the softcap) are held against the plain backward on
+The backward kernels (dq; dk/dv, at head dims 64, 128 and 256 and at Q/K
+192 with V 128, banded or not, with or without the softcap) are held
+against the plain backward on
 the same bf16 inputs and the same saved LSE; a window off by one and the
 softcap dropped from the kernel call (planted faults) must fail that check.
 They round P and dS to bf16 before each product and write bf16, each at most
@@ -806,10 +807,11 @@ def test_flash_dh64_no_cache_window_and_sinks(dev, window):
 def test_windowed_and_dh64_backward_raise_on_the_card(dev):
     """The windowed, dh-64, dh-256 and softcapped backward run the K2
     kernels on the card, through the autograd Function (with sinks where
-    the model has them), against the plain backward at K2's limit; a V
-    narrower than Q/K (ROADMAP B5) and a head dim the kernels do not take
-    (dh 96, B3-96) still raise, naming their ROADMAP items; the sink
-    backward at dh 128 without a window runs the K2 kernels."""
+    the model has them), against the plain backward at K2's limit; a
+    (Q/K, V) head-dim pair without an instance (256, 128) and a head dim the
+    kernels do not take (dh 96, B3-96) still raise, naming the pair and the
+    ROADMAP item; the sink backward at dh 128 without a window runs the K2
+    kernels."""
     rng = np.random.default_rng(11)
     for dh, window, cap, sink in ((128, 16, 0.0, True), (64, 0, 0.0, True), (64, 24, 0.0, True),
                                   (256, 0, 0.0, False), (256, 16, 50.0, False),
@@ -847,8 +849,8 @@ def test_windowed_and_dh64_backward_raise_on_the_card(dev):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["flash_attention_bwd_dq"] == before + 1
     assert torch.isfinite(gq.float()).all() and torch.isfinite(gs).all() and gs.abs().max() > 0
-    # what K2 does not take raises, naming the ROADMAP item
-    for dh, dv_w, item in ((256, 128, "B5"), (96, 96, "B3-96")):
+    # what K2 does not take raises, naming the pair or the ROADMAP item
+    for dh, dv_w, item in ((256, 128, r"head dims \(q/k 256, v 128\)"), (96, 96, "B3-96")):
         q, do = _bf16(rng, (1, 32, 4, dh), dev), _bf16(rng, (1, 32, 4, dv_w), dev)
         k, v = _bf16(rng, (1, 32, 2, dh), dev), _bf16(rng, (1, 32, 2, dv_w), dev)
         mask = torch.ones((1, 32), dtype=torch.int32, device=dev)
@@ -1064,8 +1066,10 @@ def test_flash_narrow_v_cached_kernel_matches_plain(dev, B, T, S, qstart, lens):
 @pytest.mark.cuda
 def test_flash_narrow_v_no_cache_kernel_and_refusals(dev):
     """K1 at Q/K 192 and V 128 with padded rows (the value forward), counted
-    as flash_attention_narrowv; its backward and a (dh, dv) pair without an
-    instance raise."""
+    as flash_attention_narrowv; its backward through the autograd Function
+    runs K2 at (192, 128), counted as flash_attention_bwd_{dq,dkv}_narrowv,
+    within K2's limit of the plain backward on the CPU; a (dh, dv) pair
+    without an instance raises in either direction."""
     rng = np.random.default_rng(901)
     B, T, nh, dh, dv = 4, 512, 16, 192, 128
     q, k, v = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dv), dev)
@@ -1080,10 +1084,28 @@ def test_flash_narrow_v_no_cache_kernel_and_refusals(dev):
     assert _cuda.LAUNCHES["flash_attention_narrowv"] == before + 1
     assert out.shape == (B, T, nh, dv)
     assert (out - ref).abs().max().item() <= ATOL
-    with pytest.raises(ValueError, match="B5 backward"):
-        qg = q.clone().requires_grad_(True)
-        torch.autograd.grad(fa.flash_attention(qg, k, v, mask).float().sum(), qg)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    do = _bf16(rng, (B, T, nh, dv), dev)
+    names = [fa.launch_name(n, narrowv=True)
+             for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")]
+    before = [_cuda.LAUNCHES[n] for n in names]
+    got = torch.autograd.grad(fa.flash_attention(*leaves, mask, scale=dh ** -0.5), leaves, do)
+    cpu = [t.detach().float().cpu().requires_grad_(True) for t in leaves]
+    ref = torch.autograd.grad(fa.flash_attention(*cpu, mask.cpu(), scale=dh ** -0.5), cpu,
+                              do.float().cpu())
+    torch.cuda.synchronize()
+    assert [_cuda.LAUNCHES[n] for n in names] == [b + 1 for b in before]
+    assert [tuple(g.shape) for g in got] == [(B, T, nh, dh), (B, T, nh, dh), (B, T, nh, dv)]
+    _assert_bwd_close([g.cpu() for g in got], ref)
     qs = torch.zeros(B, dtype=torch.int32, device=dev)
+    lse = torch.zeros((B, nh, T), device=dev)
+    delta = torch.zeros((B, T, nh), device=dev)
+    for dq, dvv in ((192, 64), (256, 128)):
+        qq, kk = _bf16(rng, (B, T, nh, dq), dev), _bf16(rng, (B, T, nh, dq), dev)
+        vv, dd = _bf16(rng, (B, T, nh, dvv), dev), _bf16(rng, (B, T, nh, dvv), dev)
+        for fn in (fa.attention_bwd_dq_cuda, fa.attention_bwd_dkv_cuda):
+            with pytest.raises(ValueError, match=f"head dims \\(q/k {dq}, v {dvv}\\)"):
+                fn(qq, kk, vv, mask, qs, lse, dd, delta, 0.1)
     for dq, dvv in ((192, 64), (128, 64), (256, 128), (192, 192)):
         with pytest.raises(ValueError, match=f"head dims \\(q/k {dq}, v {dvv}\\)"):
             fa._attention_cuda(q[..., :dq].contiguous() if dq <= dh else _bf16(rng, (B, T, nh, dq), dev),
