@@ -89,6 +89,17 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    beside the fastest SDPA backend whose backward takes V of 128 natively
    (cuDNN or memory-efficient, held to the same limits), else the compiled
    flex_attention's backward.
+1l. The instances Phi-3 and StarCoder2 run, at phase 1/1b/1c's limits,
+   timed in turns beside the plain version and one library call (SDPA, its
+   backward for K2; none for K5): K3 (B=4 T=512 S=640) and K1 (B=4 T=512)
+   at Phi-3-mini's 32/32 heads of dim 96, full and at its window of 2047,
+   and K3 banded where the band bites (T=512 at qstart 2048); K2 at B=4
+   T=1024 32/32 dh 96, ragged masks, W=2047; K4/K5 at B=24 S=640, the
+   window's clipped ranges on the odd rows, at 32/32 dh 96 (W 2047 and a
+   band of 128) and at GQA groups of 9, 12 (StarCoder2-3B's 24/2), 16 and
+   32 (dh 128). Planted faults that must fail: K/V of the next head (K1/K3),
+   the window W + 1 where it bites, dO of the next head (K2), K/V of the
+   next layer (K4/K5).
 2d. Two full-width Qwen1.5-MoE-A2.7B layers, card (kernels, bf16) against
    CPU (plain versions, f32): prefill + one decode step, relative error of
    the logits <= 5e-2, with the count of (token, layer) routing choices
@@ -166,6 +177,18 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    into the value forward where routing flips push it past the limit), a
    warm round timed, peak device memory, one decode step at 24 rows
    profiled as in phase 9. The model is freed before the dense one is made.
+17. Phi-3-mini-4k (32 layers, H 3072, 32/32 heads of dim 96, I 8192 SwiGLU,
+   every layer sliding at 2047, V 32064 untied; 7.64 GB) and StarCoder2-3B
+   (30 layers, H 3072, 24/2 heads of dim 128, I 12288 plain gelu FFN,
+   biased LayerNorms and projections, every layer sliding at 4096, V 49152
+   tied; 6.06 GB) served at full width and depth from their published
+   config.json through ``Qwen2Config.from_hf``, random bf16 weights from the
+   seed, each made and freed in turn: phase 2's two-layer check (Phi-3's at
+   prompts of 2100 and 2074 tokens, past its window), then phase 12's
+   rounds with bf16 KV and int8 KV, counted under "serve_phi3" /
+   "serve_starcoder2" (the windowed K1/K3 and K4/K5 and nothing else:
+   dh 96 for Phi-3, the group of 12 for StarCoder2), phase 4's checks, a
+   warm round timed, peak memory, one decode step profiled.
 2. Check the kernel path against the plain path on a small input: two
    layers of the full-width model, prefill + one decode step, on the card
    (kernels, bf16) and on the CPU (plain versions, f32); relative error of
@@ -264,6 +287,15 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    MTPOTrainer.train_step on the same model ("train_step_deepseek": the
    narrow-V K3 prefill and K8 in the rollout, the KL reference of beta
    1e-8 through the DeepSeek forward), its peak memory.
+18. Phi-3-mini-4k and StarCoder2-3B training at full width and depth (3.82
+   and 3.03 B params), after phase 16, each made and freed in turn: phase
+   14's steps (phase 2b's check on the first two layers, non-zero gradients
+   in every layer's q/k/v/o, norms (StarCoder2's LayerNorm biases) and MLP
+   (c_fc / c_proj with their biases), three counted updates under
+   "update_phi3" / "update_starcoder2": the windowed K1 and K2, dh 96 for
+   Phi-3; finite loss and grad norm, moved params, generation after the
+   update with changed logits, a warm and a profiled step, the peak
+   memory); then one MTPOTrainer.train_step on Phi-3 ("train_step_phi3").
 
 Launch counts are read per path (serve_moe: phase 10; serve_gptoss: phase
 11; serve_gemma2 and serve_gemma3: phase 12; serve_deepseek: phase 15;
@@ -271,7 +303,9 @@ serve: phase 3;
 serve_quantized: phase 8; train_step: phase 6; update: phase 7;
 update_moe, update_gptoss and train_step_moe: phase 13; update_gemma2,
 update_gemma3 and train_step_gemma2: phase 14; update_deepseek and
-train_step_deepseek: phase 16). Prints the card's name and power
+train_step_deepseek: phase 16; serve_phi3 and serve_starcoder2: phase 17;
+update_phi3, update_starcoder2 and train_step_phi3: phase 18). Prints the
+card's name and power
 limit, each timing beside them, one JSON line of per-kernel results (each
 row with its time, the plain version's, the time of one PyTorch call that
 computes the same function where there is one, and its bound: the larger
@@ -367,6 +401,31 @@ GEMMA3_1B_CONFIG = {
     "rms_norm_eps": 1e-06, "rope_local_base_freq": 10000, "rope_scaling": None,
     "rope_theta": 1000000, "sliding_window": 512, "sliding_window_pattern": 6,
     "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 262144,
+}
+
+# Phi-3-mini-4k-instruct's published config.json (HF
+# microsoft/Phi-3-mini-4k-instruct; the auto_map entry of the remote code left
+# out) and StarCoder2-3B's (HF bigcode/starcoder2-3b), the models phases 17
+# and 18 serve and train at full width through Qwen2Config.from_hf
+PHI3_MINI_4K_CONFIG = {
+    "architectures": ["Phi3ForCausalLM"], "model_type": "phi3", "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 1, "embd_pdrop": 0.0, "eos_token_id": 32000,
+    "hidden_act": "silu", "hidden_size": 3072, "initializer_range": 0.02,
+    "intermediate_size": 8192, "max_position_embeddings": 4096, "num_attention_heads": 32,
+    "num_hidden_layers": 32, "num_key_value_heads": 32, "original_max_position_embeddings": 4096,
+    "pad_token_id": 32000, "resid_pdrop": 0.0, "rms_norm_eps": 1e-05, "rope_scaling": None,
+    "rope_theta": 10000.0, "sliding_window": 2047, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32064,
+}
+STARCODER2_3B_CONFIG = {
+    "architectures": ["Starcoder2ForCausalLM"], "model_type": "starcoder2",
+    "attention_dropout": 0.1, "residual_dropout": 0.1, "embedding_dropout": 0.1,
+    "bos_token_id": 0, "eos_token_id": 0, "hidden_act": "gelu_pytorch_tanh",
+    "hidden_size": 3072, "initializer_range": 0.018042, "intermediate_size": 12288,
+    "max_position_embeddings": 16384, "mlp_type": "default", "norm_epsilon": 1e-05,
+    "norm_type": "layer_norm", "num_attention_heads": 24, "num_hidden_layers": 30,
+    "num_key_value_heads": 2, "rope_theta": 999999.4420358813, "sliding_window": 4096,
+    "torch_dtype": "float32", "use_bias": True, "use_cache": True, "vocab_size": 49152,
 }
 
 # DeepSeek-V2-Lite's published config.json (HF deepseek-ai/DeepSeek-V2-Lite),
@@ -1493,12 +1552,12 @@ def _library_err(lib_fn, ref, seen, what) -> float:
     return err
 
 
-def _gemma_model(dev, card, hf_config, label):
-    """A Gemma model at full width and depth from its published config,
-    random bf16 weights from the seed. With Gemma-2's softcaps the q
-    projections are scaled x16 and the embedding x32, so that attention
-    logits reach ~1-2x the cap of 50 and the final logits the cap of 30
-    (with the init's scales neither cap would bite)."""
+def _published_model(dev, card, hf_config, label):
+    """A model at full width and depth from its published config (Gemma,
+    Phi-3, StarCoder2), random bf16 weights from the seed. With Gemma-2's
+    softcaps the q projections are scaled x16 and the embedding x32, so
+    that attention logits reach ~1-2x the cap of 50 and the final logits
+    the cap of 30 (with the init's scales neither cap would bite)."""
     import torch
 
     from lapha_tpu_torch.models import qwen2, quant, value_model
@@ -1516,7 +1575,9 @@ def _gemma_model(dev, card, hf_config, label):
     torch.cuda.synchronize()
     print(f"{label} weights ({cfg.num_hidden_layers} layers, H {cfg.hidden_size}, "
           f"{cfg.num_attention_heads}/{cfg.num_key_value_heads} heads of dim {cfg.head_dim_}, I "
-          f"{cfg.intermediate_size}, V {cfg.vocab_size}, windows {cfg.layer_windows[:6]}..., "
+          f"{cfg.intermediate_size}, V {cfg.vocab_size}, windows "
+          f"{cfg.layer_windows[:6] or cfg.sliding_window}..., norms {cfg.norm_style}, MLP "
+          f"{cfg.mlp_style}, "
           f"softcaps {cfg.attn_softcap}/{cfg.final_softcap}, rope {cfg.rope_theta}/"
           f"{cfg.rope_local_theta}; random bf16): {quant.params_nbytes(params) / 1e9:.2f} GB made "
           f"in {time.perf_counter() - t0:.2f} s, peak "
@@ -1524,12 +1585,15 @@ def _gemma_model(dev, card, hf_config, label):
     return params, head, cfg
 
 
-def serve_gemma(dev, card, hf_config, label, kv_modes, ref_kw):
-    """Phases 2f and 12 on one Gemma model made here and freed before the
-    return: the two-layer check (``ref_kw``: its prompt and cache lengths),
-    then serve's round for each KV mode in ``kv_modes``, counted, checked,
-    a warm round timed, peak memory, one decode step profiled. Returns the
-    launch counts of the counted rounds."""
+def serve_published(dev, card, hf_config, label, kv_modes, ref_kw, phases="2f and 12"):
+    """Phases 2f and 12 (Gemma) and 17 (Phi-3, StarCoder2) on one model
+    made here from its published config and freed before the return: the
+    two-layer check (``ref_kw``: its prompt and cache lengths), then serve's
+    round for each KV mode in ``kv_modes``, counted, checked (the K1/K3 of
+    the stack's window kinds and K4, K5 over the int8 cache, under the
+    softcap's names when the model has one, and nothing else), a warm round
+    timed, peak memory, one decode step profiled. Returns the launch counts
+    of the counted rounds."""
     import numpy as np
     import torch
 
@@ -1539,7 +1603,7 @@ def serve_gemma(dev, card, hf_config, label, kv_modes, ref_kw):
     from lapha_tpu_torch.search import ValueFunction
 
     t_phase = time.perf_counter()
-    params, head, cfg = _gemma_model(dev, card, hf_config, label)
+    params, head, cfg = _published_model(dev, card, hf_config, label)
     check_small_reference(params, cfg, dev, note=f", {label}", **ref_kw)
 
     P, n, plen, new = 4, 6, 512, 64
@@ -1561,10 +1625,12 @@ def serve_gemma(dev, card, hf_config, label, kv_modes, ref_kw):
         Engine._install_win = install
     launches = dict(_cuda.LAUNCHES)
     cap = cfg.attn_softcap
-    # banded (sliding layers) and full K1/K3, K4 (and K5 over the int8
-    # cache), all under their softcap names for Gemma-2; nothing else
+    # banded (sliding layers) and full K1/K3 as the stack has them, K4 (and
+    # K5 over the int8 cache), all under their softcap names for Gemma-2;
+    # nothing else
+    kinds = {cfg.window_for_layer(l) > 0 for l in range(cfg.num_hidden_layers)}
     ran = [launch_name(nm, w, cap) for nm in ("flash_attention", "flash_attention_cached")
-           for w in (1, 0)]
+           for w in kinds]
     ran.append(launch_name("ragged_decode_attention", 0, cap))
     if "int8" in kv_modes:
         ran.append(launch_name("ragged_decode_attention_q8", 0, cap))
@@ -1572,8 +1638,9 @@ def serve_gemma(dev, card, hf_config, label, kv_modes, ref_kw):
         check(launches[name] > 0, f"{name} never launched on the {label} served path")
     for name, count in launches.items():
         check(name in ran or count == 0, f"{name} ran {count} times on the {label} served path")
-    # W = 4096 never fits a prompt of 512 (Gemma-2); W = 512 (Gemma-3) takes
-    # the short cache for the children's prompts of 576 in slabs of 640
+    # W = 4096 (Gemma-2, StarCoder2) or 2047 (Phi-3) never fits a prompt of
+    # 512; W = 512 (Gemma-3) takes the short cache for the children's
+    # prompts of 576 in slabs of 640
     expected = [] if cfg.max_window_ > plen else [512] * len(kv_modes)
     check(installs == expected, f"windowed-short installs {installs} (expected {expected})")
     for kv, run in runs.items():
@@ -1592,7 +1659,7 @@ def serve_gemma(dev, card, hf_config, label, kv_modes, ref_kw):
     _profile_served(label, params, cfg, P * n, plen, plen + 2 * new, SEED + 19, card)
     del params, head
     torch.cuda.empty_cache()
-    print(f"phases 2f and 12 ({label}) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phases {phases} ({label}) took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -2267,6 +2334,208 @@ def check_backward_deepseek_kernels(dev, card):
     torch.cuda.empty_cache()
     print(f"phase 1k took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"flash_attention_bwd_dq_narrowv": row_dq, "flash_attention_bwd_dkv_narrowv": row_kv}
+
+
+# phase 1l's decode cases: (label, heads, KV heads, head dim, window, the
+# kernels line's row suffix or None for a case only printed)
+DECODE_1L_CASES = (("Phi-3-mini", 32, 32, 96, 2047, "_dh96"),
+                   ("Phi-3-mini heads, a band of 128", 32, 32, 96, 128, None),
+                   ("group 9", 18, 2, 128, 4096, None),
+                   ("StarCoder2-3B", 24, 2, 128, 4096, "_g12"),
+                   ("group 16", 32, 2, 128, 4096, None),
+                   ("group 32", 32, 1, 128, 4096, None))
+
+
+def check_phi3_starcoder2_kernels(dev, card):
+    """Phase 1l: the instances Phi-3 (head dim 96) and StarCoder2 (a GQA
+    group of 12) run, each against its plain version on the same bf16
+    inputs at phase 1/1b/1c's limits, timed in turns beside the plain
+    version and one library call, each with a planted fault that must fail
+    it. K3 (fresh prefill B=4 T=512 S=640) and K1 (B=4 T=512, padded rows)
+    at Phi-3-mini's 32/32 heads of dim 96, full and at its window of 2047
+    (the path's launches; the band does not bite at 512), and K3 banded
+    where the band bites (T=512 at qstart 2048, S=2560); faults: K/V of the
+    next head, and the window W + 1 where it bites. K2 at B=4 T=1024 32/32
+    dh 96 with ragged masks, W=2047 (the path's launches); fault: dO of the
+    next head. K4/K5 at B=24 S=640 over prompts up to 512, the window's
+    clipped ranges on the odd rows (Phi-3's 2047 clips none: a band of 128
+    is checked too), at Phi-3's 32/32 dh 96 and at groups of
+    9, 12 (StarCoder2-3B's 24/2), 16 and 32 at dh 128; fault: K/V of the
+    next layer. Library calls: SDPA with the boolean mask (its backward for
+    K2); K5 has none."""
+    import torch
+
+    from lapha_tpu_torch.models.qwen2 import _quantize_kv
+    from lapha_tpu_torch.ops import flash_attention as fa
+    from lapha_tpu_torch.ops import ragged_decode_attention as rda
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    nh, dh, W = 32, 96, 2047
+    scale = dh ** -0.5
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    results = {}
+    # ---------------- K1 / K3 at dh 96
+    for name, B, T, S, qstart, window, row in (
+            ("flash_attention_cached", 4, 512, 640, 0, 0, None),
+            ("flash_attention_cached", 4, 512, 640, 0, W, "flash_attention_cached_window_dh96"),
+            ("flash_attention", 4, 512, 512, 0, W, "flash_attention_window_dh96"),
+            ("flash_attention_cached", 2, 512, 2560, 2048, W, None)):
+        q, k, v = bf16(B, T, nh, dh), bf16(B, S, nh, dh), bf16(B, S, nh, dh)
+        qs = torch.full((B,), qstart, dtype=torch.int32, device=dev)
+        lens = torch.tensor([qstart + T, qstart + T - 17, qstart + T - 40, qstart + T][:B],
+                            device=dev)
+        kv_valid = (torch.arange(S, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+        args = (q, k, v, kv_valid, qs, scale)
+        out, lse = fa._attention_cuda(*args, name, window)
+        ref, ref_lse = fa.attention_plain(*args, window)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        seen = ref_lse > -1e29
+        label = (f"{fa.launch_name(name, window)} dh=96 {nh}/{nh} heads B={B} T={T} S={S} "
+                 f"qstart={qstart} W={window}")
+        check(bool(torch.isfinite(out.float()).all()) and err <= KERNEL_ATOL, f"{label}: {err}")
+        check(float((lse[seen] - ref_lse[seen]).abs().max()) <= 1e-3, f"{label} LSE")
+        allowed = _allowed(kv_valid, qs, T, window)
+        bites = window and bool((~allowed & _allowed(kv_valid, qs, T)).any())
+        faults = [("K/V of the next head", (q, k.roll(-1, 2), v.roll(-1, 2), kv_valid, qs, scale),
+                   window)]
+        if bites:
+            faults.append(("window W + 1", args, window + 1))
+        notes = []
+        for what, bad_args, bad_w in faults:
+            bad = fa._attention_cuda(*bad_args, name, bad_w)[0]
+            torch.cuda.synchronize()
+            bad_err = float((bad.float() - ref.float()).abs().max())
+            check(bad_err > KERNEL_ATOL, f"the {label} check missed a planted fault ({what})")
+            notes.append(f"planted fault ({what}) max|diff| {bad_err:.3e}, caught")
+        ms, plain_ms, lib_ms = _ab_ms(lambda: fa._attention_cuda(*args, name, window),
+                                      lambda: fa.attention_plain(*args, window),
+                                      _sdpa(q, k, v, allowed, scale))
+        seen_keys = int(allowed.any(1).sum())
+        nbytes = _nbytes(q, out, lse, kv_valid, qs) + 2 * seen_keys * nh * dh * k.element_size()
+        r = _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh * nh * int(allowed.sum()))
+        print(f"kernel {label}: max|diff| {err:.3e}, {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"{'; '.join(notes)} [{card}]", flush=True)
+        if row is not None:
+            results[row] = r
+
+    # ---------------- K2 at dh 96
+    B, T = 4, 1024
+    q, do = bf16(B, T, nh, dh), bf16(B, T, nh, dh)
+    k, v = bf16(B, T, nh, dh), bf16(B, T, nh, dh)
+    mask = (torch.arange(T, device=dev)[None, :]
+            < torch.tensor([T, 700, 1000, 333], device=dev)[:, None]).to(torch.int32)
+    mask[0, 100:140] = 0  # a hole of invalid keys
+    qs = torch.zeros(B, dtype=torch.int32, device=dev)
+    out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention", W)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, mask, qs, lse, do, delta, scale, W)
+    got = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+    ref = fa.attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    worst, errs = _bwd_close(got, ref)
+    label = f"dh=96 {nh}/{nh} heads (Phi-3-mini) B={B} T={T} W={W}"
+    check(worst <= 1.0, f"K2 {label}: max|diff| (dq, dk, dv) {errs}, {worst:.3f} of the limit")
+    bad_do = do.roll(-1, 2)
+    bad_args = args[:6] + (bad_do, (bad_do.float() * out.float()).sum(-1)) + args[8:]
+    bad = (fa.attention_bwd_dq_cuda(*bad_args), *fa.attention_bwd_dkv_cuda(*bad_args))
+    torch.cuda.synchronize()
+    bad_worst, _ = _bwd_close(bad, ref)
+    check(bad_worst > 1.0, f"the K2 {label} check missed a planted fault (dO of the next head)")
+    del bad
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    allowed = _allowed(mask, qs, T, W)
+    lib_out = _sdpa(*leaves, allowed, scale)()
+
+    def lib():
+        return torch.autograd.grad(lib_out, leaves, do.transpose(1, 2), retain_graph=True)
+
+    ms_dq, pms_dq, lib_ms = _ab_ms(lambda: fa.attention_bwd_dq_cuda(*args),
+                                   lambda: fa.attention_bwd_dq_plain(*args), lib)
+    ms_kv, pms_kv, _ = _ab_ms(lambda: fa.attention_bwd_dkv_cuda(*args),
+                              lambda: fa.attention_bwd_dkv_plain(*args))
+    pairs = nh * int(allowed.sum())
+    reads = _nbytes(q, k, v, do, mask, qs, lse, delta)
+    row_dq = _row(errs[0], ms_dq, pms_dq, lib_ms, reads + _nbytes(got[0]), 6 * dh * pairs)
+    row_kv = _row(max(errs[1:]), ms_kv, pms_kv, lib_ms, reads + _nbytes(got[1], got[2]),
+                  8 * dh * pairs)
+    print(f"kernel flash_attention_bwd {label}: max|diff| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+          f"{errs[2]:.3e} ({worst:.2f} of the limit); dq {ms_dq:.4f} ms (bound "
+          f"{row_dq['bound_ms']:.4f}, {row_dq['bound_by']}) vs plain {pms_dq:.4f} ms, dk/dv "
+          f"{ms_kv:.4f} ms (bound {row_kv['bound_ms']:.4f}) vs plain {pms_kv:.4f} ms, sdpa "
+          f"backward (boolean mask; dq, dk, dv) {lib_ms:.4f} ms; planted fault (dO of the next "
+          f"head) {bad_worst:.3g} of the limit, caught [{card}]", flush=True)
+    results["flash_attention_bwd_dq_window_dh96"] = row_dq
+    results["flash_attention_bwd_dkv_window_dh96"] = row_kv
+    del leaves, lib_out, got, ref, q, k, v, do
+
+    # ---------------- K4 / K5 at dh 96 and at groups above 8
+    L, B, S, slot = 2, 24, 640, 600
+    for fam, nh_c, nkv, dh_c, W_c, suffix in DECODE_1L_CASES:
+        scale_c = dh_c ** -0.5
+        q = bf16(B, nh_c, dh_c)
+        kc, vc = bf16(L, B, nkv, S, dh_c), bf16(L, B, nkv, S, dh_c)
+        lens = torch.randint(64, 513, (B,), generator=gen, device=dev).to(torch.int32)
+        pos = lens + (slot - 512)
+        odd = torch.arange(B, device=dev) % 2 == 1
+        pstart = torch.where(odd, torch.minimum(torch.clamp(pos - (W_c - 1), min=0), lens),
+                             torch.zeros_like(lens)).to(torch.int32)
+        dstart = torch.where(odd, torch.full_like(lens, max(512, slot - (W_c - 1))),
+                             torch.full_like(lens, 512)).to(torch.int32)
+        valid = _decode_valid(lens, dstart, slot, S, pstart)
+        n_valid = int(valid.sum())
+        (kq, ks), (vq, vs) = _quantize_kv(kc), _quantize_kv(vc)
+        for name, kk, vv, scl in (("ragged_decode_attention", kc, vc, None),
+                                  ("ragged_decode_attention_q8", kq, vq, (ks, vs))):
+            def kernel(layer=1, kk=kk, vv=vv, scl=scl):
+                return rda.ragged_decode_attention(q, kk, vv, layer, lens, dstart, slot, pstart,
+                                                   scale_c, cache_scale=scl)
+
+            def plain(kk=kk, vv=vv, scl=scl):
+                return rda.ragged_decode_plain(q, kk, vv, 1, lens, dstart, slot, pstart, scale_c,
+                                               cache_scale=scl)
+
+            def excess(out, ref, scl=scl):
+                if scl is not None:
+                    return _q8_excess(out, ref)
+                return float((out.float() - ref.float()).abs().max()) - KERNEL_ATOL
+
+            out, ref, bad = kernel(), plain(), kernel(layer=0)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            label = (f"{name} ({fam}) dh={dh_c} {nh_c}/{nkv} heads (group {nh_c // nkv}) B={B} "
+                     f"S={S} slot={slot} W={W_c}")
+            check(bool(torch.isfinite(out.float()).all()) and excess(out, ref) <= 0,
+                  f"{label}: max|diff| {err}")
+            check(excess(bad, ref) > 0,
+                  f"the {label} check missed a planted fault (K/V of the next layer)")
+            lib_fn, lib = None, "none (no one call reads an int8 cache)"
+            if scl is None:
+                lib_fn = _sdpa(q[:, None], kc[1].transpose(1, 2), vc[1].transpose(1, 2),
+                               valid[:, None, :], scale_c)
+                lib = "sdpa"
+            ms, plain_ms, lib_ms = _ab_ms(kernel, plain, lib_fn)
+            if lib_ms is not None:
+                lib = f"{lib} {lib_ms:.4f} ms"
+            # K and V of the valid slots per KV head (int8: + two f32
+            # scales), q, the ranges and out
+            per_slot = 2 * dh_c * (1 if scl is not None else 2) + (8 if scl is not None else 0)
+            nbytes = n_valid * nkv * per_slot + 2 * _nbytes(q) + _nbytes(lens, dstart, pstart)
+            r = _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh_c * nh_c * n_valid)
+            print(f"kernel {label}: max|diff| {err:.3e}, {ms:.4f} ms vs plain {plain_ms:.4f} "
+                  f"ms, {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); planted fault "
+                  f"(K/V of the next layer) max|diff| "
+                  f"{float((bad.float() - ref.float()).abs().max()):.3e}, caught [{card}]",
+                  flush=True)
+            if suffix is not None:
+                results[name + suffix] = r
+    print(f"phase 1l took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results
 
 
 def _deepseek_model(dev, card):
@@ -3467,34 +3736,37 @@ def _max_logits(params, cfg, batch) -> tuple[float, float]:
     return max(seen), float(final.abs().max())
 
 
-def update_gemma(dev, card, hf_config, label: str, which: str, tmpdir: str,
-                 ref_lens=((90, 40), (30, 60))):
-    """Phase 14: Gemma training at full width and depth (``which`` =
-    "update_gemma2" or "update_gemma3"), the model made here from its
-    published config (``_gemma_model``: for Gemma-2 q_proj x16 and embedding
-    x32, so that both softcaps bite) and freed before the return. Phase 2b's
-    gradient check on its first two layers (rows of ``ref_lens`` tokens;
-    for Gemma-2 the largest scaled attention and final logits printed beside
-    the caps); one loss's gradients (every layer's q/k/v/o, its four
-    sandwich norms, its MLP and Gemma-3's q/k norms non-zero); three
-    ``losses.make_update_fn`` steps (remat "full", AdamChain at TRAIN_LR) on
-    8 packed rows of 512 prompt + 512 completion tokens, the launch counts
-    zeroed before and read after (the dh-256 K1 and K2, banded and full; for
-    Gemma-2 only their softcapped launches, for Gemma-3 none); finite loss
+def update_published(dev, card, hf_config, label: str, which: str, tmpdir: str,
+                     ref_lens=((90, 40), (30, 60)), trainer_path=None,
+                     keep=lambda n: not n.endswith(".b"), phase="14"):
+    """Phases 14 (Gemma: ``which`` = "update_gemma2" or "update_gemma3") and
+    18 (Phi-3, StarCoder2): training at full width and depth, the model made
+    here from its published config (``_published_model``: for Gemma-2
+    q_proj x16 and embedding x32, so that both softcaps bite) and freed
+    before the return. Phase 2b's gradient check on its first two layers
+    (rows of ``ref_lens`` tokens; for Gemma-2 the largest scaled attention
+    and final logits printed beside the caps); one loss's gradients (every
+    layer's leaves whose names ``keep`` accepts non-zero: q/k/v/o, norms and
+    MLP); three ``losses.make_update_fn`` steps (remat "full", AdamChain at
+    TRAIN_LR) on 8 packed rows of 512 prompt + 512 completion tokens, the
+    launch counts zeroed before and read after (K1 and K2 of the stack's
+    window kinds: for Gemma-2 only their softcapped launches); finite loss
     and grad norm, moved params, an engine that generates after the update
     with changed logits; one warm step on the host clock and one profiled,
-    the peak memory; for Gemma-2 then one MTPOTrainer.train_step
-    ("train_step_gemma2"). Returns the launch counts by path."""
+    the peak memory; with ``trainer_path`` then one MTPOTrainer.train_step
+    counted under that name (K3 and K4 in the rollout, K2 when a group was
+    trainable). Returns the launch counts by path."""
     import numpy as np
     import torch
 
     from lapha_tpu_torch.engine import Engine
     from lapha_tpu_torch.models import qwen2
     from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.ops.flash_attention import launch_name
     from lapha_tpu_torch.train import losses, optim
 
     t_phase = time.perf_counter()
-    params, head, cfg = _gemma_model(dev, card, hf_config, label)
+    params, head, cfg = _published_model(dev, card, hf_config, label)
     n_par = sum(t.numel() for t in losses.tree_leaves((params, head)))
     # bf16 weight + bf16 gradient + Adam's f32 mu and bf16 nu (optax's dtypes)
     print(f"{label}: {n_par / 1e9:.3f} B params, {10 * n_par / 1e9:.1f} GB for weights, "
@@ -3523,7 +3795,7 @@ def update_gemma(dev, card, hf_config, label: str, which: str, tmpdir: str,
 
     # every layer's projections, norms and MLP get a gradient
     _check_layer_grads(params, head, cfg, batch, kw,
-                       lambda n: n.startswith("layers.") and not n.endswith(".b"), label)
+                       lambda n: n.startswith("layers.") and keep(n), label)
 
     probe = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 64))).to(dev)
     with torch.inference_mode():
@@ -3539,10 +3811,11 @@ def update_gemma(dev, card, hf_config, label: str, which: str, tmpdir: str,
         gnorms.append(float(m["grad_norm"]))
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
-    cap = "_softcap" if cfg.attn_softcap else ""
+    cap = cfg.attn_softcap
+    kinds = {cfg.window_for_layer(l) > 0 for l in range(cfg.num_hidden_layers)}
     attn = [n for n in launches if n.startswith("flash_attention") and "cached" not in n]
-    need = [f"{n}{w}{cap}" for n in ("flash_attention", "flash_attention_bwd_dq",
-                                     "flash_attention_bwd_dkv") for w in ("", "_window")]
+    need = [launch_name(n, w, cap) for n in ("flash_attention", "flash_attention_bwd_dq",
+                                             "flash_attention_bwd_dkv") for w in kinds]
     for name in need:
         check(launches[name] > 0, f"{name} never launched in the {which} window")
     stray = {n: launches[n] for n in attn if n not in need and launches[n]}
@@ -3560,21 +3833,24 @@ def update_gemma(dev, card, hf_config, label: str, which: str, tmpdir: str,
     del eng, opt_state, batch, update, w0
     torch.cuda.empty_cache()
     counted = {which: launches}
-    if which == "update_gemma2":  # the trainer's entry (phase 6's call)
+    if trainer_path is not None:  # the trainer's entry (phase 6's call)
         torch.cuda.synchronize()
         _cuda.reset_launches()
         m = train_through_the_trainer(params, cfg, card, tmpdir)
-        got = counted["train_step_gemma2"] = dict(_cuda.LAUNCHES)
-        # the rollout serves through the softcapped K3 and K4; the update
-        # (when a group was trainable) runs the softcapped K2
-        need = ["flash_attention_cached_softcap", "ragged_decode_attention_softcap"]
+        got = counted[trainer_path] = dict(_cuda.LAUNCHES)
+        # the rollout serves through K3 (every window kind of the stack) and
+        # K4; the update (when a group was trainable) runs K2, under the
+        # softcap's names for Gemma-2
+        need = [launch_name("flash_attention_cached", w, cap) for w in kinds]
+        need.append(launch_name("ragged_decode_attention", 0, cap))
         if m["n_samples"]:
-            need += ["flash_attention_bwd_dq_softcap", "flash_attention_bwd_dkv_softcap"]
+            need += [launch_name(n, w, cap) for w in kinds
+                     for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")]
         for name in need:
-            check(got[name] > 0, f"{name} never launched in the Gemma-2 train_step")
+            check(got[name] > 0, f"{name} never launched in the {label} train_step")
     del params, head
     torch.cuda.empty_cache()
-    print(f"phase 14 ({which}) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phase {phase} ({which}) took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counted
 
 
@@ -3836,6 +4112,7 @@ def main(argv=None) -> int:
     kernels.update(check_backward_gemma_kernels(dev, card))
     kernels.update(check_deepseek_kernels(dev, card))
     kernels.update(check_backward_deepseek_kernels(dev, card))
+    kernels.update(check_phi3_starcoder2_kernels(dev, card))
 
     # ---------------- MoE serving at full width and depth, counted; freed after
     launches = {"serve_moe": serve_moe(dev, card)}
@@ -3843,13 +4120,19 @@ def main(argv=None) -> int:
     launches["serve_gptoss"] = serve_gptoss(dev, card)
     # ---------------- Gemma-2-2B (bf16, then int8 KV) and Gemma-3-1B serving at
     # full width and depth, counted; each freed after
-    launches["serve_gemma2"] = serve_gemma(dev, card, GEMMA2_2B_CONFIG, "Gemma-2-2B",
-                                           (None, "int8"), {})
+    launches["serve_gemma2"] = serve_published(dev, card, GEMMA2_2B_CONFIG, "Gemma-2-2B",
+                                               (None, "int8"), {})
     # Gemma-3's two-layer check at prompts past its 512-token window
-    launches["serve_gemma3"] = serve_gemma(dev, card, GEMMA3_1B_CONFIG, "Gemma-3-1B", (None,),
-                                           {"T": 560, "S": 592})
+    launches["serve_gemma3"] = serve_published(dev, card, GEMMA3_1B_CONFIG, "Gemma-3-1B",
+                                               (None,), {"T": 560, "S": 592})
     # ---------------- DeepSeek-V2-Lite serving at full width and depth, counted; freed after
     launches["serve_deepseek"] = serve_deepseek(dev, card)
+    # ---------------- Phi-3-mini (two-layer check past its 2047 window) and
+    # StarCoder2-3B serving at full width and depth, counted; each freed after
+    launches["serve_phi3"] = serve_published(dev, card, PHI3_MINI_4K_CONFIG, "Phi-3-mini-4k",
+                                             (None, "int8"), {"T": 2100, "S": 2176}, "17")
+    launches["serve_starcoder2"] = serve_published(dev, card, STARCODER2_3B_CONFIG,
+                                                   "StarCoder2-3B", (None, "int8"), {}, "17")
 
     cfg = qwen2.Qwen2Config(
         vocab_size=151936, hidden_size=1536, intermediate_size=8960,
@@ -3919,13 +4202,24 @@ def main(argv=None) -> int:
         for which in ("update_moe", "update_gptoss"):
             launches.update(update_moe(dev, card, which, tmpdir))
         # ---------------- Gemma training at full width and depth, counted; each freed after
-        launches.update(update_gemma(dev, card, GEMMA2_2B_CONFIG, "Gemma-2-2B", "update_gemma2",
-                                     tmpdir))
+        launches.update(update_published(dev, card, GEMMA2_2B_CONFIG, "Gemma-2-2B",
+                                         "update_gemma2", tmpdir,
+                                         trainer_path="train_step_gemma2"))
         # the two-layer check at rows past Gemma-3's 512-token window
-        launches.update(update_gemma(dev, card, GEMMA3_1B_CONFIG, "Gemma-3-1B", "update_gemma3",
-                                     tmpdir, ((530, 300), (40, 60))))
+        launches.update(update_published(dev, card, GEMMA3_1B_CONFIG, "Gemma-3-1B",
+                                         "update_gemma3", tmpdir, ((530, 300), (40, 60))))
         # ---------------- DeepSeek-V2-Lite training at full width, counted; freed after
         launches.update(update_deepseek(dev, card, tmpdir))
+        # ---------------- Phi-3-mini and StarCoder2-3B training at full width and
+        # depth, counted; each freed after (k_proj's bias gets no gradient:
+        # softmax is shift-invariant along a row)
+        every_leaf = lambda n: not n.endswith("k_proj.b")  # noqa: E731
+        launches.update(update_published(dev, card, PHI3_MINI_4K_CONFIG, "Phi-3-mini-4k",
+                                         "update_phi3", tmpdir, trainer_path="train_step_phi3",
+                                         keep=every_leaf, phase="18"))
+        launches.update(update_published(dev, card, STARCODER2_3B_CONFIG, "StarCoder2-3B",
+                                         "update_starcoder2", tmpdir, keep=every_leaf,
+                                         phase="18"))
 
     replaces = {
         "flash_attention": ("lapha_tpu_torch/csrc/flash_attention.cu",
@@ -3981,11 +4275,23 @@ def main(argv=None) -> int:
         replaces[name + "_softcap"] = replaces[name]
         if name != "ragged_decode_attention_q8":
             replaces[name + "_dh256"] = replaces[name]
+    # the instances of head dim 96 (Phi-3, every layer sliding) and the decode
+    # kernel's group of 12 (StarCoder2-3B) count their kernel's launches on
+    # those models' paths
+    for name in ("flash_attention_window", "flash_attention_cached_window",
+                 "ragged_decode_attention", "ragged_decode_attention_q8",
+                 "flash_attention_bwd_dq_window", "flash_attention_bwd_dkv_window"):
+        replaces[name + "_dh96"] = replaces[name]
+    for name in ("ragged_decode_attention", "ragged_decode_attention_q8"):
+        replaces[name + "_g12"] = replaces[name]
+    row_paths = {"_dh256": ("serve_gemma3", "update_gemma3"),
+                 "_dh96": ("serve_phi3", "update_phi3", "train_step_phi3"),
+                 "_g12": ("serve_starcoder2",)}
     rows = []
     for name, (src, rep) in replaces.items():
-        counter = name.removesuffix("_dh256")
-        paths = ("serve_gemma3", "update_gemma3") if name.endswith("_dh256") else launches
-        by_path = {path: launches[path][counter] for path in paths}
+        suffix = next((x for x in row_paths if name.endswith(x)), "")
+        counter = name.removesuffix(suffix) if suffix else name
+        by_path = {path: launches[path][counter] for path in row_paths.get(suffix, launches)}
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
                      **kernels[name]})

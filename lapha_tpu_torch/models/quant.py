@@ -149,9 +149,10 @@ def init_params_quantized(cfg, generator: torch.Generator, *, quantize_embed: bo
     projections; the embedding stays int8). No full-precision weight is
     made anywhere. The values are random draws, not the quantization of a
     model: for throughput runs."""
-    if cfg.num_experts > 0 or cfg.qk_norm:
+    if (cfg.num_experts > 0 or cfg.qk_norm or cfg.norm_style != "rms"
+            or cfg.mlp_style != "swiglu"):
         raise ValueError("init_params_quantized builds the dense qwen-family tree only; "
-                         "quantize an MoE or q/k-norm tree with quantize_params")
+                         "quantize an MoE, q/k-norm or StarCoder2 tree with quantize_params")
     dev = generator.device
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     nh, nkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_

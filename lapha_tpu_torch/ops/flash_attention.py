@@ -24,8 +24,9 @@ key j iff kv_valid[b, j] and j <= qstart[b] + t, and with ``window`` W > 0
 (a sliding-window layer) j > qstart[b] + t - W. With ``softcap`` > 0
 (Gemma-2) the scaled logit s becomes cap·tanh(s/cap) before the mask, as in
 the Pallas kernels. The forward kernel takes head dims (of Q/K, of V) (64,
-64), (128, 128), (256, 256) and (192, 128), the last DeepSeek MLA's V
-narrower than Q/K (the Pallas kernels' dv <= dh); a launch with dv < dh is
+64), (96, 96) (Phi-3), (128, 128), (256, 256) and (192, 128), the last
+DeepSeek MLA's V narrower than Q/K (the Pallas kernels' dv <= dh); a launch
+with dv < dh is
 counted under its own name (``flash_attention_narrowv``,
 ``flash_attention_cached_narrowv``), a windowed one adds ``_window``
 (``flash_attention_window``, ``flash_attention_cached_window``) and a
@@ -49,9 +50,8 @@ combination; a launch is counted under :func:`launch_name`
 (``flash_attention_bwd_dq_window``, ``flash_attention_bwd_dkv_narrowv``,
 ``flash_attention_bwd_dkv_window_softcap``, ...). Both the kernels and the
 plain backward on the CPU apply the softcap's chain rule, dc/ds = 1 -
-(c/cap)² (the Pallas ``_dq_kernel`` and ``_dkv_kernel``). Not ported yet: head
-dim 96 (ROADMAP B3-96) in either direction, which raises, as does any other
-pair without an instance.
+(c/cap)² (the Pallas ``_dq_kernel`` and ``_dkv_kernel``). A pair without an
+instance raises in either direction.
 """
 
 from __future__ import annotations
@@ -107,8 +107,8 @@ def attention_plain(q, k, v, kv_valid, qstart, scale, window=0, sinks=None, soft
 
 # (head dim of Q/K, head dim of V) pairs the forward and the backward kernels
 # are built for
-FWD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
-BWD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+FWD_HEAD_DIMS = ((64, 64), (96, 96), (128, 128), (256, 256), (192, 128))
+BWD_HEAD_DIMS = ((64, 64), (96, 96), (128, 128), (256, 256), (192, 128))
 
 
 def launch_name(name, window=0, softcap=0.0, narrowv=False):
@@ -232,8 +232,7 @@ def _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta):
     dev = q.device
     _cuda.require_cuda_bf16(name, dev, q=q, k=k, v=v, do=do)
     _cuda.require((dh, dv) in BWD_HEAD_DIMS, name,
-                  f"head dims (q/k {dh}, v {dv}) (the kernels take {BWD_HEAD_DIMS}; dh 96 is "
-                  "ROADMAP B3-96)")
+                  f"head dims (q/k {dh}, v {dv}) (the kernels take {BWD_HEAD_DIMS})")
     _cuda.require(k.dim() == 4 and k.shape[0] == B and k.shape[3] == dh and nh % nkv == 0,
                   name, f"shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     _cuda.require(tuple(v.shape) == (B, S, nkv, dv), name,

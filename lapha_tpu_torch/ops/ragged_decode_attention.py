@@ -32,8 +32,9 @@ after the K scale, as JAX's dense decode (``qwen2.decode_step``
 ``dense_att``) applies it. It is a runtime argument of every entry (0 =
 off); a softcapped launch is counted under its entry's name + "_softcap".
 
-The kernel takes head dims 64, 128 and 256, at most 8 query heads per KV
-head. Launches are counted per entry: ``ragged_decode_attention``, ``_q8``,
+The kernel takes head dims 64, 96, 128 and 256 and any GQA group; a group
+above 8 (StarCoder2's 12) runs ceil(group/8) CTAs per KV head, each over a
+block of the group. Launches are counted per entry: ``ragged_decode_attention``, ``_q8``,
 ``_sink`` and ``_q8_sink``. A CPU tensor takes the plain version (dense
 masked attention over the same validity); a CUDA tensor launches the kernel
 or raises.
@@ -48,6 +49,8 @@ import torch
 from . import _cuda
 
 NEG_INF = -1e30
+# head dims the kernel is built for
+DECODE_HEAD_DIMS = (64, 96, 128, 256)
 
 __all__ = ["ragged_decode_attention", "ragged_decode_plain"]
 
@@ -116,11 +119,10 @@ def _ragged_cuda(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale, 
     _cuda.require(tuple(v_cache.shape) == tuple(k_cache.shape) and Bc == B
                   and dhc == dh, name,
                   f"shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)}")
-    _cuda.require(dh in (64, 128, 256), name,
-                  f"head dim {dh} (the kernel takes 64, 128 and 256)")
+    _cuda.require(dh in DECODE_HEAD_DIMS, name,
+                  f"head dim {dh} (the kernel takes {DECODE_HEAD_DIMS})")
     _cuda.require(softcap >= 0.0, name, f"softcap {softcap} (0 = off)")
-    _cuda.require(nh % nkv == 0 and nh // nkv <= 8, name,
-                  f"{nh} query heads over {nkv} KV heads (group <= 8)")
+    _cuda.require(nh % nkv == 0, name, f"{nh} query heads over {nkv} KV heads")
     if sinks is not None:  # its shape is checked by ragged_decode_attention
         _cuda.require_cuda(name, dev, torch.float32, aligned=False, sinks=sinks)
     layer, slot = int(layer), int(slot)

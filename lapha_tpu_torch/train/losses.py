@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models import model_module, qwen2
+from ..models.quant import is_quantized
 from ..ops.latent import masked_mean, pool_mask, value_head_apply
 from . import optim
 
@@ -198,7 +199,15 @@ def _head_weight(params: dict, model_cfg) -> torch.Tensor:
 
 
 def _chunk_logps(hc, w, tc, temperature: float):
-    logits = hc.float() @ w.T  # (B, c, V) f32
+    """A chunk's log-probs of its targets; ``w`` is the head as an f32 (V,
+    H) table, or a quantized head {"q", "s"}, taken as JAX's chunk body
+    takes it: the hidden folded by the per-channel scale in its dtype, the
+    int8 table cast to that dtype, an f32 product (``qwen2._int8_head``: on
+    the card in row slices, no f32 copy of the table)."""
+    if is_quantized(w):
+        logits = qwen2._int8_head(hc, w)
+    else:
+        logits = hc.float() @ w.T  # (B, c, V) f32
     if temperature != 1.0:
         logits = logits / temperature
     return torch.log_softmax(logits, dim=-1).gather(-1, tc[..., None].long())[..., 0]
@@ -213,9 +222,12 @@ def _selective_logps_chunked(params, model_cfg, hidden, targets, temperature,
     backward (checkpoint), so peak logits memory is B*chunk*V*4 bytes
     instead of B*L*V*4 (20 GB at B=8, L=4k, V=152k). The head is cast to
     f32 once: f32 products of bf16 values are exact, so the logits are the
-    JAX package's bf16 x bf16 -> f32 ones up to summation order.
+    JAX package's bf16 x bf16 -> f32 ones up to summation order. A
+    quantized head stays quantized (``_chunk_logps``).
     """
-    w = _head_weight(params, model_cfg).float()
+    w = _head_weight(params, model_cfg)
+    if not is_quantized(w):
+        w = w.float()
     t = temperature if temperature > 0 else 1.0
     grad = torch.is_grad_enabled()
     outs = []

@@ -165,12 +165,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fa.flash_attention(q, q[:, :, :2], q[:, :, :2])  # f32, not bf16
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError):
-        fa.flash_attention(qb[..., :96].contiguous(), qb[:, :, :2, :96].contiguous(),
-                           qb[:, :, :2, :96].contiguous())  # head dim 96
+        fa.flash_attention(qb[..., :80].contiguous(), qb[:, :, :2, :80].contiguous(),
+                           qb[:, :, :2, :80].contiguous())  # head dim 80: no instance
     c = torch.zeros((1, 1, 2, 16, 128), dtype=torch.bfloat16, device=dev)
     lens = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         rda.ragged_decode_attention(qb[:, 0], c, c, 0, lens, lens, 16)  # slot past S
+    with pytest.raises(ValueError, match="head dim 80"):
+        rda.ragged_decode_attention(qb[:, 0, :, :80].contiguous(), c[..., :80].contiguous(),
+                                    c[..., :80].contiguous(), 0, lens, lens, 8)
 
 
 @pytest.mark.cuda
@@ -805,17 +808,18 @@ def test_flash_dh64_no_cache_window_and_sinks(dev, window):
 
 @pytest.mark.cuda
 def test_windowed_and_dh64_backward_raise_on_the_card(dev):
-    """The windowed, dh-64, dh-256 and softcapped backward run the K2
+    """The windowed, dh-64, dh-96, dh-256 and softcapped backward run the K2
     kernels on the card, through the autograd Function (with sinks where
     the model has them), against the plain backward at K2's limit; a
     (Q/K, V) head-dim pair without an instance (256, 128) and a head dim the
-    kernels do not take (dh 96, B3-96) still raise, naming the pair and the
-    ROADMAP item; the sink backward at dh 128 without a window runs the K2
-    kernels."""
+    kernels do not take (dh 80) still raise, naming the pair; the dh-96
+    backward (Phi-3) runs, banded and with sinks too; the sink backward at
+    dh 128 without a window runs the K2 kernels."""
     rng = np.random.default_rng(11)
     for dh, window, cap, sink in ((128, 16, 0.0, True), (64, 0, 0.0, True), (64, 24, 0.0, True),
                                   (256, 0, 0.0, False), (256, 16, 50.0, False),
-                                  (128, 0, 50.0, False)):
+                                  (128, 0, 50.0, False), (96, 0, 0.0, False),
+                                  (96, 24, 0.0, True)):
         B, T, nh, nkv = 2, 100, 8, 2
         q_sd = 25.0 if cap else 1.0  # the cap bites: |q·k|/sqrt(dh) reaches 2-3x it
         q = (_bf16(rng, (B, T, nh, dh), dev) * q_sd).requires_grad_(True)
@@ -849,8 +853,9 @@ def test_windowed_and_dh64_backward_raise_on_the_card(dev):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["flash_attention_bwd_dq"] == before + 1
     assert torch.isfinite(gq.float()).all() and torch.isfinite(gs).all() and gs.abs().max() > 0
-    # what K2 does not take raises, naming the pair or the ROADMAP item
-    for dh, dv_w, item in ((256, 128, r"head dims \(q/k 256, v 128\)"), (96, 96, "B3-96")):
+    # what K2 does not take raises, naming the pair
+    for dh, dv_w, item in ((256, 128, r"head dims \(q/k 256, v 128\)"),
+                           (80, 80, r"head dims \(q/k 80, v 80\)")):
         q, do = _bf16(rng, (1, 32, 4, dh), dev), _bf16(rng, (1, 32, 4, dv_w), dev)
         k, v = _bf16(rng, (1, 32, 2, dh), dev), _bf16(rng, (1, 32, 2, dv_w), dev)
         mask = torch.ones((1, 32), dtype=torch.int32, device=dev)
@@ -1170,3 +1175,153 @@ def test_deepseek_forward_and_decode_on_the_card_match_the_cpu(dev, monkeypatch)
     monkeypatch.setattr(moe, "route_deepseek", lambda *a, **kw: next(replay))
     for a, b in zip(got, run(cpu, cfg_cpu, torch.device("cpu"))):
         assert float((a - b).norm() / b.norm()) <= 5e-2
+
+
+# ---------------------------------------------------------------- dh 96 (Phi-3), groups > 8
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,nkv", [(32, 32), (8, 2)])
+@pytest.mark.parametrize("name,T,S,qstart,window", [
+    ("flash_attention_cached", 512, 640, 0, 0),      # fresh prefill
+    ("flash_attention_cached", 64, 768, 512, 0),     # prefix-hit suffix prefill
+    ("flash_attention_cached", 300, 640, 200, 128),  # banded, the band biting
+    ("flash_attention", 512, 512, 0, 0),             # value forward
+    ("flash_attention", 300, 300, 0, 64),            # banded no-cache forward
+])
+def test_flash_dh96_kernels_match_plain(dev, nh, nkv, name, T, S, qstart, window):
+    """K1/K3 at head dim 96 (Phi-3's 32/32 heads and a group of 4), full and
+    banded, ragged rows with a hole, counted under the launch name; where
+    the band bites a window off by one (a planted fault) fails."""
+    rng = np.random.default_rng(900 + T + S + window + nh)
+    B, dh = 3, 96
+    q = _bf16(rng, (B, T, nh, dh), dev)
+    k, v = _bf16(rng, (B, S, nkv, dh), dev), _bf16(rng, (B, S, nkv, dh), dev)
+    qs = torch.full((B,), qstart, dtype=torch.int32, device=dev)
+    lens = torch.tensor([qstart + T, qstart + T - 17, qstart + T - 40], device=dev)
+    kv_valid = (torch.arange(S, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+    kv_valid[0, 5:12] = 0
+    scale = dh ** -0.5
+    key = fa.launch_name(name, window)
+    before = _cuda.LAUNCHES[key]
+    out, lse = fa._attention_cuda(q, k, v, kv_valid, qs, scale, name, window)
+    ref, ref_lse = fa.attention_plain(q, k, v, kv_valid, qs, scale, window)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    seen = ref_lse > -1e29
+    assert (lse[seen] - ref_lse[seen]).abs().max().item() <= 1e-3
+    if window:
+        bad = fa._attention_cuda(q, k, v, kv_valid, qs, scale, name, window + 1)[0]
+        torch.cuda.synchronize()
+        assert (bad.float() - ref.float()).abs().max().item() > ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,nkv", [(32, 32), (8, 2)])
+@pytest.mark.parametrize("T,window", [(1, 0), (300, 0), (1000, 128), (77, 16)])
+def test_flash_bwd_dh96_kernels_match_plain(dev, nh, nkv, T, window):
+    """K2 at head dim 96 (Phi-3's 32/32 heads and a group of 4), full and
+    banded, a right-padded row and a hole, phase 1b's limit; a window off
+    by one (a planted fault) fails where the band bites."""
+    rng = np.random.default_rng(950 + T + window + nh)
+    B, dh = 2, 96
+    q, do = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dh), dev)
+    k, v = _bf16(rng, (B, T, nkv, dh), dev), _bf16(rng, (B, T, nkv, dh), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, (3 * T) // 4 + 1:] = 0
+    mask[0, T // 3:T // 3 + T // 10] = 0
+    got, ref = _bwd_pair(q, k, v, mask, 0, do, window)
+    _assert_bwd_close(got, ref)
+    if window and window < T:
+        qs, scale = torch.zeros(B, dtype=torch.int32, device=dev), dh ** -0.5
+        out, lse = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention", window)
+        args = (q, k, v, mask, qs, lse, do, (do.float() * out.float()).sum(-1), scale, window + 1)
+        bad = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+        torch.cuda.synchronize()
+        with pytest.raises(AssertionError):
+            _assert_bwd_close(bad, ref)
+
+
+def _decode_case(rng, dev, dh, nh, nkv, int8, W=2047, scale_q=1.0):
+    """24 decode rows over S=640, prompts up to 512, decode columns from
+    512, a window's clipped ranges on the odd rows (a W past the prompt
+    clips nothing)."""
+    L, B, S, slot = 2, 24, 640, 600
+    q = torch.from_numpy((rng.normal(size=(B, nh, dh)) * scale_q).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    kc, vc = _bf16(rng, (L, B, nkv, S, dh), dev), _bf16(rng, (L, B, nkv, S, dh), dev)
+    scl = None
+    if int8:
+        (kc, ks), (vc, vs) = _quantize_kv(kc), _quantize_kv(vc)
+        scl = (ks, vs)
+    lens = torch.from_numpy(rng.integers(1, 513, B).astype(np.int32)).to(dev)
+    pos = lens + (slot - 512)
+    odd = torch.arange(B, device=dev) % 2 == 1
+    pstart = torch.where(odd, torch.minimum(torch.clamp(pos - (W - 1), min=0), lens),
+                         torch.zeros_like(lens)).to(torch.int32)
+    dstart = torch.where(odd, torch.full_like(lens, max(512, slot - (W - 1))),
+                         torch.full_like(lens, 512)).to(torch.int32)
+    return q, kc, vc, scl, lens, dstart, pstart, slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dh,nh,nkv,W", [
+    (96, 32, 32, 2047),   # Phi-3-mini: group 1, its window past every prompt
+    (96, 32, 32, 200),    # the same heads with a band that clips
+    (96, 8, 1, 200),      # dh 96 with a whole group of 8
+    (128, 18, 2, 300),    # group 9: blocks of 5 + 4
+    (128, 24, 2, 4096),   # StarCoder2-3B: group 12, blocks of 6 + 6
+    (128, 32, 2, 300),    # group 16: 8 + 8
+    (96, 32, 1, 300),     # group 32 at dh 96: four blocks of 8
+])
+def test_ragged_dh96_and_large_groups_match_plain(dev, int8, dh, nh, nkv, W):
+    """K4/K5 at head dim 96 and at GQA groups above 8 (9, 12, 16, 32),
+    bf16 and int8 caches, full and window-clipped ranges, counted under
+    their entries; K and V taken from the next layer (a planted fault)
+    fail the check."""
+    rng = np.random.default_rng(1000 + dh + nh + nkv + W + int8)
+    q, kc, vc, scl, lens, dstart, pstart, slot = _decode_case(rng, dev, dh, nh, nkv, int8, W)
+    name = "ragged_decode_attention_q8" if int8 else "ragged_decode_attention"
+
+    def err(out, ref):
+        if int8:
+            return _q8_excess(out, ref)
+        return (out.float() - ref.float()).abs().max().item() - ATOL
+
+    for layer in (0, 1):
+        before = _cuda.LAUNCHES[name]
+        out = rda.ragged_decode_attention(q, kc, vc, layer, lens, dstart, slot, pstart,
+                                          cache_scale=scl)
+        ref = rda.ragged_decode_plain(q, kc, vc, layer, lens, dstart, slot, pstart,
+                                      cache_scale=scl)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[name] == before + 1
+        assert torch.isfinite(out.float()).all()
+        assert err(out, ref) <= 0
+    bad = rda.ragged_decode_attention(q, kc, vc, 0, lens, dstart, slot, pstart, cache_scale=scl)
+    torch.cuda.synchronize()
+    assert err(bad, ref) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dh,nh,nkv", [(128, 24, 2), (96, 36, 3)])
+def test_ragged_sink_kernels_with_large_groups(dev, int8, dh, nh, nkv):
+    """The sink entries at groups of 12: each block of the group starts its
+    softmax at its own heads' sinks; the sinks of the next head (a planted
+    fault) fail."""
+    rng = np.random.default_rng(1100 + dh + int8)
+    q, kc, vc, scl, lens, dstart, pstart, slot = _decode_case(rng, dev, dh, nh, nkv, int8, 128)
+    sinks = rng.normal(size=nh) + np.where(np.arange(nh) % 2 == 0, 8.0, -8.0)
+    sinks = torch.from_numpy(sinks.astype(np.float32)).to(dev)
+    out = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, cache_scale=scl,
+                                      sinks=sinks)
+    ref = rda.ragged_decode_plain(q, kc, vc, 1, lens, dstart, slot, pstart, cache_scale=scl,
+                                  sinks=sinks)
+    bad = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, cache_scale=scl,
+                                      sinks=sinks.roll(-1).contiguous())
+    torch.cuda.synchronize()
+    assert _sink_err(out, ref, int8) <= 0
+    assert _sink_err(bad, ref, int8) > 0

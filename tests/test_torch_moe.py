@@ -436,6 +436,7 @@ def test_from_hf_refuses_mixed_dense_sparse_stacks(hf_dirs, tmp_path):
             qwen2.Qwen2Config.from_hf({**base, **extra})
         with pytest.raises(ValueError, match="dense layers mixed"):
             JCfg.from_hf({**base, **extra})
-    with pytest.raises(ValueError, match="not yet ported"):
-        qwen2.Qwen2Config.from_hf({**base, "model_type": "mixtral", "num_local_experts": 4,
-                                   "sliding_window": 32})
+    # mixtral's window (every layer) parses as JAX parses it
+    mixtral = {**base, "model_type": "mixtral", "num_local_experts": 4, "sliding_window": 32}
+    t, j = qwen2.Qwen2Config.from_hf(mixtral), JCfg.from_hf(mixtral)
+    assert (t.sliding_window, t.layer_windows) == (j.sliding_window, j.layer_windows) == (32, ())

@@ -417,3 +417,29 @@ def test_trainer_refuses_quantized_params(tiny, quantized):
     with pytest.raises(ValueError, match="full-precision"):
         MTPOTrainer(model=(quantized[4][1], tcfg), agent_cls_list=[], args=args,
                     reward_fns=[], train_dataset=[], tokenizer=IdTok())
+
+
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_ref_logps_on_quantized_trees_match_jax(bits, tied):
+    """The training log-probs take a quantized LM head as JAX's chunk body
+    does (the hidden folded by the int8 head's scale, the table cast, an
+    f32 product): ``ref_logps_fn`` of both packages on the same
+    ``quantize_params`` tree, tied and untied heads, within 1e-4."""
+    from lapha_tpu.train import losses as jlosses
+    from lapha_tpu_torch.train import losses
+
+    jcfg = JCfg.tiny(vocab_size=V, tie_word_embeddings=tied)
+    jqp = jquant.quantize_params(jq.init_params(jcfg, jax.random.key(11)), bits=bits, group=32)
+    tqp = loader.params_from_numpy(_np_tree(jqp))
+    head = tqp["embed" if tied else "lm_head"]["weight"]
+    assert quant.is_quantized(head) and "s" in head
+    tcfg = qwen2.Qwen2Config.tiny(vocab_size=V, tie_word_embeddings=tied)
+    ids = np.random.default_rng(12).integers(2, V, (2, 16))
+    comp = np.zeros((2, 16), np.int32)
+    comp[:, 8:] = 1
+    batch = {"ids": ids, "attn": np.ones((2, 16), np.int32), "comp_mask": comp}
+    jl = jlosses.ref_logps_fn(jqp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg, 1.0)
+    tl = losses.ref_logps_fn(tqp, {k: _t(v) for k, v in batch.items()}, tcfg, 1.0)
+    assert tl.shape == (2, 15) and float(tl[:, 8:].abs().min()) > 0
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
