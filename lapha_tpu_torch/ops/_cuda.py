@@ -44,7 +44,7 @@ LAUNCHES = {name + cap: 0
                          "flash_attention_bwd_dkv_narrowv_window")
             for cap in ("", "_softcap")}
 LAUNCHES.update({name: 0 for name in (
-    "int4_matmul", "grouped_gemm", "grouped_gemm_dx", "grouped_gemm_tgmm")})
+    "int4_matmul", "grouped_gemm", "grouped_gemm_wg", "grouped_gemm_dx", "grouped_gemm_tgmm")})
 
 _lib = None
 build_log = ""  # nvcc's output of the build this process ran (ptxas register/smem report)
@@ -131,7 +131,8 @@ def lib() -> ctypes.CDLL:
         dll.lapha_ragged_decode_q8_sink.restype = _I
         dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         dll.lapha_int4_matmul.restype = _I
-        dll.lapha_grouped_gemm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        # ints: M K N G, then 1 for the wgmma kernel, 0 for the 64-row one
+        dll.lapha_grouped_gemm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         dll.lapha_grouped_gemm.restype = _I
         for entry in (dll.lapha_grouped_gemm_dx, dll.lapha_grouped_gemm_tgmm):
             entry.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]

@@ -7,10 +7,15 @@ hitting expert g, with ``off_g`` the exclusive prefix sum of the sizes.
 The result is (M, N) f32 (JAX's ``preferred_element_type=float32``); rows
 past ``sum(group_sizes)`` are 0, as ragged_dot gives.
 
-The CUDA kernel (``csrc/grouped_gemm.cu``) keeps the group sizes on the
+The CUDA kernels (``csrc/grouped_gemm.cu``) keep the group sizes on the
 device: every block finds its (expert, row tile) from their prefix sums, so
-the MoE layer never waits on the host. It takes bf16 xs and w and K a
-multiple of 8.
+the MoE layer never waits on the host. They take bf16 xs and w and K a
+multiple of 8. The forward has two: a wgmma kernel fed by TMA
+(``grouped_gemm_wg``, 128-row tiles) where the experts get many rows, and
+the 64-row mma.sync kernel (``grouped_gemm``) at decode and for weights
+that TMA cannot read (N % 8 != 0, or not 16-byte aligned).
+``forward_kernel`` picks one on the host from M, G, N and the weights'
+address, never from the group sizes; each counts its own launches.
 
 The function is a ``torch.autograd.Function`` whose backward is megablox's
 ``_gmm_bwd`` (jax 0.9.0 ``megablox/ops.py:63-105``): the f32 cotangent dY
@@ -22,9 +27,10 @@ rounds it), then
 - dW_g = xs_gᵀ @ dY_g, in w's dtype (``tgmm``); an expert without rows
   gets exact zeros.
 
-On CUDA these are two kernels of the same source (``grouped_gemm_dx``,
-K8 reading rows of w_g, and ``grouped_gemm_tgmm``), the group sizes again
-never leaving the device; they take N a multiple of 8 too.
+On CUDA these are two wgmma kernels of the same source (``grouped_gemm_dx``,
+the forward's wgmma kernel reading rows of w_g, and ``grouped_gemm_tgmm``),
+the group sizes again never leaving the device; they take N a multiple of 8
+too.
 
 A CPU tensor takes the plain versions, per-expert loops of f32 matmuls over
 the row groups (they read the sizes to the host). A CUDA tensor launches the
@@ -38,9 +44,26 @@ import torch
 from . import _cuda
 
 __all__ = ["grouped_gemm", "grouped_gemm_plain", "grouped_gemm_dx_plain",
-           "grouped_gemm_tgmm_plain"]
+           "grouped_gemm_tgmm_plain", "forward_kernel"]
 
 GMAX = 1024  # most groups the kernel's shared prefix sums hold (csrc GMAX)
+# the wgmma forward takes over from the 64-row kernel at this many rows an
+# expert on average (M >= WG_MIN_ROWS · G). bench_k8's sweep (NVIDIA H100
+# 80GB HBM3, 700 W) read the wgmma kernel at 0.931x / 0.955x the 64-row
+# kernel's time at 8 rows an expert (Qwen1.5-MoE's 2048 -> 1408, GPT-OSS's
+# 2880 -> 5760), 1.011x / 1.021x at 4 and 0.959x / 1.219x at 2
+WG_MIN_ROWS = 8
+
+
+def forward_kernel(M: int, G: int, N: int, w_ptr: int) -> str:
+    """The forward kernel for xs (M, K) and w (G, K, N) at address
+    ``w_ptr``: "grouped_gemm_wg" (wgmma, 128-row tiles) where the experts
+    get WG_MIN_ROWS rows or more on average and TMA can read the weights
+    (rows of N a multiple of 8, 16-byte aligned), else "grouped_gemm" (the
+    64-row mma.sync kernel). Every input is known on the host."""
+    if N % 8 == 0 and w_ptr % 16 == 0 and M >= WG_MIN_ROWS * G:
+        return "grouped_gemm_wg"
+    return "grouped_gemm"
 
 
 def grouped_gemm_plain(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -107,10 +130,12 @@ def _grouped_gemm_cuda(xs, w, group_sizes):
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0 or N == 0:
         return out
+    kernel = forward_kernel(M, G, N, w.data_ptr())
     err = _cuda.lib().lapha_grouped_gemm(xs.data_ptr(), w.data_ptr(), gs.data_ptr(),
-                                         out.data_ptr(), M, K, N, G, _cuda.stream_of(xs))
-    _cuda.check_launch(err, name)
-    _cuda.LAUNCHES[name] += 1
+                                         out.data_ptr(), M, K, N, G,
+                                         int(kernel == "grouped_gemm_wg"), _cuda.stream_of(xs))
+    _cuda.check_launch(err, kernel)
+    _cuda.LAUNCHES[kernel] += 1
     return out
 
 
@@ -131,6 +156,7 @@ def grouped_gemm_dx_cuda(dy, w, group_sizes):
     name = "grouped_gemm_dx"
     M, N = dy.shape
     G, K, _ = w.shape
+    _cuda.require(K % 8 == 0, name, f"K = {K} (the kernel takes K a multiple of 8)")
     gs = _bwd_args(name, dy, w, group_sizes)
     dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
     if M == 0:

@@ -27,7 +27,9 @@ another order: max |diff| <= 1e-3 · max |plain|. Group sizes shifted by one
 row (a planted fault) must fail that check. Its backward kernels (dX,
 tgmm) write bf16: against the plain versions in f32 on the same
 bf16-rounded cotangent, per element |diff| <= 1e-3 · max |plain| + 2^-8 ·
-|plain| (the store's rounding).
+|plain| (the store's rounding). The forward has a wgmma kernel and a
+64-row mma.sync kernel, picked on the host (``grouped_gemm.forward_kernel``)
+and counted apart; every case asserts which one ran.
 
 The sink entries of the ragged decode kernel (K5s, bf16 and int8 caches)
 keep the tolerances of their entries without sinks (3e-2; the int8 rule);
@@ -582,11 +584,16 @@ def _gg_bf16_err(out, ref):
 def test_grouped_gemm_kernel_matches_plain(dev, sizes, K, N):
     rng = np.random.default_rng(sum(sizes) + K + N)
     xs, w, gs = _gg_inputs(rng, sizes, K, N, dev)
-    before = _cuda.LAUNCHES["grouped_gemm"]
+    # the host's rule: the 64-row kernel at decode's few rows an expert and
+    # for N % 8 != 0, the wgmma kernel above WG_MIN_ROWS rows an expert
+    kernel = gg.forward_kernel(sum(sizes), len(sizes), N, w.data_ptr())
+    before = dict(_cuda.LAUNCHES)
     out = gg.grouped_gemm(xs, w, gs)
     ref = gg.grouped_gemm_plain(xs, w, gs)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["grouped_gemm"] == before + 1
+    assert _cuda.LAUNCHES[kernel] == before[kernel] + 1
+    other = "grouped_gemm" if kernel == "grouped_gemm_wg" else "grouped_gemm_wg"
+    assert _cuda.LAUNCHES[other] == before[other]
     assert out.dtype == torch.float32 and tuple(out.shape) == (sum(sizes), N)
     assert torch.isfinite(out).all()
     assert _gg_err(out, ref) <= 1.0
@@ -653,10 +660,12 @@ def test_grouped_gemm_cuda_backward_raises_and_wrapper_rejects(dev, sizes, K, N,
 
 
 @pytest.mark.cuda
-def test_moe_block_on_the_card_matches_the_cpu_without_syncs(dev):
+@pytest.mark.parametrize("tokens", [50, 12])
+def test_moe_block_on_the_card_matches_the_cpu_without_syncs(dev, tokens):
     """The gather path in bf16 on the card (K8) against f32 on the CPU with
     the routing forced equal, and the whole block under the sync debug mode:
-    nothing in it reads back to the host."""
+    nothing in it reads back to the host. 50 tokens x top-4 over 16 experts
+    take the wgmma kernel, 12 the 64-row one (the host's rule)."""
     from lapha_tpu_torch.models import qwen2
     from lapha_tpu_torch.ops import moe
 
@@ -665,8 +674,10 @@ def test_moe_block_on_the_card_matches_the_cpu_without_syncs(dev):
                                  num_hidden_layers=1, dtype=torch.bfloat16)
     p = qwen2._layer_stack(qwen2.init_params(cfg, torch.Generator(device=dev).manual_seed(0)))[0]
     p = p["moe"]
-    x = _bf16(np.random.default_rng(7), (50, 256), dev)
-    before = _cuda.LAUNCHES["grouped_gemm"]
+    x = _bf16(np.random.default_rng(7), (tokens, 256), dev)
+    kernel = gg.forward_kernel(4 * tokens, 16, 128, p["experts"]["gate_proj"]["w"].data_ptr())
+    assert kernel == ("grouped_gemm_wg" if tokens == 50 else "grouped_gemm")
+    before = _cuda.LAUNCHES[kernel]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -675,12 +686,91 @@ def test_moe_block_on_the_card_matches_the_cpu_without_syncs(dev):
         routed = moe.moe_ffn_gather(x, p, top_k=4, norm_topk=False, routing=(topw, topi))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert _cuda.LAUNCHES["grouped_gemm"] == before + 6
+    assert _cuda.LAUNCHES[kernel] == before + 6
     cpu = quant.tree_to(p, "cpu", torch.float32)
     ref = moe.moe_ffn_gather(x.float().cpu(), cpu, top_k=4, norm_topk=False,
                              routing=(topw.float().cpu(), topi.cpu()))
     assert float((routed.float().cpu() - ref).norm() / ref.norm()) <= 2e-2
     assert torch.isfinite(got.float()).all()
+
+
+def _gmax_sizes(rng):
+    """GMAX (1024) experts, most of them empty: 12 take 1400-2000 rows (so
+    that M >= WG_MIN_ROWS · G picks the wgmma forward)."""
+    sizes = np.zeros(gg.GMAX, np.int64)
+    sizes[rng.choice(gg.GMAX, 12, replace=False)] = rng.integers(1400, 2001, 12)
+    return tuple(int(s) for s in sizes)
+
+
+# The wgmma kernels' ragged edges: groups ending off the 64- and 128-row
+# tiles; a group starting mid-chunk after an odd-sized one (tgmm's last
+# chunk runs into the next expert's rows); rows past the groups; GPT-OSS's
+# 2880 (22.5 tiles of 128); GMAX experts, most empty; one expert with every row.
+GG_WG_CASES = [
+    ((129, 191, 546), 256, 384, None),
+    ((67, 0, 133, 1, 255, 0), 136, 200, None),
+    ((100, 0, 150, 13), 64, 128, 291),           # 28 rows past the groups, wgmma forward
+    ((300, 0, 129, 211), 2880, 2880, None),
+    ((300, 0, 129, 211), 2880, 5760, None),
+    ("gmax", 64, 128, None),
+    ((0, 0, 0, 600, 0), 128, 256, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,K,N,M", GG_WG_CASES)
+def test_grouped_gemm_wgmma_kernels_match_plain(dev, sizes, K, N, M):
+    """The wgmma forward, dX and tgmm against the plain versions at the
+    limits of the kernels above: the host's rule picks the wgmma forward
+    (counted apart from the 64-row kernel); rows past the groups get zeros
+    in the forward and in dX; dW is written whole over a NaN-filled output,
+    empty experts exact zeros, and two launches are bit-equal."""
+    rng = np.random.default_rng(len(str(sizes)) + K + N)
+    if sizes == "gmax":
+        sizes = _gmax_sizes(rng)
+    xs, w, gs = _gg_inputs(rng, sizes, K, N, dev, M=M)
+    M, G, total = xs.shape[0], len(sizes), sum(sizes)
+    assert gg.forward_kernel(M, G, N, w.data_ptr()) == "grouped_gemm_wg"
+    dy = _bf16(rng, (M, N), dev)
+    before = dict(_cuda.LAUNCHES)
+    out = gg.grouped_gemm(xs, w, gs)
+    dx = gg.grouped_gemm_dx_cuda(dy, w, gs)
+    dw = gg.grouped_gemm_tgmm_cuda(xs, dy, gs, out=torch.full_like(w, float("nan")))
+    dw2 = gg.grouped_gemm_tgmm_cuda(xs, dy, gs)
+    torch.cuda.synchronize()
+    for name, n in (("grouped_gemm_wg", 1), ("grouped_gemm", 0), ("grouped_gemm_dx", 1),
+                    ("grouped_gemm_tgmm", 2)):
+        assert _cuda.LAUNCHES[name] == before[name] + n, name
+    assert _gg_err(out, gg.grouped_gemm_plain(xs, w, gs)) <= 1.0
+    assert _gg_bf16_err(dx, gg.grouped_gemm_dx_plain(dy.float(), w.float(), gs)) <= 1.0
+    assert _gg_bf16_err(dw, gg.grouped_gemm_tgmm_plain(xs.float(), dy.float(), gs)) <= 1.0
+    assert not out[total:].any() and not dx[total:].any()
+    assert torch.equal(dw, dw2) and torch.isfinite(dw.float()).all()
+    assert not dw[torch.nonzero(gs == 0).flatten()].any()
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_wgmma_kernels_catch_planted_faults(dev):
+    """Group sizes shifted by one row (the last row of a group handed to the
+    next expert) fail the checks of the wgmma forward, dX and tgmm; so does
+    a group end moved by one row inside tgmm's last chunk."""
+    rng = np.random.default_rng(12)
+    xs, w, gs = _gg_inputs(rng, (129, 191, 546, 70), 256, 384, dev)
+    dy = _bf16(rng, (xs.shape[0], 384), dev)
+    ref = (gg.grouped_gemm_plain(xs, w, gs), gg.grouped_gemm_dx_plain(dy.float(), w.float(), gs),
+           gg.grouped_gemm_tgmm_plain(xs.float(), dy.float(), gs))
+    for g in (0, 1):
+        shifted = gs.clone()
+        shifted[g] -= 1
+        shifted[g + 1] += 1
+        before = _cuda.LAUNCHES["grouped_gemm_wg"]
+        bad = (gg.grouped_gemm(xs, w, shifted), gg.grouped_gemm_dx_cuda(dy, w, shifted),
+               gg.grouped_gemm_tgmm_cuda(xs, dy, shifted))
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["grouped_gemm_wg"] == before + 1
+        assert _gg_err(bad[0], ref[0]) > 1.0
+        assert _gg_bf16_err(bad[1], ref[1]) > 1.0
+        assert _gg_bf16_err(bad[2], ref[2]) > 1.0
 
 
 # ---------------------------------------------------------------- GPT-OSS: K5s, windowed K1/K3, dh 64
@@ -1168,8 +1258,10 @@ def test_deepseek_forward_and_decode_on_the_card_match_the_cpu(dev, monkeypatch)
     before = dict(_cuda.LAUNCHES)
     got = run(params, cfg, dev)
     torch.cuda.synchronize()
+    # K8: the prefill's 240 pair rows over 8 experts on the wgmma kernel, the
+    # decode's 6 on the 64-row one
     for name, count in _cuda.LAUNCHES.items():
-        ran = name in ("flash_attention_cached_narrowv", "grouped_gemm")
+        ran = name in ("flash_attention_cached_narrowv", "grouped_gemm", "grouped_gemm_wg")
         assert (count > before[name]) == ran, name
     replay = iter(seen)
     monkeypatch.setattr(moe, "route_deepseek", lambda *a, **kw: next(replay))

@@ -8,7 +8,8 @@ The JAX side runs as tests/test_moe.py runs it on the CPU: ``_grouped_gemm``
 is ``jax.lax.ragged_dot`` there. Both sides get the same numpy inputs and
 JAX-initialised (or HF-saved) weights through numpy. Tolerances: the
 grouped GEMM and the MoE block within 1e-5 (the same f32 products summed in
-another order), routing weights within 1e-6 with equal expert ids, logits
+another order; dW of the ragged cases, sums over up to 600 rows, within 1e-5
+of its largest entry, as tests/test_torch_moe_train.py holds dW), routing weights within 1e-6 with equal expert ids, logits
 and values within 1e-4 (as the dense model's tests), quantized and loaded
 leaves equal bit for bit, greedy token ids exactly equal.
 """
@@ -104,15 +105,38 @@ def _jit(fn, **static):
 
 # ---------------------------------------------------------------- grouped GEMM
 
+def _gmax_sizes():
+    """GMAX (1024) groups, most of them empty: 12 take 20-60 rows."""
+    rng = np.random.default_rng(1024)
+    sizes = np.zeros(tgg.GMAX, np.int64)
+    sizes[rng.choice(tgg.GMAX, 12, replace=False)] = rng.integers(20, 61, 12)
+    return tuple(int(s) for s in sizes)
+
+
+# The cases the card's wgmma kernels take at their edges: groups ending off
+# the 64- and 128-row tiles; a group starting mid-chunk after an odd-sized
+# one; rows past the groups; GMAX groups, most empty; one expert with every
+# row. Rows past the groups of a case, where it has them:
+RAGGED = [(129, 191, 546), (67, 0, 133, 1, 255, 0), (100, 0, 150, 13), _gmax_sizes(),
+          (0, 0, 0, 600, 0)]
+ROWS_PAST = {(100, 0, 150, 13): 28}
+
+
+def _rows(sizes) -> int:
+    """M of a case: 16 for the small ones, else the groups' rows and those
+    past them."""
+    return max(16, sum(sizes) + ROWS_PAST.get(tuple(sizes), 0))
+
+
 @pytest.mark.parametrize("sizes", [
     (3, 0, 1, 7, 0, 5),      # empty groups and a group of one row
     (0, 0, 16, 0, 0, 0),     # one expert takes every row
     (1, 1, 1, 1, 1, 11),
     (2, 0, 4, 0, 0, 3),      # rows past the groups: zeros
-])
+] + RAGGED)
 def test_grouped_gemm_plain_matches_jax(sizes):
     rng = np.random.default_rng(sum(sizes))
-    M, K, N = 16, 24, 40
+    M, K, N = _rows(sizes), 24, 40
     xs = rng.normal(size=(M, K)).astype(np.float32)
     w = rng.normal(size=(len(sizes), K, N)).astype(np.float32)
     gs = np.asarray(sizes, np.int32)
@@ -131,7 +155,29 @@ def test_grouped_gemm_plain_matches_jax(sizes):
     txs, tw = _t(xs).requires_grad_(True), _t(w).requires_grad_(True)
     tdx, tdw = torch.autograd.grad(tgg.grouped_gemm(txs, tw, _t(gs)), (txs, tw), _t(dout))
     _close(tdx, jdx, BLOCK_ATOL)
-    _close(tdw, jdw, BLOCK_ATOL)
+    # dW of a ragged case sums up to 600 rows: 1e-5 of its largest entry
+    scale = float(np.abs(np.asarray(jdw)).max()) if tuple(sizes) in RAGGED else 1.0
+    _close(tdw, jdw, BLOCK_ATOL * scale)
+
+
+@pytest.mark.parametrize("M,G,N,w_ptr,kernel", [
+    (96, 60, 1408, 0, "grouped_gemm"),       # decode: 24 tokens x top-4 over 60 experts
+    (96, 32, 5760, 0, "grouped_gemm"),       # GPT-OSS's decode
+    (144, 64, 1408, 0, "grouped_gemm"),      # DeepSeek-V2-Lite's: 24 tokens x top-6
+    (tgg.WG_MIN_ROWS * 60 - 1, 60, 1408, 0, "grouped_gemm"),  # one row short
+    (tgg.WG_MIN_ROWS * 60, 60, 1408, 0, "grouped_gemm_wg"),
+    (8192, 60, 1408, 0, "grouped_gemm_wg"),  # prefill: 4 x 512 tokens x top-4
+    (32768, 60, 2048, 0, "grouped_gemm_wg"),  # training: 8 x 1024 tokens x top-4
+    (16384, 32, 5760, 0, "grouped_gemm_wg"),
+    (49152, 64, 1408, 0, "grouped_gemm_wg"),
+    (8192, 60, 1410, 0, "grouped_gemm"),     # N % 8 != 0: TMA cannot read the rows of w
+    (8192, 60, 1408, 8, "grouped_gemm"),     # w not 16-byte aligned
+    (tgg.WG_MIN_ROWS * tgg.GMAX, tgg.GMAX, 128, 256, "grouped_gemm_wg"),
+])
+def test_grouped_gemm_forward_kernel_rule(M, G, N, w_ptr, kernel):
+    """The host's choice between the card's two forward kernels, from M, G,
+    N and the weights' address alone (the group sizes stay on the device)."""
+    assert tgg.forward_kernel(M, G, N, w_ptr) == kernel
 
 
 def test_grouped_gemm_rejects_bad_shapes():

@@ -38,6 +38,7 @@ from lapha_tpu_torch.models import loader, qwen2
 from lapha_tpu_torch.ops import grouped_gemm as tgg
 from lapha_tpu_torch.train import losses as tl
 from lapha_tpu_torch.train import optim as topt
+from test_torch_moe import RAGGED, _rows
 
 GG_RTOL = 1e-5
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -77,12 +78,13 @@ def _close_rel(t_out, ref, rtol=GG_RTOL):
     (3, 0, 1, 7, 0, 5),      # empty groups and a group of one row
     (0, 0, 16, 0, 0, 0),     # one expert takes every row
     (2, 0, 4, 0, 0, 3),      # rows past the groups: their dX is 0
-])
+] + RAGGED)
 def test_grouped_gemm_backward_plain_matches_jax_vjp(sizes):
     """dX and dW of the port's autograd Function on the CPU (the plain dX and
-    tgmm) against jax.vjp of _grouped_gemm (ragged_dot)."""
+    tgmm) against jax.vjp of _grouped_gemm (ragged_dot); the ragged cases
+    are those of tests/test_torch_moe.py (the wgmma kernels' edges)."""
     rng = np.random.default_rng(sum(sizes))
-    M, K, N = 16, 24, 40
+    M, K, N = _rows(sizes), 24, 40
     gs = np.asarray(sizes, np.int32)
     xs = rng.normal(size=(M, K)).astype(np.float32)
     w = rng.normal(size=(len(sizes), K, N)).astype(np.float32)
