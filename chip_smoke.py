@@ -15,6 +15,8 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    the same bf16 inputs and saved LSE, at B=4 T=1024 (ragged masks) and B=2
    T=1000 (padded tails), 12/2 heads: max |diff| <= 1e-2 * max |plain| +
    1e-3 for each of dq, dk, dv; timed in turns against the plain version.
+   Here and in every K2 check below (1h, 1i, 1k, 1l) dq and dk/dv are
+   launched a second time and must be bit-equal to the first launch.
 1c. The quantized-serving kernels against their plain versions at the
    path's shapes, timed in turns: the int8-cache ragged decode (K5) at B=48,
    S=768, prompts of 512, 12/2 heads, caches from ``_quantize_kv`` of random
@@ -23,7 +25,10 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    must break that check; the int4 dequant-matmul (K6) at 48 rows for each
    projection of the model (1536->1536, 1536->256, 1536->8960, 8960->1536)
    and at 512 rows (max |diff| <= 1e-3 * max |plain|: the same exact bf16 x
-   nibble products, f32 sums in another order), timed beside
+   nibble products, f32 sums in another order), two launches bit-equal (the
+   split in-dim's partial sums are added in a fixed order), and one split's
+   contribution dropped (a planted fault, its pairs' scales zeroed) must
+   fail the check; timed as CUDA-graph replays beside
    ``torch._weight_int4pack_mm`` on the same weights.
 1d. The grouped GEMM (K8) against its plain version at the MoE paths'
    shapes, timed in turns beside ``torch._grouped_mm``: decode gate/up (96
@@ -487,15 +492,16 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _ab_ms(kernel_fn, plain_fn, library_fn=None) -> tuple[float, float, float | None]:
+def _ab_ms(kernel_fn, plain_fn, library_fn=None, timer=_time_ms
+           ) -> tuple[float, float, float | None]:
     """Kernel, plain and library times, measured in turns (kernel, plain,
-    library, library, plain, kernel) and averaged, so drift in clocks hits
-    all alike. The library time is None without a library call."""
-    k1, p1 = _time_ms(kernel_fn), _time_ms(plain_fn)
+    library, library, plain, kernel) by ``timer`` and averaged, so drift in
+    clocks hits all alike. The library time is None without a library call."""
+    k1, p1 = timer(kernel_fn), timer(plain_fn)
     lib = None
     if library_fn is not None:
-        lib = (_time_ms(library_fn) + _time_ms(library_fn)) / 2
-    p2, k2 = _time_ms(plain_fn), _time_ms(kernel_fn)
+        lib = (timer(library_fn) + timer(library_fn)) / 2
+    p2, k2 = timer(plain_fn), timer(kernel_fn)
     return (k1 + k2) / 2, (p1 + p2) / 2, lib
 
 
@@ -749,12 +755,18 @@ def check_quant_kernels(dev, card):
     results["ragged_decode_attention_q8"] = _row(err, ms, plain_ms, None, nbytes,
                                                  4 * dh * nh * n_valid)
 
-    # K6: every projection of the model at 48 decode rows, and 512 rows
+    # K6: every projection of the model at 48 decode rows, and 512 rows.
+    # Timed as CUDA-graph replays (bench_k6.graph_ms): at a few microseconds
+    # a call, launches from Python would time the host.
+    from lapha_tpu_torch.bench_k6 import graph_ms
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, IN, OUT in ((48, 1536, 1536), (48, 1536, 256), (48, 1536, 8960), (48, 8960, 1536),
                        (512, 1536, 8960)):
         x = bf16(B, IN)
         leaf = quant.quantize_weight_int4(torch.randn((IN, OUT), generator=gen, device=dev), 128)
         out = i4.int4_matmul(x, leaf["q"], leaf["s4"])
+        again = i4.int4_matmul(x, leaf["q"], leaf["s4"])
         ref = i4.int4_matmul_plain(x, leaf["q"], leaf["s4"])
         lib = _int4_library(x, leaf, 128)
         lib_out = lib()
@@ -762,19 +774,40 @@ def check_quant_kernels(dev, card):
         err, top = float((out - ref).abs().max()), float(ref.abs().max())
         check(bool(torch.isfinite(out).all()) and err <= INT4_RTOL * top,
               f"int4_matmul {B}x{IN}->{OUT}: max|diff| {err} vs max|plain| {top}")
+        # the partial sums of the split in-dim are added in a fixed order
+        check(torch.equal(out, again), f"int4_matmul {B}x{IN}->{OUT}: two launches differ")
+        plan = i4.split_plan(B, IN, OUT, 128, sms)
+        splits = plan.splits
+        fault = ""
+        if splits > 1:
+            # a split dropped: its group pairs' scale rows zeroed, the kernel
+            # gives the sum of the other splits; the check must fail it
+            p0, p1 = i4.split_pairs(IN // 256, splits)[1]
+            s_bad = leaf["s4"].clone()
+            s_bad[p0:p1] = 0
+            s_bad[IN // 256 + p0:IN // 256 + p1] = 0
+            bad = i4.int4_matmul(x, leaf["q"], s_bad)
+            torch.cuda.synchronize()
+            bad_err = float((bad - ref).abs().max())
+            check(bad_err > INT4_RTOL * top,
+                  f"int4_matmul {B}x{IN}->{OUT}: the check missed a planted fault (split 1 dropped)")
+            fault = f"; planted fault (split 1 of {splits} dropped) max|diff| {bad_err:.3e}, caught"
+            del bad, s_bad
         # the library call computes the same product up to its bf16 scales
         # and bf16 output (2^-9 relative each)
         lib_err = float((lib_out.float() - ref).abs().max())
         check(lib_err <= 1e-2 * top, f"_weight_int4pack_mm {B}x{IN}->{OUT}: max|diff| {lib_err}")
         ms, plain_ms, lib_ms = _ab_ms(lambda: i4.int4_matmul(x, leaf["q"], leaf["s4"]),
-                                      lambda: i4.int4_matmul_plain(x, leaf["q"], leaf["s4"]), lib)
+                                      lambda: i4.int4_matmul_plain(x, leaf["q"], leaf["s4"]), lib,
+                                      timer=graph_ms)
         # packed bytes, scales, x once; out once
         nbytes = _nbytes(leaf["q"], leaf["s4"], x, out)
         row = _row(err, ms, plain_ms, lib_ms, nbytes, 2 * B * IN * OUT)
-        print(f"kernel int4_matmul {B}x{IN}->{OUT}: max|diff| {err:.3e} (max|plain| {top:.3e}), "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, _weight_int4pack_mm {lib_ms:.4f} ms "
-              f"(max|diff| {lib_err:.3e}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
-              f"[{card}]", flush=True)
+        print(f"kernel int4_matmul {B}x{IN}->{OUT} ({plan.rows} rows, {plan.cols} columns, "
+              f"{splits} splits, {plan.ctas(B, OUT)} CTAs): max|diff| {err:.3e} "
+              f"(max|plain| {top:.3e}), bit-equal over two launches, {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms, _weight_int4pack_mm {lib_ms:.4f} ms (max|diff| {lib_err:.3e}), "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){fault} [{card}]", flush=True)
         if (B, IN, OUT) == (48, 1536, 8960):  # the table keeps the decode gate/up shape
             results["int4_matmul"] = row
     return results
@@ -1057,6 +1090,21 @@ def check_grouped_gemm_backward(dev, card, cases=GG_BWD_CASES):
     return results
 
 
+def _k2_repeats(args, got) -> None:
+    """K2 launched again on the same arguments gives dq, dk and dv bit-equal
+    to ``got`` (the dk/dv kernel's group split adds its partials in a fixed
+    order, and nothing is summed with atomics)."""
+    import torch
+
+    from lapha_tpu_torch.ops import flash_attention as fa
+
+    again = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+    torch.cuda.synchronize()
+    q = args[0]
+    what = f"K2 q {tuple(q.shape)}, KV heads {args[1].shape[2]}, args {args[8:]}"
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two launches differ")
+
+
 def _bwd_close(got, ref) -> tuple[float, list]:
     """(worst |diff| / limit over dq, dk, dv; the max |diff| of each), the
     limit being phase 1b's BWD_RTOL · max|plain| + BWD_ATOL; inf where the
@@ -1107,6 +1155,7 @@ def check_backward_window_kernels(dev, card, B=4, T=1024):
         delta = (do.float() * out.float()).sum(-1)
         args = (q, k, v, mask, qs, lse, do, delta, scale, W)
         got = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+        _k2_repeats(args, got)
         ref = fa.attention_bwd_plain(*args)
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(t.float()).all()) for t in got), f"K2 dh 64 W={W} finite")
@@ -1206,6 +1255,7 @@ def check_backward_gemma_kernels(dev, card):
         delta = (do.float() * out.float()).sum(-1)
         args = (q, k, v, mask, qs, lse, do, delta, scale, W, cap)
         got = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+        _k2_repeats(args, got)
         ref = fa.attention_bwd_plain(*args)
         torch.cuda.synchronize()
         worst, errs = _bwd_close(got, ref)
@@ -2324,6 +2374,7 @@ def check_backward_deepseek_kernels(dev, card):
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, mask, qs, lse, do, delta, scale)
     got = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+    _k2_repeats(args, got)
     ref = fa.attention_bwd_plain(*args)
     torch.cuda.synchronize()
     label = f"q/k {dh} v {dv} {nh}/{nh} heads (DeepSeek-V2-Lite) B={B} T={T}"
@@ -2468,6 +2519,7 @@ def check_phi3_starcoder2_kernels(dev, card):
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, mask, qs, lse, do, delta, scale, W)
     got = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+    _k2_repeats(args, got)
     ref = fa.attention_bwd_plain(*args)
     torch.cuda.synchronize()
     worst, errs = _bwd_close(got, ref)
@@ -2907,6 +2959,7 @@ def check_backward_kernels(dev, card):
         delta = (do.float() * out.float()).sum(-1)
         args = (q, k, v, mask, qs, lse, do, delta, scale)
         got = (fa.attention_bwd_dq_cuda(*args), *fa.attention_bwd_dkv_cuda(*args))
+        _k2_repeats(args, got)
         ref = fa.attention_bwd_plain(*args)
         torch.cuda.synchronize()
         errs = []
@@ -4109,6 +4162,10 @@ def _profile_decode(label, p, cfg, tok, lens, cache, cache_scale, prompt: int, s
           f"{n_launch / steps:.0f} kernel launches per step [{card}]", flush=True)
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {ms:8.3f} ms  {name[:110]}", flush=True)
+    k6_ms = sum(ms for name, ms in by_kernel.items() if "int4_mm_kernel" in name)
+    if k6_ms > 0:  # K6's instances (one per column tile and row tile) together
+        print(f"    K6 (int4_mm_kernel, all instances) {k6_ms:.3f} ms a step, "
+              f"{100 * k6_ms / dev_ms:.1f}% of the device time", flush=True)
 
 
 def main(argv=None) -> int:

@@ -15,9 +15,13 @@ without it and skips the narrow-V shape.
 The shapes are those of ``chip_smoke.py``'s K2 checks: phase 1b (B=4 T=1024,
 12/2 heads of dim 128, ragged masks and a hole), phase 1h (64/8 heads of dim
 64, W=128 and full), phase 1i's Gemma rows (dh 256: 8/4 heads with the cap
-of 50 and W=4096, 4/1 heads at W=512) and phase 1k's DeepSeek row (16/16
-heads, Q/K 192, V 128, scale 1/sqrt(192)). Every build's dq, dk and dv are held
-to the plain backward at the smoke script's limits first. Then each kernel is
+of 50 and W=4096, 4/1 heads at W=512 and full) and phase 1k's DeepSeek row (16/16
+heads, Q/K 192, V 128, scale 1/sqrt(192)) and phase 1l's Phi-3 row (32/32
+heads of dim 96, W=2047). A source whose dk/dv entry takes a workspace
+(``void* work``: the GQA group split into parts) gets the wrapper's split
+(``flash_attention.dkv_split``). Every build's dq, dk and dv are held to the
+plain backward at the smoke script's limits first, and a build with the
+split is launched twice and must give bit-equal results. Then each kernel is
 timed with CUDA events (20 launches a reading) in rounds that visit the
 builds in order and back (A B C C B A), three rounds, and the mean of each
 build's six readings is printed beside its ratio to the first build's, with
@@ -50,7 +54,9 @@ SHAPES = (("1b dh128 12/2", 4, 1024, 12, 2, 128, 128, 0, 0.0, 1.0),
           ("1h dh64 64/8 W=0", 4, 1024, 64, 8, 64, 64, 0, 0.0, 1.0),
           ("1i dh256 8/4 cap50 W=4096", 4, 1024, 8, 4, 256, 256, 4096, 50.0, 25.0),
           ("1i dh256 4/1 W=512", 4, 1024, 4, 1, 256, 256, 512, 0.0, 1.0),
-          ("1k dh192 v128 16/16", 4, 1024, 16, 16, 192, 128, 0, 0.0, 1.0))
+          ("1i dh256 4/1 W=0", 4, 1024, 4, 1, 256, 256, 0, 0.0, 1.0),
+          ("1k dh192 v128 16/16", 4, 1024, 16, 16, 192, 128, 0, 0.0, 1.0),
+          ("1l dh96 32/32 W=2047", 4, 1024, 32, 32, 96, 96, 2047, 0.0, 1.0))
 
 
 def compile_sources(srcs: list[str], subdir: str) -> list[tuple[str, str, str]]:
@@ -60,21 +66,24 @@ def compile_sources(srcs: list[str], subdir: str) -> list[tuple[str, str, str]]:
     out_dir = os.path.join(_cuda.BUILD_DIR, subdir)
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _cuda._nvcc()
-    cmds, sos = [], []
+    cmds, links, sos = [], [], []
     for src in srcs:
         with open(src, "rb") as f:
             tag = hashlib.sha1(f.read() + " ".join(_cuda.NVCC_FLAGS).encode()).hexdigest()[:12]
         so = os.path.join(out_dir, f"{subdir}_{tag}.so")
         sos.append(so)
         here = os.path.dirname(os.path.abspath(src))
-        cmds.append([nvcc, *_cuda.NVCC_FLAGS, "-shared", "-I", here, "-I", _cuda.CSRC, "-o", so,
-                     src])
+        # compiled, then linked, as ops/_cuda.build does
+        cmds.append([nvcc, *_cuda.NVCC_FLAGS, "-c", "-I", here, "-I", _cuda.CSRC, "-o",
+                     so + ".o", src])
+        links.append([nvcc, "-shared", "-o", so, so + ".o"])
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     logs = [p.communicate()[0] for p in procs]
-    for c, p, log in zip(cmds, procs, logs):
+    for c, link, p, log in zip(cmds, links, procs, logs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed with code {p.returncode}:\n{' '.join(c)}\n{log}")
+        subprocess.run(link, check=True, capture_output=True)
     out = []
     for src, so, log in zip(srcs, sos, logs):
         with open(src) as f:
@@ -85,25 +94,28 @@ def compile_sources(srcs: list[str], subdir: str) -> list[tuple[str, str, str]]:
     return out
 
 
-def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, bool, bool, str]]:
-    """(library, takes a softcap, takes V's head dim, ptxas report) of each
-    source."""
+def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, bool, bool, bool, str]]:
+    """(library, takes a softcap, takes V's head dim, splits the GQA group,
+    ptxas report) of each source."""
     libs = []
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for text, so, report in compile_sources(srcs, "bench_k2"):
         cap = re.search(r"lapha_flash_bwd_dq\([^)]*float softcap", text) is not None
         narrow = re.search(r"lapha_flash_bwd_dq\([^)]*int dv_w", text) is not None
+        split = re.search(r"lapha_flash_bwd_dkv\([^)]*void\* work", text) is not None
         dll = ctypes.CDLL(so)
         ints = [I] * (8 if narrow else 7)  # B T S nh nkv dh (dv_w) window
         tail = [F, F, P] if cap else [F, P]  # scale(, softcap), stream
         dll.lapha_flash_bwd_dq.argtypes = [P] * 9 + ints + tail
-        dll.lapha_flash_bwd_dkv.argtypes = [P] * 10 + ints + tail
+        # (work), ..., (splits) before the stream
+        dll.lapha_flash_bwd_dkv.argtypes = ([P] * 11 + ints + [F, F, I, P] if split
+                                            else [P] * 10 + ints + tail)
         dll.lapha_flash_bwd_dq.restype = dll.lapha_flash_bwd_dkv.restype = I
-        libs.append((dll, cap, narrow, report))
+        libs.append((dll, cap, narrow, split, report))
     return libs
 
 
-def _calls(dll, cap: bool, narrow: bool, args):
+def _calls(dll, cap: bool, narrow: bool, split: bool, args):
     """The dq and the dk/dv call of one build on the kernels' arguments."""
     q, k, v, mask, qs, lse, do, delta, scale, window, softcap = args
     B, T, nh, dh = q.shape
@@ -115,17 +127,26 @@ def _calls(dll, cap: bool, narrow: bool, args):
     tail = (float(scale), float(softcap), stream) if cap else (float(scale), stream)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
               delta_t.data_ptr(), mask.data_ptr(), qs.data_ptr())
+    if split:  # the wrapper's group split and its partials
+        splits = fa.dkv_split(B, S, nkv, nh // nkv, dh, _cuda.sm_count(q.device))
+        work = [torch.empty(splits * B * S * nkv * (dh + v.shape[-1]), dtype=torch.float32,
+                            device=q.device)]  # held by run_dkv for as long as it is called
+        tail = (float(scale), float(softcap), splits, stream)
+    else:
+        work = []
 
     def run_dq():
         err = dll.lapha_flash_bwd_dq(*common, dq.data_ptr(), B, T, S, nh, nkv, *dims, window,
-                                     *tail)
+                                     *((float(scale), float(softcap), stream) if cap
+                                       else (float(scale), stream)))
         if err:
             raise RuntimeError(f"dq launch failed: {err}")
         return dq
 
     def run_dkv():
-        err = dll.lapha_flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), B, T, S, nh, nkv,
-                                      *dims, window, *tail)
+        err = dll.lapha_flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(),
+                                      *(w.data_ptr() for w in work), B, T, S, nh, nkv, *dims,
+                                      window, *tail)
         if err:
             raise RuntimeError(f"dk/dv launch failed: {err}")
         return dk, dv
@@ -176,29 +197,34 @@ def main(argv=None) -> int:
     libs = _build(args.sources)
     # a build is named by its source's directory in the timing lines
     names = [os.path.basename(os.path.dirname(os.path.abspath(s))) for s in args.sources]
-    for name, src, (_, cap, narrow, report) in zip(names, args.sources, libs):
-        print(f"== {name}: {src} (softcap argument: {cap}, V head dim argument: {narrow})\n"
-              f"{report}", flush=True)
+    for name, src, (_, cap, narrow, split, report) in zip(names, args.sources, libs):
+        print(f"== {name}: {src} (softcap argument: {cap}, V head dim argument: {narrow}, "
+              f"group split: {split})\n{report}", flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     for label, B, T, nh, nkv, dh, dv, window, cap, q_sd in SHAPES:
         kargs = _inputs(dev, B, T, nh, nkv, dh, dv, window, cap, q_sd, rng)
         ref = fa.attention_bwd_plain(*kargs)
         builds = []
-        for build, (dll, has_cap, narrow, _) in zip(names, libs):
+        for build, (dll, has_cap, narrow, split, _) in zip(names, libs):
             if (cap and not has_cap) or (dv < dh and not narrow):
                 continue
-            run_dq, run_dkv = _calls(dll, has_cap, narrow, kargs)
+            run_dq, run_dkv = _calls(dll, has_cap, narrow, split, kargs)
             try:
-                got = (run_dq(), *run_dkv())
+                got = [t.clone() for t in (run_dq(), *run_dkv())]
             except RuntimeError as e:  # a source written before this head dim
                 print(f"{label}: {build} skipped ({e})", flush=True)
                 continue
+            again = (run_dq(), *run_dkv())
             torch.cuda.synchronize()
-            for part, a, b in zip(("dq", "dk", "dv"), got, ref):
+            for part, a, b, c in zip(("dq", "dk", "dv"), got, ref, again):
                 err, top = float((a.float() - b.float()).abs().max()), float(b.abs().max())
                 if not err <= BWD_RTOL * top + BWD_ATOL:
-                    raise SystemExit(f"{build} {label} {part}: max|diff| {err} vs max|plain| {top}")
+                    bad = (~torch.isfinite(a.float())).nonzero()
+                    raise SystemExit(f"{build} {label} {part}: max|diff| {err} vs max|plain| {top}"
+                                     f" ({len(bad)} non-finite, the first at {bad[:4].tolist()})")
+                if split and not torch.equal(a, c):
+                    raise SystemExit(f"{build} {label} {part}: two launches differ")
             builds.append((build, (run_dq, run_dkv)))
         for kernel in (0, 1):
             times = {build: [] for build, _ in builds}

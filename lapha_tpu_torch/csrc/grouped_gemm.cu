@@ -74,22 +74,18 @@
 // scans over 32 groups at a time), clipped at M. No atomics: every output
 // element is written by one thread, so the results are deterministic.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up in libcuda at run time
-
 #include <algorithm>
 
 #include "common.cuh"
+#include "hopper.cuh"  // cp.async, ldmatrix, mbarriers, TMA, wgmma, tensor maps
 
 namespace {
 
 using lapha::mma_bf16_16816;  // fragment layout: common.cuh
+using namespace lapha;        // hopper.cuh's helpers
 using bf16 = __nv_bfloat16;
 
 constexpr int GMAX = 1024;   // most groups the prefix sums hold
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Warp 0 writes the exclusive prefix sums of the group sizes, clipped at M
 // (s_roff), and of their TILE-row tile counts (s_toff), G + 1 entries each;
@@ -137,37 +133,6 @@ constexpr int NT = 128;      // threads: 4 warps, 2 x 2 over the tile, 32x32 eac
 constexpr int STAGES = 3;    // cp.async ring depth
 constexpr int LDA = BK + 8;  // 80-byte smem rows: 16-byte aligned, ldmatrix conflict-free
 constexpr int LDB = BN + 8;  // 144-byte smem rows: the same
-
-// 16 bytes global -> shared, asynchronous; zero-filled (nothing read) when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// The same, each matrix transposed: from [k][n] rows, lane 4g + t4 gets
-// (k = 2t4, 2t4 + 1; n = g), an mma B fragment.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
 // out[n], out[n + 1] of one row, masked at N
 __device__ __forceinline__ void store2(float* row, int n, int N, float a, float b) {
@@ -312,7 +277,6 @@ constexpr int WSTAGES = 4;                  // TMA ring depth
 constexpr int WTHREADS = 384;               // the producer warpgroup, then two consumer warpgroups
 constexpr int BOX = 64 * WK;                // elements of a 64-row box (8 KB)
 constexpr int STAGE_BYTES = 2 * WM * WK * 2;  // A and B of one stage: 32 KB
-constexpr uint32_t SW_ROWS = 1024;          // bytes of 8 swizzled 128-byte rows: the atom
 constexpr int EPI_LD = WN + 8;              // epilogue rows: fragment writes conflict-free
 
 struct __align__(1024) WgSmem {
@@ -330,123 +294,6 @@ __device__ __forceinline__ WgSmem& wg_smem() {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_addr(smem_raw) & 1023u)) & 1023u;
   return *reinterpret_cast<WgSmem*>(smem_raw + pad);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`. A
-// barrier that never completes (a fault in the ring) traps after 2^28
-// polls, seconds, rather than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-// TMA: a box of the tensor map at the coordinates (innermost first) into
-// shared memory, its bytes counted on `bar`; out-of-bounds elements are zeros.
-__device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-        "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-        "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A wgmma shared-memory matrix descriptor, 128-byte swizzle: the start
-// address, the leading byte offset (K-major: unused; MN-major: from one
-// 64-element column of atoms to the next) and the stride byte offset (from
-// one 8-row group to the next), each in 16-byte units.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products (which it cannot see).
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x 128, f32) += A (64 x 16) · B (16 x 128), bf16 from shared memory.
-// kTA / kTB: the operand is MN-major (wgmma's transpose bit). D's layout:
-// thread 32w + l of the warpgroup holds rows 16w + l/4 (d[4j], d[4j+1]) and
-// 16w + l/4 + 8 (d[4j+2], d[4j+3]) at columns 8j + 2(l%4) + {0, 1}.
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
-}
-
-template <int R>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
@@ -490,18 +337,6 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], OutT* stage, 
   }
 }
 
-// The ring position a role is at: stage and the parity of its pass.
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next() {
-    if (++stage == WSTAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 // The prefix sums (warp 0) and the barriers (thread 32), then the block
 // synchronises once; after it the roles never meet again.
 __device__ __forceinline__ void wg_setup(WgSmem& sm, const int* group_sizes, int G, int M,
@@ -512,7 +347,7 @@ __device__ __forceinline__ void wg_setup(WgSmem& sm, const int* group_sizes, int
       mbar_init(&sm.full[s], 1);   // the producer's arrive, with the stage's bytes
       mbar_init(&sm.empty[s], 2);  // one arrive from each consumer warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 }
@@ -555,7 +390,7 @@ grouped_gemm_wg_kernel(const __grid_constant__ CUtensorMap map_a,
   if (warp < 4) {  // the producer warpgroup: one thread issues every load
     regs_dec<40>();
     if (tid == 0) {
-      Ring ring;
+      Ring<WSTAGES> ring;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const RowTile tl = row_tile(sm, t, n_col, G);
         for (int kt = 0; kt < nk; ++kt, ring.next()) {
@@ -575,7 +410,7 @@ grouped_gemm_wg_kernel(const __grid_constant__ CUtensorMap map_a,
   } else {  // two consumer warpgroups: rows 64·wg.. of each tile
     regs_inc<232>();
     const int wg = (warp >> 2) - 1, t128 = tid & 127;
-    Ring ring;
+    Ring<WSTAGES> ring;
     float acc[64];
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       const RowTile tl = row_tile(sm, t, n_col, G);
@@ -640,7 +475,7 @@ grouped_gemm_tgmm_kernel(const __grid_constant__ CUtensorMap map_x,
   if (warp < 4) {
     regs_dec<40>();
     if (tid == 0) {
-      Ring ring;
+      Ring<WSTAGES> ring;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const int g = t / per_g, rem = t % per_g;
         const int k0 = (rem / n_nt) * WM, n0 = (rem % n_nt) * WN;
@@ -660,7 +495,7 @@ grouped_gemm_tgmm_kernel(const __grid_constant__ CUtensorMap map_x,
   } else {
     regs_inc<232>();
     const int wg = (warp >> 2) - 1, t128 = tid & 127;
-    Ring ring;
+    Ring<WSTAGES> ring;
     float acc[64];
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       const int g = t / per_g, rem = t % per_g;
@@ -706,50 +541,9 @@ grouped_gemm_tgmm_kernel(const __grid_constant__ CUtensorMap map_x,
 
 // ---------------------------------------------------------------- host side
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found once at run time through the
-// runtime's entry-point query (no link against libcuda); null if absent.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map, 128-byte swizzle: dims and box innermost first, the
-// row strides in bytes (rank - 1 of them).
-cudaError_t make_map(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // One persistent CTA per SM, no more than there are tiles at most.
 int wg_grid(long long max_tiles) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = sm_count();
   return static_cast<int>(std::max(1LL, std::min(static_cast<long long>(sms), max_tiles)));
 }
 

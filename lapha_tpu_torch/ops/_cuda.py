@@ -129,7 +129,8 @@ def lib() -> ctypes.CDLL:
         dll.lapha_ragged_decode_q8_sink.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                                     _P, _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_ragged_decode_q8_sink.restype = _I
-        dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        # x packed scales out, then B IN OUT G, the plan: rows, columns, splits
+        dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         dll.lapha_int4_matmul.restype = _I
         # ints: M K N G, then 1 for the wgmma kernel, 0 for the 64-row one
         dll.lapha_grouped_gemm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
@@ -141,8 +142,9 @@ def lib() -> ctypes.CDLL:
         # ... then the outputs, B T S nh nkv dh dv window, scale, softcap, stream
         dll.lapha_flash_bwd_dq.argtypes = bwd + [_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_flash_bwd_dq.restype = _I
-        dll.lapha_flash_bwd_dkv.argtypes = bwd + [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                                  _F, _P]
+        # dk/dv: dk dv work, the ints, scale, softcap, splits, stream
+        dll.lapha_flash_bwd_dkv.argtypes = bwd + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                                  _F, _F, _I, _P]
         dll.lapha_flash_bwd_dkv.restype = _I
         dll.lapha_error_string.argtypes = [_I]
         dll.lapha_error_string.restype = ctypes.c_char_p
@@ -155,6 +157,11 @@ def check_launch(err: int, name: str) -> None:
     if err != 0:
         msg = lib().lapha_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, which the kernels' grid plans fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -264,6 +264,24 @@ def attention_bwd_dq_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, wind
     return dq
 
 
+def dkv_split(B: int, S: int, nkv: int, group: int, dh: int, sms: int) -> int:
+    """How many parts the dk/dv kernel splits each GQA group into: the
+    smallest divisor of ``group`` whose CTAs (key blocks x KV heads x rows
+    x parts) fill the ``sms`` SMs once, else the whole group. A CTA takes
+    128 keys at dh <= 128 (the wgmma kernel), 64 above. Each part sums its
+    query heads' dK/dV into f32 partials, added in part order afterwards."""
+    ctas = math.ceil(S / (128 if dh <= 128 else 64)) * nkv * B
+    return next((d for d in range(1, group + 1) if group % d == 0 and ctas * d >= sms), group)
+
+
+def split_heads(group: int, splits: int) -> list[tuple[int, int]]:
+    """The query heads [h0, h1) of a KV head's group that each part takes,
+    in part order (the order their partials are added in)."""
+    per = group // splits
+    return [(s * per, (s + 1) * per) for s in range(splits)]
+
+
+
 def attention_bwd_dkv_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, window=0,
                            softcap=0.0):
     """The dk/dv kernel (csrc/flash_attention_bwd.cu); arguments as the plain version's."""
@@ -272,11 +290,16 @@ def attention_bwd_dkv_cuda(q, k, v, kv_valid, qstart, lse, do, delta, scale, win
     name = launch_name("flash_attention_bwd_dkv", window, softcap, narrowv=dv_w < dh)
     kv_valid, qstart, lse, delta_t = _bwd_args(name, q, k, v, kv_valid, qstart, lse, do, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    splits = dkv_split(B, S, nkv, nh // nkv, dh, _cuda.sm_count(q.device))
+    work = None
+    if splits > 1:  # the parts' f32 partials: dK's, then dV's
+        work = torch.empty(splits * B * S * nkv * (dh + dv_w), dtype=torch.float32,
+                           device=q.device)
     err = _cuda.lib().lapha_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta_t.data_ptr(), kv_valid.data_ptr(), qstart.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, T, S, nh, nkv, dh, dv_w, int(window), float(scale), float(softcap),
-        _cuda.stream_of(q))
+        dv.data_ptr(), None if work is None else work.data_ptr(), B, T, S, nh, nkv, dh, dv_w,
+        int(window), float(scale), float(softcap), splits, _cuda.stream_of(q))
     _cuda.check_launch(err, name)
     _cuda.LAUNCHES[name] += 1
     return dk, dv

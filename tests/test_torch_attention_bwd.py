@@ -34,7 +34,8 @@ def _port_grads(q, k, v, mask, g):
     return out, (qt.grad.numpy(), kt.grad.numpy(), vt.grad.numpy())
 
 
-@pytest.mark.parametrize("T,nh,nkv,dh", [(64, 4, 2, 32), (96, 8, 2, 64), (128, 4, 4, 32)])
+@pytest.mark.parametrize("T,nh,nkv,dh", [(64, 4, 2, 32), (96, 8, 2, 64), (128, 4, 4, 32),
+                                          (77, 12, 2, 32)])  # ragged T, a group of 6
 def test_flash_backward_matches_jax_pallas(T, nh, nkv, dh):
     rng = np.random.default_rng(T + nh)
     B = 2

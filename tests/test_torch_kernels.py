@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions (needs a GPU).
 
-Every test here is marked ``cuda`` and skips without a card. The file
-imports no jax, so on the card it runs without the repo's conftest:
+Every test here is marked ``cuda`` and skips without a card, but those of
+the host's grid plans (K6's split of the in-dim, K2's split of the GQA
+group), which run on the CPU. The file imports no jax, so on the card it
+runs without the repo's conftest:
 
     python -m pytest -o addopts= --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -52,6 +54,8 @@ with a floor for gradients that are pure cancellation (T=1: dS = P·(dP - D)
 is 0 up to rounding):
 max |diff| <= 1e-2 · max |plain| + 1e-3.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -262,6 +266,30 @@ def test_flash_bwd_kernels_match_plain(dev, nh, nkv, T):
     mask[0, T // 3:T // 3 + T // 10] = 0
     got, ref = _bwd_pair(q, k, v, mask, 0, do)
     _assert_bwd_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,nh,nkv,T,window,softcap", [
+    (128, 12, 2, 1000, 0, 0.0),   # the wgmma kernels, the group split in 6
+    (64, 64, 8, 300, 128, 0.0),   # banded, split in 4
+    (96, 8, 2, 200, 0, 0.0),      # dh 96 padded to two boxes, split in 4
+    (256, 4, 1, 300, 0, 50.0),    # the eight-warp dk/dv kernel, capped, split in 4
+])
+def test_flash_bwd_kernels_are_bit_equal_over_two_launches(dev, dh, nh, nkv, T, window, softcap):
+    """dk/dv's group split adds its f32 partials in a fixed order and nothing
+    is summed with atomics: the same inputs give the same dq, dk and dv bits."""
+    rng = np.random.default_rng(dh + T)
+    B = 2
+    q, do = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, T, nh, dh), dev)
+    k, v = _bf16(rng, (B, T, nkv, dh), dev), _bf16(rng, (B, T, nkv, dh), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, (3 * T) // 4 + 1:] = 0
+    got, ref = _bwd_pair(q, k, v, mask, 0, do, window, softcap)
+    _assert_bwd_close(got, ref)
+    again, _ = _bwd_pair(q, k, v, mask, 0, do, window, softcap)
+    assert fa.dkv_split(B, T, nkv, nh // nkv, dh, _cuda.sm_count(dev)) > 1
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -487,6 +515,141 @@ def test_int4_kernel_stacked_layers_and_f32_input(dev):
         ref = i4.int4_matmul_plain(x, leaf["q"][layer], leaf["s4"][layer])
         torch.cuda.synchronize()
         assert (out - ref).abs().max().item() <= INT4_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,IN,OUT,G", [
+    (48, 8960, 1536, 128),   # the down projection: 8 splits, a cluster of 8
+    (48, 1536, 256, 128),    # 16-row, 16-column tiles, the k-steps split over the warps
+    (37, 256, 1000, 64),     # ragged rows and columns, non-vector loads
+    (70, 512, 1552, 32),     # two row tiles of 64, 6 splits
+])
+def test_int4_kernel_is_bit_equal_over_two_launches(dev, B, IN, OUT, G):
+    """A tile's splits (one thread-block cluster) add their partial sums in
+    split order: the same inputs give the same bits, launch after launch
+    (greedy decode gives the same tokens)."""
+    rng = np.random.default_rng(B * IN + OUT)
+    x = _bf16(rng, (B, IN), dev)
+    leaf = _int4_leaf(rng, IN, OUT, G, dev)
+    outs = [i4.int4_matmul(x, leaf["q"], leaf["s4"]) for _ in range(3)]
+    ref = i4.int4_matmul_plain(x, leaf["q"], leaf["s4"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert (outs[0] - ref).abs().max().item() <= INT4_RTOL * ref.abs().max().item()
+
+
+# (B, IN, OUT, G): the CUDA tests' and phase 1c's shapes, and the smallest
+# and largest groups at the decode shapes
+K6_PLAN_SHAPES = [(48, 1536, 1536, 128), (48, 1536, 256, 128), (48, 1536, 8960, 128),
+                  (48, 8960, 1536, 128), (512, 1536, 8960, 128), (1, 1536, 1536, 128),
+                  (37, 256, 1000, 64), (70, 512, 1552, 32), (3, 256, 200, 16),
+                  (48, 1536, 1536, 16), (48, 8960, 1536, 16), (48, 1536, 256, 16),
+                  (20, 512, 384, 128)]
+
+
+@pytest.mark.parametrize("B,IN,OUT,G", K6_PLAN_SHAPES)
+def test_int4_split_plan_covers_every_group_pair_once(B, IN, OUT, G):
+    """(CPU) The host's plan: each group pair, and so each group's low or
+    high nibbles, is in exactly one split, the splits in ascending order."""
+    plan = i4.split_plan(B, IN, OUT, G, 132)
+    pairs = IN // (2 * G)
+    assert plan.cols in i4.COLUMN_TILES and plan.rows in (16, 32, 48, 64)
+    assert 1 <= plan.splits <= min(pairs, i4.MAX_SPLITS)
+    ranges = i4.split_pairs(pairs, plan.splits)
+    assert all(p1 > p0 for p0, p1 in ranges)
+    assert [p for p0, p1 in ranges for p in range(p0, p1)] == list(range(pairs))
+    groups = sorted(g for p0, p1 in ranges for p in range(p0, p1) for g in (p, p + pairs))
+    assert groups == list(range(IN // G))
+
+
+@pytest.mark.parametrize("B,IN,OUT,least", [
+    (48, 1536, 1536, 132),  # q/o: a CTA an SM (24 tiles x 6 splits)
+    (48, 8960, 1536, 132),  # down: 24 tiles x 8 splits
+    (48, 1536, 8960, 132),  # gate/up: the tiles alone
+    (48, 1536, 256, 96),    # k/v: 6 group pairs, so 16-row, 16-column tiles (288)
+])
+def test_int4_split_plan_fills_the_card(B, IN, OUT, least):
+    """(CPU) CTAs of the plan at Qwen2.5-1.5B's decode shapes on 132 SMs:
+    at least one an SM. Two an SM (narrower tiles, clusters of 11) read
+    slower on the card (PERF.md §6)."""
+    plan = i4.split_plan(B, IN, OUT, 128, 132)
+    assert math.ceil(B / plan.rows) * math.ceil(OUT / plan.cols) * plan.splits >= least
+
+
+def test_int4_split_plan_keeps_one_split_where_the_grid_is_full():
+    """(CPU) At 512 rows the 64 x 64 tiles alone fill the card."""
+    assert i4.split_plan(512, 1536, 8960, 128, 132) == (64, 64, 1)
+
+
+# (B, S, KV heads, group, dh): phase 1b, the update (B=8), 1h, 1i's Gemma-3
+# and Gemma-2, 1k, 1l, and small ragged shapes
+K2_SPLIT_SHAPES = [(4, 1024, 2, 6, 128), (8, 1024, 2, 6, 128), (4, 1024, 8, 8, 64),
+                   (4, 1024, 1, 4, 256), (4, 1024, 4, 2, 256), (4, 1024, 16, 1, 192),
+                   (4, 1024, 32, 1, 96), (2, 77, 2, 6, 128), (1, 300, 1, 12, 64)]
+
+
+@pytest.mark.parametrize("B,S,nkv,group,dh", K2_SPLIT_SHAPES)
+def test_dkv_group_split_covers_each_head_and_key_block_once(B, S, nkv, group, dh):
+    """(CPU) The dk/dv kernel's CTAs (part, KV head, row) x key blocks take
+    each (query head, key block) exactly once, the parts' head ranges in
+    ascending order, the order their partials are added in."""
+    splits = fa.dkv_split(B, S, nkv, group, dh, 132)
+    assert group % splits == 0
+    heads = fa.split_heads(group, splits)
+    assert [h for h0, h1 in heads for h in range(h0, h1)] == list(range(group))
+    keys = 128 if dh <= 128 else 64
+    seen = {}
+    for b in range(B):
+        for hk in range(nkv):
+            for s, (h0, h1) in enumerate(heads):
+                for kb in range(math.ceil(S / keys)):
+                    for h in range(h0, h1):
+                        key = (b, hk * group + h, kb)
+                        assert key not in seen
+                        seen[key] = s
+    assert len(seen) == B * nkv * group * math.ceil(S / keys)
+
+
+@pytest.mark.parametrize("B,S,nkv,group,dh,least", [
+    (4, 1024, 2, 6, 128, 132),  # phase 1b: 64 CTAs of 128 keys without the split
+    (4, 1024, 1, 4, 256, 128),  # Gemma-3's 4/1 heads: 64 CTAs of 64 keys without it
+    (8, 1024, 2, 6, 128, 132),  # the update's 8 rows
+])
+def test_dkv_group_split_fills_the_card(B, S, nkv, group, dh, least):
+    """(CPU) CTAs of the dk/dv kernels with the split, on 132 SMs; a grid
+    that is full already keeps one part."""
+    splits = fa.dkv_split(B, S, nkv, group, dh, 132)
+    assert math.ceil(S / (128 if dh <= 128 else 64)) * nkv * B * splits >= least
+    assert fa.dkv_split(4, 1024, 8, 8, 64, 132) == 1  # phase 1h: 256 CTAs
+
+
+def test_dkv_partials_in_part_order_sum_to_the_plain_gradients():
+    """(CPU) dK and dV as the kernels form them with the split: each part's
+    heads in f32, the parts added in order, then rounded, equal the plain
+    backward's (the rounding of one f32 sum either way)."""
+    rng = np.random.default_rng(13)
+    B, T, nh, nkv, dh = 2, 40, 12, 2, 32  # a group of 6: parts of 3 and of 2 heads
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    q, k, v, do = f(B, T, nh, dh), f(B, T, nkv, dh), f(B, T, nkv, dh), f(B, T, nh, dh)
+    mask = torch.ones((B, T), dtype=torch.int32)
+    mask[1, 30:] = 0
+    qs = torch.zeros(B, dtype=torch.int32)
+    scale = dh ** -0.5
+    out, lse = fa.attention_plain(q, k, v, mask, qs, scale)
+    delta = (do * out).sum(-1)
+    dk_ref, dv_ref = fa.attention_bwd_dkv_plain(q, k, v, mask, qs, lse, do, delta, scale)
+    group = nh // nkv
+    for splits in (2, 3):
+        dk = torch.zeros(B, T, nkv, dh)
+        dv = torch.zeros(B, T, nkv, dh)
+        for h0, h1 in fa.split_heads(group, splits):
+            heads = [hk * group + h for hk in range(nkv) for h in range(h0, h1)]
+            sub = lambda t: t[:, :, heads]  # noqa: E731
+            pk, pv = fa.attention_bwd_dkv_plain(sub(q), k, v, mask, qs, lse[:, heads], sub(do),
+                                                delta[:, :, heads], scale)
+            dk, dv = dk + pk, dv + pv
+        torch.testing.assert_close(dk, dk_ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dv, dv_ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

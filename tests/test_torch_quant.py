@@ -178,6 +178,7 @@ def test_init_params_quantized_has_the_jax_structure(tiny):
     (3, 256, 300, 64),     # OUT not a multiple of any block
     (16, 512, 512, 128),
     (1, 256, 256, 128),    # a single row
+    (37, 768, 200, 32),    # ragged rows and columns, 12 group pairs: the kernel splits them
 ])
 @pytest.mark.parametrize("version", [2, 3])
 def test_int4_matmul_plain_matches_jax_kernel(B, IN, OUT, G, version):
