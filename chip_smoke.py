@@ -608,6 +608,8 @@ def check_kernels(dev, card):
         ref, ref_lse = fa.attention_plain(q, k, v, kv_valid, qs, scale)
         torch.cuda.synchronize()
         check(torch.isfinite(out.float()).all(), f"{name} output finite")
+        _k1_repeats(lambda: fa._attention_cuda(q, k, v, kv_valid, qs, scale, name), out, lse,
+                    f"{name} B={B} T={T} S={S}")
         err = float((out.float() - ref.float()).abs().max())
         seen = ref_lse > -1e29
         check(err <= KERNEL_ATOL, f"{name} B={B} T={T} S={S} max|diff| {err}")
@@ -1105,6 +1107,18 @@ def _k2_repeats(args, got) -> None:
     check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two launches differ")
 
 
+def _k1_repeats(launch, out, lse, what) -> None:
+    """The forward launched again (``launch`` gives (out, LSE)) is bit-equal
+    to ``out`` and ``lse``: each CTA writes its own rows and nothing is
+    summed across CTAs."""
+    import torch
+
+    again, lse_again = launch()
+    torch.cuda.synchronize()
+    check(torch.equal(out, again) and torch.equal(lse, lse_again),
+          f"{what}: two launches differ")
+
+
 def _bwd_close(got, ref) -> tuple[float, list]:
     """(worst |diff| / limit over dq, dk, dv; the max |diff| of each), the
     limit being phase 1b's BWD_RTOL · max|plain| + BWD_ATOL; inf where the
@@ -1430,6 +1444,8 @@ def check_gptoss_kernels(dev, card):
         err = float((out.float() - ref.float()).abs().max())
         seen = ref_lse > -1e29
         label = f"{name}_window dh={dh} B={Bf} T={T} S={Sf} qstart={qstart} W={W}"
+        _k1_repeats(lambda: fa._attention_cuda(q, k, v, kv_valid, qs, scale, name, W), out, lse,
+                    label)
         check(bool(torch.isfinite(out.float()).all()) and err <= KERNEL_ATOL, f"{label}: {err}")
         check(float((lse[seen] - ref_lse[seen]).abs().max()) <= 1e-3, f"{label} LSE")
         bad_err = float((bad.float() - ref.float()).abs().max())
@@ -1510,6 +1526,7 @@ def check_gemma_kernels(dev, card):
                 check(bool(torch.isfinite(out.float()).all()) and err <= KERNEL_ATOL,
                       f"{label}: {err}")
                 check(float((lse[seen] - ref_lse[seen]).abs().max()) <= 1e-3, f"{label} LSE")
+                _k1_repeats(lambda: fa._attention_cuda(*args, name, window, cap), out, lse, label)
                 note = ""
                 if cap:
                     s_max = float((torch.einsum("bthd,bshd->bhts", q[:, :, ::nh // nkv].float(),
@@ -2251,6 +2268,7 @@ def check_deepseek_kernels(dev, card):
         check(out.shape == (B, T, nh, dv) and bool(torch.isfinite(out.float()).all())
               and err <= KERNEL_ATOL, f"{label}: {err}")
         check(float((lse[seen] - ref_lse[seen]).abs().max()) <= 1e-3, f"{label} LSE")
+        _k1_repeats(lambda: fa._attention_cuda(*args, name), out, lse, label)
         bad = {"scale 1/sqrt(128)": fa._attention_cuda(q, k, v, kv_valid, qs, 128 ** -0.5, name)[0],
                "V of the next head": fa._attention_cuda(q, k, v.roll(-1, dims=2).contiguous(),
                                                         kv_valid, qs, scale, name)[0]}
@@ -2466,7 +2484,8 @@ def check_phi3_starcoder2_kernels(dev, card):
             ("flash_attention_cached", 4, 512, 640, 0, 0, None),
             ("flash_attention_cached", 4, 512, 640, 0, W, "flash_attention_cached_window_dh96"),
             ("flash_attention", 4, 512, 512, 0, W, "flash_attention_window_dh96"),
-            ("flash_attention_cached", 2, 512, 2560, 2048, W, None)):
+            ("flash_attention_cached", 2, 512, 2560, 2048, W,
+             "flash_attention_cached_window_dh96_past")):
         q, k, v = bf16(B, T, nh, dh), bf16(B, S, nh, dh), bf16(B, S, nh, dh)
         qs = torch.full((B,), qstart, dtype=torch.int32, device=dev)
         lens = torch.tensor([qstart + T, qstart + T - 17, qstart + T - 40, qstart + T][:B],
@@ -2482,6 +2501,7 @@ def check_phi3_starcoder2_kernels(dev, card):
                  f"qstart={qstart} W={window}")
         check(bool(torch.isfinite(out.float()).all()) and err <= KERNEL_ATOL, f"{label}: {err}")
         check(float((lse[seen] - ref_lse[seen]).abs().max()) <= 1e-3, f"{label} LSE")
+        _k1_repeats(lambda: fa._attention_cuda(*args, name, window), out, lse, label)
         allowed = _allowed(kv_valid, qs, T, window)
         bites = window and bool((~allowed & _allowed(kv_valid, qs, T)).any())
         faults = [("K/V of the next head", (q, k.roll(-1, 2), v.roll(-1, 2), kv_valid, qs, scale),
@@ -4399,8 +4419,12 @@ def main(argv=None) -> int:
         replaces[name + "_dh96"] = replaces[name]
     for name in ("ragged_decode_attention", "ragged_decode_attention_q8"):
         replaces[name + "_g12"] = replaces[name]
+    # K3 at dh 96 where the band bites (qstart past Phi-3's window): its
+    # kernel's launches on Phi-3's paths
+    replaces["flash_attention_cached_window_dh96_past"] = replaces["flash_attention_cached_window"]
     row_paths = {"_dh256": ("serve_gemma3", "update_gemma3"),
                  "_dh96": ("serve_phi3", "update_phi3", "train_step_phi3"),
+                 "_dh96_past": ("serve_phi3", "update_phi3", "train_step_phi3"),
                  "_g12": ("serve_starcoder2",),
                  "_train": ("update_moe", "update_gptoss", "update_deepseek"),
                  "_ds": ("update_deepseek", "train_step_deepseek")}

@@ -15,18 +15,21 @@ without it and skips the narrow-V shape.
 The shapes are those of ``chip_smoke.py``'s K2 checks: phase 1b (B=4 T=1024,
 12/2 heads of dim 128, ragged masks and a hole), phase 1h (64/8 heads of dim
 64, W=128 and full), phase 1i's Gemma rows (dh 256: 8/4 heads with the cap
-of 50 and W=4096, 4/1 heads at W=512 and full) and phase 1k's DeepSeek row (16/16
-heads, Q/K 192, V 128, scale 1/sqrt(192)) and phase 1l's Phi-3 row (32/32
-heads of dim 96, W=2047). A source whose dk/dv entry takes a workspace
-(``void* work``: the GQA group split into parts) gets the wrapper's split
-(``flash_attention.dkv_split``). Every build's dq, dk and dv are held to the
-plain backward at the smoke script's limits first, and a build with the
-split is launched twice and must give bit-equal results. Then each kernel is
-timed with CUDA events (20 launches a reading) in rounds that visit the
-builds in order and back (A B C C B A), three rounds, and the mean of each
-build's six readings is printed beside its ratio to the first build's, with
-the card's name and power limit. ptxas's register and spill lines of each
-build are printed too.
+of 50, full and at W=4096, 4/1 heads at W=512 and full) and phase 1k's
+DeepSeek row (16/16 heads, Q/K 192, V 128, scale 1/sqrt(192)) and phase 1l's
+Phi-3 row (32/32 heads of dim 96, W=2047). A source whose dk/dv entry takes
+a workspace (``void* work``: the GQA group split into parts) gets the
+wrapper's split (``flash_attention.dkv_split``). Every build's dq, dk and dv
+are held to the plain backward at the smoke script's limits first, and a
+build with the split is launched twice and must give bit-equal results. Then
+each kernel is timed with CUDA events (20 launches a reading) in rounds that
+visit the builds in order and back (A B C C B A), three rounds, and the mean
+of each build's six readings is printed beside its ratio to the first
+build's, with the card's name and power limit. One PyTorch call computing
+the same gradients is timed in the same rounds as a yardstick (``library``:
+SDPA's backward with the boolean mask, dq, dk and dv together, its cuDNN
+backend where V is narrower than Q/K; none for the softcapped shapes).
+ptxas's register and spill lines of each build are printed too.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ ROUNDS, REPS = 3, 20
 SHAPES = (("1b dh128 12/2", 4, 1024, 12, 2, 128, 128, 0, 0.0, 1.0),
           ("1h dh64 64/8 W=128", 4, 1024, 64, 8, 64, 64, 128, 0.0, 1.0),
           ("1h dh64 64/8 W=0", 4, 1024, 64, 8, 64, 64, 0, 0.0, 1.0),
+          ("1i dh256 8/4 cap50 W=0", 4, 1024, 8, 4, 256, 256, 0, 50.0, 25.0),
           ("1i dh256 8/4 cap50 W=4096", 4, 1024, 8, 4, 256, 256, 4096, 50.0, 25.0),
           ("1i dh256 4/1 W=512", 4, 1024, 4, 1, 256, 256, 512, 0.0, 1.0),
           ("1i dh256 4/1 W=0", 4, 1024, 4, 1, 256, 256, 0, 0.0, 1.0),
@@ -184,6 +188,41 @@ def _inputs(dev, B, T, nh, nkv, dh, dv, window, cap, q_sd, rng):
     return q, k, v, mask, qs, lse, do, delta, scale, window, cap
 
 
+def _library(args):
+    """SDPA's backward on the same inputs (dq, dk, dv in one autograd call),
+    or None: the softcap has no one call without a compile, and a backend
+    that does not take the inputs gives none. Timed only as a yardstick."""
+    import contextlib
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v, mask, qs, lse, do, delta, scale, window, softcap = args
+    if softcap:
+        return None
+    T = q.shape[1]
+    pos = torch.arange(T, device=q.device)
+    allowed = (mask[:, None, :] > 0) & (pos[None, None, :] <= pos[None, :, None])
+    if window > 0:
+        allowed &= pos[None, None, :] > pos[None, :, None] - window
+    leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
+    narrow = v.shape[-1] < q.shape[-1]
+    try:
+        with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]) if narrow else contextlib.nullcontext():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed[:, None], scale=scale,
+                                                 enable_gqa=True)
+        gout = do.transpose(1, 2)
+
+        def run():
+            return torch.autograd.grad(out, leaves, gout, retain_graph=True)
+
+        run()
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="+", help="flash_attention_bwd.cu files, the first the base")
@@ -226,21 +265,24 @@ def main(argv=None) -> int:
                 if split and not torch.equal(a, c):
                     raise SystemExit(f"{build} {label} {part}: two launches differ")
             builds.append((build, (run_dq, run_dkv)))
+        lib = _library(kargs)
         for kernel in (0, 1):
-            times = {build: [] for build, _ in builds}
-            order = builds + builds[::-1]
+            # the library call computes dq, dk and dv at once: timed beside dq
+            timed = builds + ([("library", (lib, lib))] if lib is not None and kernel == 0 else [])
+            times = {build: [] for build, _ in timed}
+            order = timed + timed[::-1]
             for _ in range(ROUNDS):
                 for build, fns in order:
                     times[build].append(_time_ms(fns[kernel]))
             base = sum(times[builds[0][0]]) / len(times[builds[0][0]])
             cells = []
-            for build, _ in builds:
+            for build, _ in timed:
                 ms = sum(times[build]) / len(times[build])
                 cells.append(f"{build} {ms:.4f} ms ({ms / base:.3f}x, readings "
                              f"{min(times[build]):.4f}-{max(times[build]):.4f})")
             print(f"{label} {('dq', 'dk/dv')[kernel]}: " + "; ".join(cells) + f" [{card}]",
                   flush=True)
-        del kargs, ref, builds
+        del kargs, ref, builds, lib
         torch.cuda.empty_cache()
     return 0
 

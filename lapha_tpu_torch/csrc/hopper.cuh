@@ -2,7 +2,8 @@
 // ldmatrix, mbarriers, TMA loads and the host's tensor-map encoder, wgmma
 // shared-memory descriptors and the wgmma products (A from shared memory or
 // from registers), setmaxnreg, and the ring position of a producer/consumer
-// pipeline. grouped_gemm.cu (K8), int4_matmul.cu (K6) and
+// pipeline, named barriers. grouped_gemm.cu (K8), int4_matmul.cu (K6),
+// and through attention_wg.cuh flash_attention.cu (K1/K3) and
 // flash_attention_bwd.cu (K2) take them from here.
 #pragma once
 
@@ -182,6 +183,7 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #define LAPHA_D8(i)                                                                    \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
+#define LAPHA_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define LAPHA_R32                                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -217,6 +219,18 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(acc), "n"(kTA), "n"(kTB));
 }
 
+// D (64 x 32) (+)= A (64 x 16) · B (16 x 32), both from shared memory.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " LAPHA_R16
+      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : LAPHA_D8(0), LAPHA_D8(8)
+      : "l"(da), "l"(db), "r"(acc), "n"(kTA), "n"(kTB));
+}
+
 // D (64 x 128) += A (64 x 16, registers) · B (16 x 128, shared memory). A's
 // registers are those of an mma.sync m16n8k16 A fragment, warp w of the
 // warpgroup holding rows 16w..16w+15 (common.cuh: a_from_d builds it from
@@ -246,17 +260,19 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
 }
 
 #undef LAPHA_D8
+#undef LAPHA_R16
 #undef LAPHA_R32
 #undef LAPHA_R64
 
-// The register-A products of N columns (64 or 128) by their accumulator size.
-template <int kTB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_m64n64_rs<kTB>(d, a, db);
+// Named barrier `id` (1-15; 0 is __syncthreads') over `n` threads, a
+// multiple of 32: bar_sync waits for the barrier's phase to complete,
+// bar_arrive counts towards it without waiting (a producer's release).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
-template <int kTB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_m64n128_rs<kTB>(d, a, db);
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 template <int R>

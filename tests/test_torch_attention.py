@@ -86,6 +86,33 @@ def test_flash_attention_cached_matches_jax(T, S, qstart):
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), **TOL)
 
 
+@pytest.mark.parametrize("dh,dv", [(96, 96), (192, 128), (256, 256)])
+def test_flash_attention_cached_band_past_the_window_matches_jax(dh, dv):
+    """The banded prefill at the head-dim pairs of Phi-3 (96), DeepSeek MLA
+    (Q/K 192, V 128) and Gemma (256): per-row qstart past the window W, so
+    that each row's band starts at its own key (the kernels' band start per
+    block of queries) and bites, a hole inside the band. Same tolerance as
+    above (f32 on both sides)."""
+    rng = np.random.default_rng(dh + dv)
+    B, T, S, nh, nkv, W = 2, 24, 96, 4, 2, 16
+    q = rng.normal(size=(B, T, nh, dh)).astype(np.float32)
+    k = rng.normal(size=(B, S, nkv, dh)).astype(np.float32)
+    v = rng.normal(size=(B, S, nkv, dv)).astype(np.float32)
+    qs = np.array([60, 37], np.int32)
+    kv_valid = (np.arange(S)[None, :] < qs[:, None] + T).astype(np.int32)
+    kv_valid[0, 66:69] = 0
+    j_out = jfa.flash_attention_cached(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       jnp.asarray(kv_valid), jnp.asarray(qs), window=W,
+                                       block_q=32, block_k=32, interpret=True)
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(kv_valid), torch.from_numpy(qs))
+    t_out = tfa.flash_attention_cached(*args, window=W)
+    assert t_out.shape == (B, T, nh, dv)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), **TOL)
+    # the band bites: without it every row reads keys from slot 0
+    assert not np.allclose(tfa.flash_attention_cached(*args).numpy(), np.asarray(j_out), **TOL)
+
+
 def test_flash_options_not_ported_raise():
     """A window needs causal attention. The logit softcap is ported: both
     entries take it (its parity with JAX is in tests/test_torch_gemma.py).

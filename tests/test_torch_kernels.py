@@ -43,6 +43,13 @@ The forward kernel with V narrower than Q/K (DeepSeek MLA: Q/K 192, V
 128, 16/16 heads) keeps 3e-2 and LSE to 1e-3; V taken from the next head
 (a planted fault) must fail it; a (dh, dv) pair without an instance raises.
 
+The forward runs the per-element mask only on tiles that are not interior
+(the diagonal, the band's edge, a key that is invalid or past S): its
+cases plant invalid keys inside a tile the causal and band limits leave
+interior, T and S off the 64-key tile, per-row qstart past the window and
+rows that see no key (0 and LSE -1e30), at every head-dim pair, and
+require two launches to give the same bits; the same 3e-2 and 1e-3.
+
 The backward kernels (dq; dk/dv, at head dims 64, 128 and 256 and at Q/K
 192 with V 128, banded or not, with or without the softcap) are held
 against the plain backward on
@@ -238,7 +245,7 @@ def _bwd_pair(q, k, v, mask, qstart, do, window=0, softcap=0.0, scale=None):
     ref = fa.attention_bwd_plain(*args)
     torch.cuda.synchronize()
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        name = fa.launch_name(name, window, softcap)
+        name = fa.launch_name(name, window, softcap, narrowv=v.shape[-1] < q.shape[-1])
         assert _cuda.LAUNCHES[name] == before[name] + 1, name
     return (dq, dk, dv), ref
 
@@ -273,7 +280,7 @@ def test_flash_bwd_kernels_match_plain(dev, nh, nkv, T):
     (128, 12, 2, 1000, 0, 0.0),   # the wgmma kernels, the group split in 6
     (64, 64, 8, 300, 128, 0.0),   # banded, split in 4
     (96, 8, 2, 200, 0, 0.0),      # dh 96 padded to two boxes, split in 4
-    (256, 4, 1, 300, 0, 50.0),    # the eight-warp dk/dv kernel, capped, split in 4
+    (256, 4, 1, 300, 0, 50.0),    # the role-split dk/dv kernel, capped, split in 4
 ])
 def test_flash_bwd_kernels_are_bit_equal_over_two_launches(dev, dh, nh, nkv, T, window, softcap):
     """dk/dv's group split adds its f32 partials in a fixed order and nothing
@@ -1580,3 +1587,128 @@ def test_ragged_sink_kernels_with_large_groups(dev, int8, dh, nh, nkv):
     torch.cuda.synchronize()
     assert _sink_err(out, ref, int8) <= 0
     assert _sink_err(bad, ref, int8) > 0
+
+
+# ---------------------------------------------------------------- the wgmma forward (K1/K3) and K2 above dh 128
+
+
+# (head dim of Q/K, of V, heads, KV heads) of the forward's wgmma instances
+FWD_WG_DIMS = [(64, 64, 16, 2), (96, 96, 8, 8), (128, 128, 12, 2), (192, 128, 8, 8)]
+
+
+def _fwd_case(rng, dev, case, dh, dv, nh, nkv):
+    """(q, k, v, kv_valid, qstart (B,), window) of one masking case:
+    'hole' — invalid keys inside a tile that the causal and band limits
+    leave interior (the trap of a per-tile all-valid shortcut); 'edges' — T
+    and S not multiples of the 64-key tile, per-row qstart; 'past_window' —
+    per-row qstart past W, so that the band's first tile differs per row and
+    bites; 'no_key' — left padding: rows that see no key."""
+    B = 2
+    T, S, qstart, window = {"hole": (300, 300, (0, 0), 0), "edges": (77, 333, (200, 256), 0),
+                            "past_window": (150, 700, (520, 300), 200),
+                            "no_key": (100, 100, (0, 0), 16)}[case]
+    q, k, v = _bf16(rng, (B, T, nh, dh), dev), _bf16(rng, (B, S, nkv, dh), dev), _bf16(
+        rng, (B, S, nkv, dv), dev)
+    qs = torch.tensor(qstart, dtype=torch.int32, device=dev)
+    kv_valid = (torch.arange(S, device=dev)[None, :] < qs[:, None] + T).to(torch.int32)
+    if case == "hole":
+        kv_valid[0, 70:73] = 0   # inside key tile 64-127, interior for rows from 128
+        kv_valid[1, 200] = 0     # one key, interior for rows from 256
+    elif case == "no_key":
+        kv_valid[0, :40] = 0     # rows 0-39 of row 0 see no key
+        kv_valid[1, :] = 0       # row 1 sees none at all
+    return q, k, v, kv_valid, qs, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dv,nh,nkv", FWD_WG_DIMS)
+@pytest.mark.parametrize("case", ["hole", "edges", "past_window", "no_key"])
+def test_flash_wg_forward_masks_every_tile_that_needs_it(dev, dh, dv, nh, nkv, case):
+    """The wgmma forward skips the per-element mask on interior tiles only:
+    against the plain version (3e-2, LSE 1e-3 on rows that see a key), rows
+    that see no key give 0 and LSE -1e30, two launches are bit-equal, and
+    the banded case run with W + 1 (a planted fault) fails."""
+    rng = np.random.default_rng(1200 + dh + len(case))
+    q, k, v, kv_valid, qs, window = _fwd_case(rng, dev, case, dh, dv, nh, nkv)
+    scale = dh ** -0.5
+    out, lse = fa._attention_cuda(q, k, v, kv_valid, qs, scale, "flash_attention_cached", window)
+    again, lse2 = fa._attention_cuda(q, k, v, kv_valid, qs, scale, "flash_attention_cached",
+                                     window)
+    ref, ref_lse = fa.attention_plain(q, k, v, kv_valid, qs, scale, window)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    seen = ref_lse > -1e29
+    assert (lse[seen] - ref_lse[seen]).abs().max().item() <= 1e-3
+    assert (lse[~seen] == -1e30).all()
+    assert (out.transpose(1, 2)[~seen] == 0).all()
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    if case == "no_key":
+        assert (~seen).any()
+    if window:
+        bad = fa._attention_cuda(q, k, v, kv_valid, qs, scale, "flash_attention_cached",
+                                 window + 1)[0]
+        torch.cuda.synchronize()
+        assert (bad.float() - ref.float()).abs().max().item() > ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dv,nh,nkv", FWD_WG_DIMS)
+def test_flash_wg_forward_softcap_and_no_cache_entry(dev, dh, dv, nh, nkv):
+    """The capped instance at every wgmma head dim (q scaled so the logits
+    reach 1-3x the cap of 50; the cap dropped, a planted fault, fails), and
+    the no-cache entry with padded rows, counted under its own names."""
+    rng = np.random.default_rng(1300 + dh)
+    B, T = 2, 200
+    q = (_bf16(rng, (B, T, nh, dh), dev).float() * 25.0).to(torch.bfloat16)
+    k, v = _bf16(rng, (B, T, nkv, dh), dev), _bf16(rng, (B, T, nkv, dv), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, 150:] = 0
+    qs = torch.zeros(B, dtype=torch.int32, device=dev)
+    scale = dh ** -0.5
+    name = fa.launch_name("flash_attention", 0, 50.0, narrowv=dv < dh)
+    before = _cuda.LAUNCHES[name]
+    out = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention", 0, 50.0)[0]
+    ref = fa.attention_plain(q, k, v, mask, qs, scale, softcap=50.0)[0]
+    bad = fa._attention_cuda(q, k, v, mask, qs, scale, "flash_attention")[0]
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    assert (bad.float() - ref.float()).abs().max().item() > ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dv,nh,nkv,softcap", [
+    (192, 128, 16, 16, 0.0),  # DeepSeek MLA: dq on 64-key tiles, dk/dv split by role
+    (192, 128, 8, 2, 50.0),   # ... capped, the group split in parts
+    (256, 256, 4, 1, 0.0),    # Gemma-3: dq on 32-key tiles, dk/dv two stages
+    (256, 256, 8, 4, 50.0),   # Gemma-2, capped
+])
+@pytest.mark.parametrize("T,window", [(333, 0), (200, 64), (1, 0)])
+def test_flash_bwd_wide_head_kernels_match_plain_and_repeat(dev, dh, dv, nh, nkv, softcap, T,
+                                                            window):
+    """K2 above dh 128 on wgmma: against the plain backward at K2's limits,
+    T not a multiple of any tile (and T = 1), banded, a right-padded row and
+    a hole; two launches bit-equal; dO of the next head (a planted fault)
+    fails."""
+    rng = np.random.default_rng(1400 + dh + dv + nh + T + window)
+    B = 2
+    q = _bf16(rng, (B, T, nh, dh), dev)
+    if softcap:
+        q = (q.float() * 25.0).to(torch.bfloat16)
+    k, v = _bf16(rng, (B, T, nkv, dh), dev), _bf16(rng, (B, T, nkv, dv), dev)
+    do = _bf16(rng, (B, T, nh, dv), dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    mask[1, (3 * T) // 4 + 1:] = 0
+    mask[0, T // 3:T // 3 + T // 10] = 0
+    scale = 1.0 / 16 if dh == 256 else dh ** -0.5
+    got, ref = _bwd_pair(q, k, v, mask, 0, do, window, softcap, scale)
+    _assert_bwd_close(got, ref)
+    again, _ = _bwd_pair(q, k, v, mask, 0, do, window, softcap, scale)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if T > 1:
+        bad, _ = _bwd_pair(q, k, v, mask, 0, do.roll(-1, dims=2).contiguous(), window, softcap,
+                           scale)
+        with pytest.raises(AssertionError):
+            _assert_bwd_close(bad, ref)
