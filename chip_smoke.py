@@ -10,7 +10,9 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    source, in parallel) and hold each forward kernel against its plain
    PyTorch version at the served shapes (bf16 kernel vs the plain version
    in f32 on the same bf16 inputs, max |diff| <= 3e-2), timing both with
-   CUDA events.
+   CUDA events; the decode kernel (K4/K5, here and in 1c, 1e, 1f, 1l) as
+   CUDA-graph replays through its wrapper, since at ~0.01 ms a call
+   launches from Python would time the host.
 1b. The flash backward kernels (dq; dk/dv) against the plain backward on
    the same bf16 inputs and saved LSE, at B=4 T=1024 (ragged masks) and B=2
    T=1000 (padded tails), 12/2 heads: max |diff| <= 1e-2 * max |plain| +
@@ -44,7 +46,10 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    attention-sink decode entries (K5s, bf16 and int8 caches) at B=24,
    S=640, 64/8 heads of dim 64 and 12/2 of dim 128, window-clipped ranges
    on half the rows (phase 1/1c's limits), with the sinks of the next head
-   planted as a fault that must fail them; the windowed flash kernels (K3 at
+   planted as a fault that must fail them, and at dh 128 (a row split over
+   a cluster of CTAs) with sinks near each head's log-sum-exp, the sink
+   counted once per split planted as a fault that must fail them; the
+   windowed flash kernels (K3 at
    qstart 512 / T=64 and at T=512, K1 at T=512; W=128, dh 64, 64/8 heads)
    at 3e-2 beside SDPA with a banded boolean mask, with a window off by one
    planted as a fault that must fail them.
@@ -589,6 +594,7 @@ def check_kernels(dev, card):
     import numpy as np
     import torch
 
+    from lapha_tpu_torch.bench_k6 import graph_ms
     from lapha_tpu_torch.ops import flash_attention as fa
     from lapha_tpu_torch.ops import ragged_decode_attention as rda
 
@@ -653,7 +659,7 @@ def check_kernels(dev, card):
         lambda: rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, 580),
         lambda: rda.ragged_decode_plain(q, kc, vc, 1, lens, dstart, 580),
         _sdpa(q[:, None], kc[1].transpose(1, 2), vc[1].transpose(1, 2), valid[:, None, :],
-              dh ** -0.5))
+              dh ** -0.5), timer=graph_ms)
     print(f"kernel ragged_decode_attention B={B} S={S} slot=580: max|diff| {err:.3e}, "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms [{card}]", flush=True)
     n_valid = int(valid.sum())  # the valid slots of one layer, summed over rows
@@ -662,6 +668,23 @@ def check_kernels(dev, card):
     results["ragged_decode_attention"] = _row(err, ms, plain_ms, lib_ms, nbytes,
                                               4 * dh * nh * n_valid)
     return results
+
+
+def _lse_sinks(q, kc, lens, dstart, pstart, slot: int, scale: float, rng):
+    """One sink per query head near its log-sum-exp over layer 1's valid
+    slots (the mean over rows, + N(0, 0.3)): a sink counted more than once
+    then moves the output (sinks of ±8 leave it to one side of the LSE)."""
+    import numpy as np
+    import torch
+
+    B, nh, dh = q.shape
+    nkv, S = kc.shape[2], kc.shape[3]
+    k = kc[1].float()
+    s = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(B, nkv, nh // nkv, dh), k) * scale
+    valid = _decode_valid(lens, dstart, slot, S, pstart)[:, None, None, :]
+    lse = torch.logsumexp(torch.where(valid, s, -1e30), dim=-1).reshape(B, nh)
+    noise = torch.from_numpy((rng.normal(size=nh) * 0.3).astype(np.float32)).to(q.device)
+    return (lse.mean(0) + noise).contiguous()
 
 
 def _q8_excess(out, ref) -> float:
@@ -702,6 +725,7 @@ def check_quant_kernels(dev, card):
     import numpy as np
     import torch
 
+    from lapha_tpu_torch.bench_k6 import graph_ms
     from lapha_tpu_torch.models import quant
     from lapha_tpu_torch.models.qwen2 import _quantize_kv
     from lapha_tpu_torch.ops import int4_matmul as i4
@@ -747,7 +771,8 @@ def check_quant_kernels(dev, card):
               f"{float((bad.float() - ref.float()).abs().max()):.3e}, caught", flush=True)
     ms, plain_ms, _ = _ab_ms(
         lambda: rda.ragged_decode_attention(q, kq, vq, 1, lens, dstart, slot, cache_scale=(ks, vs)),
-        lambda: rda.ragged_decode_plain(q, kq, vq, 1, lens, dstart, slot, cache_scale=(ks, vs)))
+        lambda: rda.ragged_decode_plain(q, kq, vq, 1, lens, dstart, slot, cache_scale=(ks, vs)),
+        timer=graph_ms)
     print(f"kernel ragged_decode_attention_q8 B={B} S={S} slot={slot}: max|diff| {err:.3e}, "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms [{card}]", flush=True)
     n_valid = int(_decode_valid(lens, dstart, slot, S).sum())
@@ -760,8 +785,6 @@ def check_quant_kernels(dev, card):
     # K6: every projection of the model at 48 decode rows, and 512 rows.
     # Timed as CUDA-graph replays (bench_k6.graph_ms): at a few microseconds
     # a call, launches from Python would time the host.
-    from lapha_tpu_torch.bench_k6 import graph_ms
-
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, IN, OUT in ((48, 1536, 1536), (48, 1536, 256), (48, 1536, 8960), (48, 8960, 1536),
                        (512, 1536, 8960)):
@@ -1360,7 +1383,9 @@ def check_gptoss_kernels(dev, card):
     import numpy as np
     import torch
 
+    from lapha_tpu_torch.bench_k6 import graph_ms
     from lapha_tpu_torch.models.qwen2 import _quantize_kv
+    from lapha_tpu_torch.ops import _cuda
     from lapha_tpu_torch.ops import flash_attention as fa
     from lapha_tpu_torch.ops import ragged_decode_attention as rda
 
@@ -1411,7 +1436,7 @@ def check_gptoss_kernels(dev, card):
             check(excess(bad, ref) > 0, f"the {name} check missed a planted fault "
                                         "(sinks of the next head)")
             err = float((out.float() - ref.float()).abs().max())
-            ms, plain_ms, _ = _ab_ms(kernel, plain)
+            ms, plain_ms, _ = _ab_ms(kernel, plain, timer=graph_ms)
             # K and V of the valid slots per KV head (int8: + two f32 scales),
             # q, the sinks, the ranges and out
             per_slot = 2 * dh * (1 if scl is not None else 2) + (8 if scl is not None else 0)
@@ -1425,6 +1450,40 @@ def check_gptoss_kernels(dev, card):
                   flush=True)
             if dh == 64:  # the table keeps GPT-OSS's shape
                 results[name] = row
+        if dh == 128:
+            # 48 CTAs: the plan splits each row over a cluster, and the sink
+            # must enter the merge once; q x3 and sinks near each head's LSE,
+            # so that a sink counted once per split (sink + log(splits), the
+            # planted fault) moves the output past the limits
+            q3 = (q.float() * 3).to(torch.bfloat16)
+            near = _lse_sinks(q3, kc, lens, dstart, pstart, slot, dh ** -0.5, rng)
+            for name, kk, vv, scl in (("ragged_decode_attention_sink", kc, vc, None),
+                                      ("ragged_decode_attention_q8_sink", kq, vq, (ks, vs))):
+                splits = rda.split_plan(B, nkv, nh // nkv, slot + 1, _cuda.sm_count(dev), dh=dh,
+                                        int8=scl is not None).splits
+                check(splits >= 2, f"the plan splits B={B} x {nkv} KV heads into {splits}")
+                out = rda.ragged_decode_attention(q3, kk, vv, 1, lens, dstart, slot, pstart,
+                                                  cache_scale=scl, sinks=near)
+                bad = rda.ragged_decode_attention(q3, kk, vv, 1, lens, dstart, slot, pstart,
+                                                  cache_scale=scl,
+                                                  sinks=near + float(np.log(splits)))
+                ref = rda.ragged_decode_plain(q3, kk, vv, 1, lens, dstart, slot, pstart,
+                                              cache_scale=scl, sinks=near)
+                torch.cuda.synchronize()
+
+                def over(x, scl=scl):
+                    return (_q8_excess(x, ref) if scl is not None
+                            else float((x.float() - ref.float()).abs().max()) - KERNEL_ATOL)
+
+                check(over(out) <= 0, f"{name} with sinks near the LSE, {splits} splits: "
+                                      f"max|diff| {float((out.float() - ref.float()).abs().max())}")
+                check(over(bad) > 0, f"the {name} check missed a planted fault (the sink "
+                                     f"counted once per split, {splits} splits)")
+                print(f"planted fault ({name}, dh={dh} {nh}/{nkv} heads, {splits} splits, sinks "
+                      f"near the LSE: the sink counted once per split): max|diff| "
+                      f"{float((bad.float() - ref.float()).abs().max()):.3e}, caught; the true "
+                      f"sinks {float((out.float() - ref.float()).abs().max()):.3e} [{card}]",
+                      flush=True)
 
     # windowed K3 / K1 at GPT-OSS's heads
     nh, nkv, dh = 64, 8, 64
@@ -1487,6 +1546,7 @@ def check_gemma_kernels(dev, card):
     import numpy as np
     import torch
 
+    from lapha_tpu_torch.bench_k6 import graph_ms
     from lapha_tpu_torch.models.qwen2 import _quantize_kv
     from lapha_tpu_torch.ops import flash_attention as fa
     from lapha_tpu_torch.ops import ragged_decode_attention as rda
@@ -1621,7 +1681,7 @@ def check_gemma_kernels(dev, card):
                     lib = f"flex_attention (max|diff| {lib_err:.3e})"
                 else:
                     lib_fn, lib = _sdpa(*lib_args), "sdpa"
-            ms, plain_ms, lib_ms = _ab_ms(kernel, plain, lib_fn)
+            ms, plain_ms, lib_ms = _ab_ms(kernel, plain, lib_fn, timer=graph_ms)
             if lib_ms is not None:
                 lib = f"{lib} {lib_ms:.4f} ms"
             # K and V of the valid slots per KV head (int8: + two f32 scales),
@@ -2466,6 +2526,7 @@ def check_phi3_starcoder2_kernels(dev, card):
     K2); K5 has none."""
     import torch
 
+    from lapha_tpu_torch.bench_k6 import graph_ms
     from lapha_tpu_torch.models.qwen2 import _quantize_kv
     from lapha_tpu_torch.ops import flash_attention as fa
     from lapha_tpu_torch.ops import ragged_decode_attention as rda
@@ -2623,7 +2684,7 @@ def check_phi3_starcoder2_kernels(dev, card):
                 lib_fn = _sdpa(q[:, None], kc[1].transpose(1, 2), vc[1].transpose(1, 2),
                                valid[:, None, :], scale_c)
                 lib = "sdpa"
-            ms, plain_ms, lib_ms = _ab_ms(kernel, plain, lib_fn)
+            ms, plain_ms, lib_ms = _ab_ms(kernel, plain, lib_fn, timer=graph_ms)
             if lib_ms is not None:
                 lib = f"{lib} {lib_ms:.4f} ms"
             # K and V of the valid slots per KV head (int8: + two f32

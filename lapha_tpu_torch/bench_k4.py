@@ -17,25 +17,41 @@ rows (Gemma-2's 8/4 heads with the cap of 50, Gemma-3's 4/1) and phase 1l's
 dim 128). A build that refuses a shape (a source written before dh 96 or a
 group above 8) skips it. Every build's output is held to the plain version
 at the smoke script's limits first (3e-2; the int8 rule 5e-3 + 2^-7 |plain|).
-Then each shape is timed with CUDA events (20 launches a reading) in rounds
-that visit the builds in order and back (A B C C B A), three rounds, and the
+Then each shape is timed as CUDA-graph replays (``bench_k6.graph_ms``: 20
+launches captured in one graph, a replay a reading; at ~10 us a call,
+launches from Python would time the host) in rounds that visit the builds
+in order and back (A B C C B A), three rounds, and the
 mean of each build's six readings is printed beside its ratio to the first
-build's, with the card's name and power limit. ptxas's register and spill
-lines of each build are printed too.
+build's, with the card's name and power limit. One PyTorch call computing
+the same attention is timed in the same rounds where there is one
+(``library``: SDPA with the boolean mask of the valid slots, bf16 cache, no
+sinks, no softcap). ptxas's register and spill lines of each build are
+printed too.
+
+A source whose C entries end with the host's plan (``int splits, int
+stages``, the split kernel) is called with ``split_plan``'s plan at each
+shape; an older one without it. ``--sweep`` then times the last build at
+each shape under every plan of 1, 2, 3, 4, 6 and 8 splits and 1 to 4 stages,
+in turns, each beside the plan's own choice (the readings behind
+``split_plan``).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import os
+import re
 import subprocess
 import sys
 
 import torch
 
-from lapha_tpu_torch.bench_k2 import ROUNDS, _time_ms, compile_sources
+from lapha_tpu_torch.bench_k2 import ROUNDS, compile_sources
+from lapha_tpu_torch.bench_k6 import graph_ms
 from lapha_tpu_torch.models.qwen2 import _quantize_kv
+from lapha_tpu_torch.ops import _cuda
 from lapha_tpu_torch.ops import ragged_decode_attention as rda
 
 KERNEL_ATOL, Q8_ATOL = 3e-2, 5e-3  # chip_smoke.py's limits
@@ -52,25 +68,30 @@ SHAPES = (("1 K4 dh128 12/2", 24, 640, 580, 12, 2, 128, 0, False, False, 0.0, 1.
           ("1l K5 dh128 24/2 (group 12)", 24, 640, 600, 24, 2, 128, 4096, True, False, 0.0, 1.0))
 
 
-def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, str]]:
-    """(library, ptxas report) of each source, its four C entries bound."""
+def _build(srcs: list[str]) -> list[tuple[ctypes.CDLL, bool, str]]:
+    """(library, takes the plan, ptxas report) of each source, its four C
+    entries bound."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [I, I, P, I, I, I, I, I, F, F, P]  # layer slot out B nh nkv S dh scale softcap stream
     libs = []
-    for _, so, report in compile_sources(srcs, "bench_k4"):
+    for text, so, report in compile_sources(srcs, "bench_k4"):
+        planned = re.search(r"lapha_ragged_decode\([^)]*int splits", text) is not None
+        # layer slot out B nh nkv S dh scale softcap (splits stages) stream
+        tail = [I, I, P, I, I, I, I, I, F, F] + ([I, I] if planned else []) + [P]
         dll = ctypes.CDLL(so)
         for entry, n_ptr in (("lapha_ragged_decode", 6), ("lapha_ragged_decode_q8", 8),
                              ("lapha_ragged_decode_sink", 7), ("lapha_ragged_decode_q8_sink", 9)):
             fn = getattr(dll, entry)
             fn.argtypes = [P] * n_ptr + tail
             fn.restype = I
-        libs.append((dll, report))
+        libs.append((dll, planned, report))
     return libs
 
 
-def _call(dll, q, kc, vc, scl, lens, dstart, pstart, sinks, slot, scale, softcap):
+def _call(dll, planned, q, kc, vc, scl, lens, dstart, pstart, sinks, slot, scale, softcap,
+          plan=None):
     """One build's decode at layer 1 on the kernel's arguments, as a
-    closure; None if the build refuses the shape."""
+    closure (with ``plan``, or ``split_plan``'s, if the build takes one);
+    None if the build refuses the shape."""
     B, nh, dh = q.shape
     nkv, S = kc.shape[2], kc.shape[3]
     out = torch.empty_like(q)
@@ -82,12 +103,16 @@ def _call(dll, q, kc, vc, scl, lens, dstart, pstart, sinks, slot, scale, softcap
     ptrs += [lens.data_ptr(), dstart.data_ptr(), pstart.data_ptr()]
     if sinks is not None:
         ptrs.append(sinks.data_ptr())
-    stream = torch.cuda.current_stream().cuda_stream
+    if planned and plan is None:
+        plan = rda.split_plan(B, nkv, nh // nkv, slot + 1, _cuda.sm_count(q.device), dh=dh,
+                              int8=scl is not None)
+    extra = list(plan) if planned else []
     fn = getattr(dll, entry)
 
     def run():
+        # the current stream: a graph capture runs on a stream of its own
         err = fn(*ptrs, 1, slot, out.data_ptr(), B, nh, nkv, S, dh, float(scale), float(softcap),
-                 stream)
+                 *extra, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch refused: {err}")
         return out
@@ -99,10 +124,38 @@ def _call(dll, q, kc, vc, scl, lens, dstart, pstart, sinks, slot, scale, softcap
     return run
 
 
+def _library(q, kc, vc, valid, scale):
+    """SDPA over layer 1 with the boolean mask of the valid slots, as a closure."""
+    import torch.nn.functional as F
+
+    qt, k, v, m = q[:, :, None], kc[1], vc[1], valid[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=m, scale=scale,
+                                                  enable_gqa=True)
+
+
+def _rounds(timed, card, label):
+    """Time (name, closure) pairs in turns, ROUNDS rounds of A B .. B A, and
+    print each mean beside its ratio to the first."""
+    times = {name: [] for name, _ in timed}
+    order = timed + timed[::-1]
+    for _ in range(ROUNDS):
+        for name, run in order:
+            times[name].append(graph_ms(run))
+    base = sum(times[timed[0][0]]) / len(times[timed[0][0]])
+    cells = []
+    for name, _ in timed:
+        ms = sum(times[name]) / len(times[name])
+        cells.append(f"{name} {ms:.4f} ms ({ms / base:.3f}x, readings "
+                     f"{min(times[name]):.4f}-{max(times[name]):.4f})")
+    print(f"{label}: " + "; ".join(cells) + f" [{card}]", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="+",
                     help="ragged_decode_attention.cu files, the first the base")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time the last build under every plan at each shape")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_k4: no CUDA device", file=sys.stderr)
@@ -113,7 +166,7 @@ def main(argv=None) -> int:
     libs = _build(args.sources)
     # a build is named by its source's directory in the timing lines
     names = [os.path.basename(os.path.dirname(os.path.abspath(s))) for s in args.sources]
-    for name, src, (_, report) in zip(names, args.sources, libs):
+    for name, src, (_, _, report) in zip(names, args.sources, libs):
         print(f"== {name}: {src}\n{report}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -140,32 +193,47 @@ def main(argv=None) -> int:
         scale = 1.0 / 16 if dh == 256 else dh ** -0.5
         ref = rda.ragged_decode_plain(q, kc, vc, 1, lens, dstart, slot, pstart, scale,
                                       cache_scale=scl, sinks=sinks, softcap=cap).float()
-        builds = []
-        for build, (dll, _) in zip(names, libs):
-            run = _call(dll, q, kc, vc, scl, lens, dstart, pstart, sinks, slot, scale, cap)
-            if run is None:
-                print(f"{label}: {build} refuses the shape, skipped", flush=True)
-                continue
+
+        def checked(build, run):
             diff = (run().float() - ref).abs()
             torch.cuda.synchronize()
             excess = (float((diff - 2.0 ** -7 * ref.abs()).max()) - Q8_ATOL if int8
                       else float(diff.max()) - KERNEL_ATOL)
             if not excess <= 0:
                 raise SystemExit(f"{build} {label}: max|diff| {float(diff.max())}")
-            builds.append((build, run))
-        times = {build: [] for build, _ in builds}
-        order = builds + builds[::-1]
-        for _ in range(ROUNDS):
-            for build, run in order:
-                times[build].append(_time_ms(run))
-        base = sum(times[builds[0][0]]) / len(times[builds[0][0]])
-        cells = []
-        for build, _ in builds:
-            ms = sum(times[build]) / len(times[build])
-            cells.append(f"{build} {ms:.4f} ms ({ms / base:.3f}x, readings "
-                         f"{min(times[build]):.4f}-{max(times[build]):.4f})")
-        print(f"{label}: " + "; ".join(cells) + f" [{card}]", flush=True)
-        del q, kc, vc, ref, builds
+            return build, run
+
+        builds = []
+        for build, (dll, planned, _) in zip(names, libs):
+            run = _call(dll, planned, q, kc, vc, scl, lens, dstart, pstart, sinks, slot, scale,
+                        cap)
+            if run is None:
+                print(f"{label}: {build} refuses the shape, skipped", flush=True)
+                continue
+            builds.append(checked(build, run))
+        timed = list(builds)
+        if not int8 and not sink and not cap:
+            ar = torch.arange(S, device=dev)[None, :]
+            valid = (((ar >= pstart[:, None]) & (ar < lens[:, None]))
+                     | ((ar >= dstart[:, None]) & (ar <= slot)))
+            timed.append(("library", _library(q, kc, vc, valid, scale)))
+        _rounds(timed, card, label)
+        dll, planned, _ = libs[-1]
+        if args.sweep and planned:
+            chosen = rda.split_plan(B, nkv, nh // nkv, slot + 1, _cuda.sm_count(dev), dh=dh,
+                                    int8=int8)
+            plans = [(f"plan {tuple(chosen)}", chosen)] + [
+                (f"{sp}x{st}", rda.Plan(sp, st))
+                for sp, st in itertools.product((1, 2, 3, 4, 6, 8), range(1, rda.MAX_STAGES + 1))
+                if rda.Plan(sp, st) != chosen]
+            swept = []
+            for name, plan in plans:
+                run = _call(dll, planned, q, kc, vc, scl, lens, dstart, pstart, sinks, slot,
+                            scale, cap, plan)
+                if run is not None:
+                    swept.append(checked(f"{names[-1]} {name}", run))
+            _rounds(swept, card, f"{label} sweep")
+        del q, kc, vc, ref, builds, timed
         torch.cuda.empty_cache()
     return 0
 

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the port's kernels: cp.async and
-// ldmatrix, mbarriers, TMA loads and the host's tensor-map encoder, wgmma
-// shared-memory descriptors and the wgmma products (A from shared memory or
-// from registers), setmaxnreg, and the ring position of a producer/consumer
-// pipeline, named barriers. grouped_gemm.cu (K8), int4_matmul.cu (K6),
-// and through attention_wg.cuh flash_attention.cu (K1/K3) and
+// Hopper (sm_90a) building blocks shared by the port's kernels: cp.async,
+// ldmatrix and movmatrix, thread-block clusters, mbarriers, TMA loads and
+// the host's tensor-map encoder, wgmma shared-memory descriptors and the
+// wgmma products (A from shared memory or from registers), setmaxnreg, and
+// the ring position of a producer/consumer pipeline, named barriers.
+// grouped_gemm.cu (K8), int4_matmul.cu (K6), ragged_decode_attention.cu
+// (K4/K5), and through attention_wg.cuh flash_attention.cu (K1/K3) and
 // flash_attention_bwd.cu (K2) take them from here.
 #pragma once
 
@@ -31,6 +32,13 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// 4 bytes global -> shared (an f32 at any 4-byte boundary); zero-filled when !ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const int n = ok ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -56,6 +64,48 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
+}
+
+// An 8x8 b16 matrix in the ldmatrix / mma fragment layout (lane 4g + t4
+// holds row g, columns 2t4, 2t4 + 1), transposed across the warp.
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// ---------------------------------------------------------------- thread-block clusters
+
+// This CTA's rank in its cluster, and a barrier of all the cluster's threads
+// (release / acquire: every CTA's shared-memory writes before it, to its own
+// or another's, are seen by all after it).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The same barrier in two halves: a CTA arrives on entry and waits before it
+// first touches a peer's shared memory, which must have started to exist.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// An f32 stored at the address `p` has in this CTA's shared memory, into
+// rank r's (distributed shared memory; seen there after a cluster barrier).
+__device__ __forceinline__ void st_cluster_f32(float* p, int r, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(r));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
 }
 
 // ---------------------------------------------------------------- mbarriers, TMA

@@ -108,21 +108,8 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t r, int sh) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The thread-block cluster: this CTA's rank, a barrier of all its threads
-// (release / acquire: every CTA's shared-memory writes before it, to its own
-// or another's, are seen by all after it), and a 16-byte store into rank
-// r's shared memory at the address `a` has in this CTA's.
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
+// A 16-byte store into rank r's shared memory at the address `a` has in
+// this CTA's (hopper.cuh has the cluster's rank and barrier).
 __device__ __forceinline__ void st_cluster4(uint32_t a, int r, float4 v) {
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(a), "r"(r));

@@ -117,17 +117,18 @@ def lib() -> ctypes.CDLL:
         dll.lapha_flash_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
         dll.lapha_flash_fwd.restype = _I
+        # the decode entries end with the plan: splits, stages
         dll.lapha_ragged_decode.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P,
-                                            _I, _I, _I, _I, _I, _F, _F, _P]
+                                            _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
         dll.lapha_ragged_decode.restype = _I
         dll.lapha_ragged_decode_q8.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                                               _I, _I, _I, _I, _I, _F, _F, _P]
+                                               _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
         dll.lapha_ragged_decode_q8.restype = _I
         dll.lapha_ragged_decode_sink.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                                                 _I, _I, _I, _I, _I, _F, _F, _P]
+                                                 _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
         dll.lapha_ragged_decode_sink.restype = _I
         dll.lapha_ragged_decode_q8_sink.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                                    _P, _I, _I, _I, _I, _I, _F, _F, _P]
+                                                    _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
         dll.lapha_ragged_decode_q8_sink.restype = _I
         # x packed scales out, then B IN OUT G, the plan: rows, columns, splits
         dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]

@@ -17,7 +17,16 @@ The int8-cache entry of the ragged decode kernel: its K/V values are exact
 in bf16 and the scales fold in f32; both sides round the output to bf16 (at
 most one ulp apart, <= 2^-7 |out|), so per element |diff| <= 5e-3 + 2^-7 ·
 |plain|. That check must fail for faults planted through the inputs (the V
-scales of the next slot, a dropped prompt slot).
+scales of the next slot, a dropped prompt slot). The kernel also rounds P
+times the V scale to bf16 before P·V (at most 2^-9 of the p-weighted |v|),
+inside the same rule.
+
+The decode kernel splits each row's slots over a cluster of CTAs (the
+host's plan): every instance is checked at every split count 1-8 forced
+through the plan, at the limits above, with rows whose few slots fall
+inside one split, and two launches must give the same bits; with sinks
+near each head's log-sum-exp, the sink counted once per split (sinks +
+log(splits), a planted fault) must fail from two splits up.
 
 The int4 dequant-matmul takes bf16 x and writes f32; the plain version does
 the same arithmetic (exact bf16 x nibble products) with f32 sums in another
@@ -1533,10 +1542,10 @@ def _decode_case(rng, dev, dh, nh, nkv, int8, W=2047, scale_q=1.0):
     (96, 32, 32, 2047),   # Phi-3-mini: group 1, its window past every prompt
     (96, 32, 32, 200),    # the same heads with a band that clips
     (96, 8, 1, 200),      # dh 96 with a whole group of 8
-    (128, 18, 2, 300),    # group 9: blocks of 5 + 4
-    (128, 24, 2, 4096),   # StarCoder2-3B: group 12, blocks of 6 + 6
+    (128, 18, 2, 300),    # group 9: one CTA of 16 heads a KV head
+    (128, 24, 2, 4096),   # StarCoder2-3B: group 12, one CTA
     (128, 32, 2, 300),    # group 16: 8 + 8
-    (96, 32, 1, 300),     # group 32 at dh 96: four blocks of 8
+    (96, 32, 1, 300),     # group 32 at dh 96: two CTAs of 16 heads
 ])
 def test_ragged_dh96_and_large_groups_match_plain(dev, int8, dh, nh, nkv, W):
     """K4/K5 at head dim 96 and at GQA groups above 8 (9, 12, 16, 32),
@@ -1571,9 +1580,8 @@ def test_ragged_dh96_and_large_groups_match_plain(dev, int8, dh, nh, nkv, W):
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dh,nh,nkv", [(128, 24, 2), (96, 36, 3)])
 def test_ragged_sink_kernels_with_large_groups(dev, int8, dh, nh, nkv):
-    """The sink entries at groups of 12: each block of the group starts its
-    softmax at its own heads' sinks; the sinks of the next head (a planted
-    fault) fail."""
+    """The sink entries at groups of 12: each head of the group merges its
+    own sink; the sinks of the next head (a planted fault) fail."""
     rng = np.random.default_rng(1100 + dh + int8)
     q, kc, vc, scl, lens, dstart, pstart, slot = _decode_case(rng, dev, dh, nh, nkv, int8, 128)
     sinks = rng.normal(size=nh) + np.where(np.arange(nh) % 2 == 0, 8.0, -8.0)
@@ -1712,3 +1720,161 @@ def test_flash_bwd_wide_head_kernels_match_plain_and_repeat(dev, dh, dv, nh, nkv
                            scale)
         with pytest.raises(AssertionError):
             _assert_bwd_close(bad, ref)
+
+
+# ---------------------------------------------------------------- the decode kernel's split (K4/K5)
+
+
+def _force_plan(monkeypatch, splits, stages=None):
+    """The wrapper's plan with ``splits`` CTAs a row (and ``stages``, else the
+    plan's own)."""
+    real = rda.split_plan
+
+    def plan(*args, **kwargs):
+        own = real(*args, **kwargs)
+        return rda.Plan(splits, own.stages if stages is None else stages)
+
+    monkeypatch.setattr(rda, "split_plan", plan)
+
+
+def _lse_sinks(q, kc, scl, lens, dstart, pstart, slot, scale, rng):
+    """One sink per query head near its log-sum-exp (mean over the rows that
+    see a key, + N(0, 0.3)): a sink counted more than once then moves the
+    output well past the limits."""
+    B, nh, dh = q.shape
+    nkv, S = kc.shape[2], kc.shape[3]
+    k = kc[1].float() * (scl[0][1].float()[..., None] if scl is not None else 1.0)
+    s = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(B, nkv, nh // nkv, dh), k) * scale
+    valid = _ragged_valid(lens, dstart, pstart, slot, S)[:, None, None, :]
+    lse = torch.logsumexp(torch.where(valid, s, -1e30), dim=-1).reshape(B, nh)
+    seen = valid.reshape(B, S).any(-1)
+    noise = torch.from_numpy((rng.normal(size=nh) * 0.3).astype(np.float32)).to(q.device)
+    return (lse[seen].mean(0) + noise).contiguous()
+
+
+def _ragged_valid(lens, dstart, pstart, slot, S):
+    ar = torch.arange(S, device=lens.device)[None, :]
+    return (((ar >= pstart[:, None]) & (ar < lens[:, None]))
+            | ((ar >= dstart[:, None]) & (ar <= slot)))
+
+
+def _split_case(rng, dev, dh, nh, nkv, int8, scale_q=1.0):
+    """24 decode rows over S=640 as _decode_case's (prompts up to 512, decode
+    columns from 512, a window of 300 clipping the odd rows), drawn on the
+    card, with the last four made short: 1 and 2 valid slots, 7, and none
+    (dstart past the slot), so that a row's slots fall inside one split and
+    most splits are empty."""
+    L, B, S, slot, W = 2, 24, 640, 600, 300
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+
+    def bf16(*shape, sd=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * sd).to(torch.bfloat16)
+
+    q = bf16(B, nh, dh, sd=scale_q)
+    kc, vc = bf16(L, B, nkv, S, dh), bf16(L, B, nkv, S, dh)
+    scl = None
+    if int8:
+        (kc, ks), (vc, vs) = _quantize_kv(kc), _quantize_kv(vc)
+        scl = (ks, vs)
+    lens = torch.from_numpy(rng.integers(1, 513, B).astype(np.int32)).to(dev)
+    pos = lens + (slot - 512)
+    odd = torch.arange(B, device=dev) % 2 == 1
+    pstart = torch.where(odd, torch.minimum(torch.clamp(pos - (W - 1), min=0), lens),
+                         torch.zeros_like(lens)).to(torch.int32)
+    dstart = torch.where(odd, torch.full_like(lens, max(512, slot - (W - 1))),
+                         torch.full_like(lens, 512)).to(torch.int32)
+    lens[-4:] = torch.tensor([0, 0, 5, 0], dtype=torch.int32)
+    pstart[-4:] = torch.tensor([0, 0, 0, 0], dtype=torch.int32)
+    dstart[-4:] = torch.tensor([slot, slot - 1, slot - 1, slot + 1], dtype=torch.int32)
+    return q, kc, vc, scl, lens, dstart, pstart, slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("sinks", [False, True])
+@pytest.mark.parametrize("dh,nh,nkv", [(64, 64, 8), (96, 32, 32), (128, 12, 2), (256, 8, 4)])
+def test_ragged_split_kernel_every_instance_and_split(dev, monkeypatch, dh, nh, nkv, sinks,
+                                                      int8, splits):
+    """Every instance (dh 64, 96, 128, 256 x bf16 / int8 x sinks or not) at
+    every split count 1-8 forced through the plan, ring depths 1-4, window-
+    clipped rows and rows of 0, 1, 2 and 7 valid slots: one launch a call,
+    the limits of the smoke script, two launches bit-equal. With sinks near
+    the LSE, the sink counted once per split (sink + log(splits), the
+    planted fault) fails from two splits up."""
+    rng = np.random.default_rng(3000 + dh + 10 * splits + 2 * sinks + int8)
+    q, kc, vc, scl, lens, dstart, pstart, slot = _split_case(rng, dev, dh, nh, nkv, int8)
+    scale = dh ** -0.5
+    sk = _lse_sinks(q, kc, scl, lens, dstart, pstart, slot, scale, rng) if sinks else None
+    _force_plan(monkeypatch, splits, stages=1 + splits % 4)
+    name = ("ragged_decode_attention" + ("_q8" if int8 else "") + ("_sink" if sinks else ""))
+    before = _cuda.LAUNCHES[name]
+    out = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, cache_scale=scl,
+                                      sinks=sk)
+    again = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, cache_scale=scl,
+                                        sinks=sk)
+    ref = rda.ragged_decode_plain(q, kc, vc, 1, lens, dstart, slot, pstart, cache_scale=scl,
+                                  sinks=sk)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == before + 2
+    assert torch.isfinite(out.float()).all()
+    assert _sink_err(out, ref, int8) <= 0
+    assert torch.equal(out, again)
+    assert (out[-1] == 0).all()  # the row without a key
+    if sinks and splits > 1:
+        bad = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart,
+                                          cache_scale=scl, sinks=sk + float(np.log(splits)))
+        torch.cuda.synchronize()
+        assert _sink_err(bad, ref, int8) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("group", [1, 6, 7, 8, 12, 16, 32])
+@pytest.mark.parametrize("splits", [None, 3])
+def test_ragged_split_kernel_groups(dev, monkeypatch, group, int8, splits):
+    """GQA groups 1, 6, 7, 8, 12, 16 (one CTA of a KV head reads its slots)
+    and 32 (two CTAs of 16 heads), 2 KV heads at dh 128, at the plan's
+    split count and at 3;
+    each query head's output is its own (the heads of the next KV head's
+    group, a planted fault through q, fail)."""
+    rng = np.random.default_rng(3100 + group + int8)
+    nkv = 2
+    q, kc, vc, scl, lens, dstart, pstart, slot = _split_case(rng, dev, 128, group * nkv, nkv,
+                                                             int8)
+    if splits is not None:
+        _force_plan(monkeypatch, splits)
+    out = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, cache_scale=scl)
+    ref = rda.ragged_decode_plain(q, kc, vc, 1, lens, dstart, slot, pstart, cache_scale=scl)
+    bad = rda.ragged_decode_attention(q.roll(group, dims=1).contiguous(), kc, vc, 1, lens,
+                                      dstart, slot, pstart, cache_scale=scl)
+    torch.cuda.synchronize()
+    assert _sink_err(out, ref, int8) <= 0
+    assert _sink_err(bad, ref, int8) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dh,nh,nkv", [(256, 8, 4), (128, 24, 2), (64, 64, 8)])
+@pytest.mark.parametrize("splits", [1, 5])
+def test_ragged_split_kernel_softcap(dev, monkeypatch, dh, nh, nkv, int8, splits):
+    """The softcap (50, the logit scale 1/16 and q x400/sqrt(dh), x25 at dh
+    256, so that the logits are 1-3x the cap) on the true logit after the K
+    scale, at one and five splits, counted under the entry's name +
+    "_softcap"; the cap left off (a planted fault) fails."""
+    rng = np.random.default_rng(3200 + dh + int8 + splits)
+    q, kc, vc, scl, lens, dstart, pstart, slot = _split_case(rng, dev, dh, nh, nkv, int8,
+                                                             scale_q=400 / dh ** 0.5)
+    _force_plan(monkeypatch, splits)
+    name = "ragged_decode_attention" + ("_q8" if int8 else "") + "_softcap"
+    before = _cuda.LAUNCHES[name]
+    out = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, 1 / 16,
+                                      cache_scale=scl, softcap=50.0)
+    ref = rda.ragged_decode_plain(q, kc, vc, 1, lens, dstart, slot, pstart, 1 / 16,
+                                  cache_scale=scl, softcap=50.0)
+    bad = rda.ragged_decode_attention(q, kc, vc, 1, lens, dstart, slot, pstart, 1 / 16,
+                                      cache_scale=scl)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == before + 1
+    assert _sink_err(out, ref, int8) <= 0
+    assert _sink_err(bad, ref, int8) > 0
