@@ -22,10 +22,10 @@
 // What bounds them on an H100: the expert weights at decode, matrix
 // throughput at prefill and in training. At decode (M = 96 rows, 24 rows x
 // top-4, over 60 experts) each touched expert's K·N weights feed ~2 rows:
-// the bound is ~48 experts x 5.8 MB at 3.35 TB/s. At prefill (M = 8192)
-// all 60 experts (346 MB) are read for ~137 rows each: 2·M·K·N = 47 GFLOP
-// is 0.05 ms at 989 TFLOP/s, under the 0.10 ms of the weight stream. In
-// training (M = 32768 pair rows, ~546 an expert) each of the three
+// the bound is ~51 experts x 5.8 MB at 3.35 TB/s, 0.088 ms. At prefill (M =
+// 8192) all 60 experts (346 MB) are read for ~137 rows each: 2·M·K·N = 47
+// GFLOP is 0.05 ms at 989 TFLOP/s, under the 0.10 ms of the weight stream.
+// In training (M = 32768 pair rows, ~546 an expert) each of the three
 // products is 2·M·K·N = 189 GFLOP against 346 MB + 2 x 92-134 MB of rows:
 // operations bound, 0.19 ms each.
 //
@@ -60,14 +60,39 @@
 //    past the expert's end are zeroed in the consumer's own x box in shared
 //    memory (then fence.proxy.async) before the wgmma that reads them. The
 //    next tile's loads run during a tile's epilogue.
-// 2. The 64-row mma.sync forward (decode: a few rows an expert, where the
-//    weight stream bounds it and 128-row tiles would be padding; N % 8 != 0
-//    or weights not 16-byte aligned, which TMA cannot take). A CTA owns a
-//    64 x 64 output tile of one expert's rows on a fixed grid of ceil(M/64)
-//    + G + 1 row tiles x ceil(N/64) column tiles, walks the reduction in
-//    steps of 32 through a 3-stage cp.async ring, and finds its (expert, row
-//    tile) by binary search over the tile offsets. mma.sync m16n8k16 with
-//    ldmatrix fragments; each of the 4 warps owns 32x32 of the tile.
+// 2. The decode forward (a few rows an expert, where only the weight stream
+//    counts; also N % 8 != 0 or weights not 16-byte aligned, at any M). Its
+//    bound is bytes: a touched expert's weights are read once for 1-8 rows,
+//    so the design streams them evenly over the card with enough of the
+//    stream in flight; the products are nearly free.
+//    - Operands swapped: it computes out_gᵀ = w_gᵀ · x_gᵀ with mma.sync
+//      m16n8k16, the expert's output columns on M (A fragments by
+//      ldmatrix.trans of the [k][n] weight box) and its rows on n8 (B
+//      fragments by ldmatrix of the x box [r][k]). 1-8 rows cost one n8
+//      product, 9-16 two; an expert with more rows takes more passes of 16
+//      rows, each rereading the panel (from L2: a panel's passes are
+//      neighbouring items).
+//    - Items are (expert, pass, 128-column panel), ordered expert by expert,
+//      only the touched experts' (the prefix sums, built by warp 0 of every
+//      CTA from the device's group sizes). The grid is persistent, DCTAS
+//      CTAs an SM at most (the host's plan, from the shapes); CTA b takes
+//      items b, b + gridDim.x, ..., each over the whole in-dim.
+//    - A producer warp keeps a DSTAGES-deep ring full: its lane 0 loads each
+//      stage (64 k rows x 128 columns of the weights from a 3-D map, two 64
+//      x 64 boxes, and the pass's 16 x rows x 64 k) with TMA in the 128-byte
+//      swizzle (where TMA cannot read the weights, its 32 lanes load them
+//      with element loads into the same layout), on full/empty mbarriers,
+//      across item boundaries. Four
+//      consumer warps each multiply a quarter of the panel's columns: every
+//      fragment of a stage is loaded first (ldmatrix addresses XOR the
+//      swizzle; conflict-free), the stage released, then the products
+//      issued, so their latencies overlap. After an item's last stage each
+//      thread stores its f32 accumulators straight to `out`, masked at the
+//      group's end and at N.
+//    - bench_k8.py --sweep reads the constants: 128-column panels, 3 stages
+//      and 3 CTAs an SM, with no split of the in-dim (a split over a
+//      thread-block cluster, merged through distributed shared memory, lost
+//      at every decode row it was timed at; PERF.md's K8 finding).
 //
 // Both find their tiles from the exclusive prefix sums of the group sizes
 // and of their tile counts, built by one warp in shared memory (shuffle
@@ -124,147 +149,199 @@ __device__ __forceinline__ void group_prefix(const int* __restrict__ group_sizes
   }
 }
 
-// ---------------------------------------------------------------- the 64-row mma.sync forward
+// Tile t of the row-grouped products, TILE rows and TN columns: expert g
+// (the largest with toff[g] <= t / n_col, a non-empty group), then its
+// column panel, then its row tile.
+struct Tile {
+  int g, r0, r1, n0;
+};
 
-constexpr int BM = 64;       // output rows per CTA
-constexpr int BN = 64;       // output columns per CTA
-constexpr int BK = 32;       // reduction per pipeline stage
-constexpr int NT = 128;      // threads: 4 warps, 2 x 2 over the tile, 32x32 each
-constexpr int STAGES = 3;    // cp.async ring depth
-constexpr int LDA = BK + 8;  // 80-byte smem rows: 16-byte aligned, ldmatrix conflict-free
-constexpr int LDB = BN + 8;  // 144-byte smem rows: the same
-
-// out[n], out[n + 1] of one row, masked at N
-__device__ __forceinline__ void store2(float* row, int n, int N, float a, float b) {
-  if (n + 1 < N && (N & 1) == 0) {
-    *reinterpret_cast<float2*>(row + n) = make_float2(a, b);
-  } else {
-    if (n < N) row[n] = a;
-    if (n + 1 < N) row[n + 1] = b;
-  }
-}
-
-// x (M, K), w (G, K, N) [k][n], out (M, N) f32.
-__global__ void __launch_bounds__(NT)
-grouped_gemm_kernel(const bf16* __restrict__ a,           // (M, K)
-                    const bf16* __restrict__ w,           // (G, K, N)
-                    const int* __restrict__ group_sizes,  // (G,)
-                    float* __restrict__ out,              // (M, N)
-                    int M, int R, int Nout, int G, int vec_b) {
-  __shared__ int s_roff[GMAX + 1];  // exclusive prefix sum of the group sizes
-  __shared__ int s_toff[GMAX + 1];  // exclusive prefix sum of the 64-row tiles
-  __shared__ __align__(16) bf16 sA[STAGES][BM * LDA];  // a tile, [m][k]
-  __shared__ __align__(16) bf16 sB[STAGES][BK * LDB];  // w tile, [k][n]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (warp == 0) group_prefix<BM>(group_sizes, G, M, s_roff, s_toff, lane);
-  __syncthreads();
-
-  const int t = blockIdx.x, n0 = blockIdx.y * BN;
-  const int n_tiles = s_toff[G];
-  const int total = s_roff[G];
-  if (t >= n_tiles) {
-    // past the groups: rows [total, M) are zeros, as ragged_dot gives
-    const int r0 = total + (t - n_tiles) * BM;
-    if (r0 >= M) return;
-    const int r1 = min(r0 + BM, M);
-    for (int i = tid; i < (r1 - r0) * BN; i += NT) {
-      const int r = r0 + i / BN, n = n0 + i % BN;
-      if (n < Nout) out[static_cast<size_t>(r) * Nout + n] = 0.f;
-    }
-    return;
-  }
-  int lo = 0, hi = G - 1;  // the largest g with s_toff[g] <= t: a non-empty group
+template <int TILE, int TN>
+__device__ __forceinline__ Tile tile_of(const int* roff, const int* toff, int t, int n_col, int G) {
+  const int q = t / n_col;
+  int lo = 0, hi = G - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (s_toff[mid] <= t) lo = mid;
+    if (toff[mid] <= q) lo = mid;
     else hi = mid - 1;
   }
-  const int g = lo;
-  const int r0 = s_roff[g] + (t - s_toff[g]) * BM;  // this CTA's rows [r0, r1)
-  const int r1 = min(s_roff[g + 1], r0 + BM);
-  const bf16* wg = w + static_cast<size_t>(g) * R * Nout;
+  const int nt = toff[lo + 1] - toff[lo], local = t - toff[lo] * n_col;
+  const int r0 = roff[lo] + (local % nt) * TILE;
+  return {lo, r0, min(roff[lo + 1], r0 + TILE), (local / nt) * TN};
+}
 
-  auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    // a rows r0.. of this group: BM x BK in 16-byte chunks
-    for (int i = tid; i < BM * (BK / 8); i += NT) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const bool ok = r0 + r < r1 && k0 + c < R;
-      const bf16* src = ok ? a + static_cast<size_t>(r0 + r) * R + k0 + c : a;
-      cp_async16(&sA[stage][r * LDA + c], src, ok);
+// ---------------------------------------------------------------- the decode forward
+
+constexpr int DT = 160;          // threads: 4 consumer warps, then the producer warp
+constexpr int DXR = 16;          // rows of a pass: two n8 blocks
+constexpr int DCK = 64;          // k rows of a stage: 128-byte rows of x, 64-column boxes of w
+constexpr int DPW = 128;         // columns of a panel: two 64-column weight boxes
+constexpr int DSTAGES = 3;       // the ring's depth: 2 stages of 16 KB of weights in flight
+constexpr int DCTAS = 3;         // CTAs an SM (ops/grouped_gemm.DECODE_CTAS_PER_SM)
+constexpr int DBOX = DCK * 128;  // bytes of a 64 x 64 weight box
+constexpr int DSTAGE = (DPW / 64) * DBOX + DXR * 128;
+
+// A decode CTA's shared memory, from a 1024-byte aligned base: the ring (a
+// stage is DPW/64 weight boxes [k][64 n] and the pass's x box [16 r][64 k],
+// all 128-byte rows in TMA's 128-byte swizzle), the ring's full and empty
+// barriers, the prefix sums.
+__host__ __device__ constexpr int dec_smem(int G) {
+  return 1024 + DSTAGES * DSTAGE + 16 * DSTAGES + 8 * (G + 1);
+}
+static_assert(DCTAS * (dec_smem(GMAX) + 1024) <= 228 * 1024,
+              "DCTAS decode CTAs an SM at any G (an SM's 228 KB, 1 KB a CTA reserved)");
+
+// Byte offset of 16-byte chunk `ch` of 128-byte row `row` in a box written
+// with TMA's 128-byte swizzle (the box 1024-byte aligned).
+__device__ __forceinline__ int swz(int row, int ch) { return row * 128 + ((ch ^ (row & 7)) << 4); }
+
+// x (M, K), w (G, K, N) [k][n], out (M, N) f32; a persistent grid, CTA b
+// taking items b, b + gridDim.x, ... kTma: the producer's lane 0 loads the
+// weights and x through the tensor maps (3-D w (G, K, N), 64 x 64 boxes;
+// 2-D x (M, K), 64 x 16 boxes); else (rows of w not 16-byte aligned) its 32
+// lanes load each stage with element loads into the same swizzled layout.
+template <bool kTma>
+__global__ void __launch_bounds__(DT, DCTAS)
+grouped_gemm_decode_kernel(const __grid_constant__ CUtensorMap map_w,
+                           const __grid_constant__ CUtensorMap map_x, const bf16* __restrict__ x,
+                           const bf16* __restrict__ w, const int* __restrict__ group_sizes,
+                           float* __restrict__ out, int M, int K, int N, int G) {
+  constexpr int NB = DPW / 64, WC = DPW / 4, MF = WC / 16;  // boxes a stage; a warp's columns, fragments
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DSTAGES * DSTAGE);
+  uint64_t* empty = full + DSTAGES;
+  int* roff = reinterpret_cast<int*>(empty + DSTAGES);
+  int* toff = roff + G + 1;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (warp == 0) group_prefix<DXR>(group_sizes, G, M, roff, toff, lane);
+  if (tid == 32) {
+    for (int s = 0; s < DSTAGES; ++s) {
+      mbar_init(&full[s], kTma ? 1 : 32);  // the producer's arrivals (with the bytes, for TMA)
+      mbar_init(&empty[s], 4);              // one arrive from each consumer warp
     }
-    // the expert's weights: BK rows of k, BN columns
-    for (int i = tid; i < BK * (BN / 8); i += NT) {
-      const int kr = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const int k = k0 + kr, n = n0 + c;
-      bf16* dst = &sB[stage][kr * LDB + c];
-      if (vec_b) {
-        const bool ok = k < R && n < Nout;
-        cp_async16(dst, ok ? wg + static_cast<size_t>(k) * Nout + n : wg, ok);
-      } else {  // rows of w not 16-byte aligned (N % 8 != 0): element loads
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int n_col = (N + DPW - 1) / DPW, n_items = toff[G] * n_col;
+  const int nch = (K + DCK - 1) / DCK;  // stages an item
+  const int cid = blockIdx.x, ncl = gridDim.x;
+  const int nsteps = (cid < n_items ? (n_items - 1 - cid) / ncl + 1 : 0) * nch;
+  // step s of this CTA: its (s / nch)-th item, stage s % nch of the in-dim
+
+  if (warp == 4) {  // ---------------- the producer: the ring, DSTAGES - 1 steps ahead
+    Tile lt{};
+    int lj = -1;
+    for (int step = 0; step < nsteps; ++step) {
+      const int slot = step % DSTAGES, j = step / nch, k0 = (step - j * nch) * DCK;
+      if (step >= DSTAGES) mbar_wait(&empty[slot], ((step / DSTAGES) - 1) & 1);
+      if (j != lj) {
+        lt = tile_of<DXR, DPW>(roff, toff, cid + j * ncl, n_col, G);
+        lj = j;
+      }
+      uint8_t* st = smem + slot * DSTAGE;
+      if constexpr (kTma) {
+        if (lane == 0) {
+          mbar_expect_tx(&full[slot], DSTAGE);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          dst[j] = (k < R && n + j < Nout) ? wg[static_cast<size_t>(k) * Nout + n + j]
-                                           : __float2bfloat16(0.f);
+          for (int b = 0; b < NB; ++b)
+            tma_load(st + b * DBOX, &map_w, &full[slot], lt.n0 + 64 * b, k0, lt.g);
+          tma_load(st + NB * DBOX, &map_x, &full[slot], k0, lt.r0);
+        }
+      } else {
+        const bf16* wg = w + static_cast<size_t>(lt.g) * K * N;
+        for (int i = lane; i < DCK * (DPW / 8); i += 32) {
+          const int r = i / (DPW / 8), n = (i % (DPW / 8)) * 8, k = k0 + r;
+          __align__(16) bf16 v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[e] = (k < K && lt.n0 + n + e < N) ? wg[static_cast<size_t>(k) * N + lt.n0 + n + e]
+                                                : __float2bfloat16(0.f);
+          *reinterpret_cast<uint4*>(st + (n / 64) * DBOX + swz(r, (n % 64) / 8)) =
+              *reinterpret_cast<const uint4*>(v);
+        }
+        for (int i = lane; i < DXR * (DCK / 8); i += 32) {
+          const int r = i / (DCK / 8), ch = i % (DCK / 8), k = k0 + 8 * ch;
+          const bool ok = lt.r0 + r < M && k < K;  // K % 8 == 0: a chunk is whole or out
+          *reinterpret_cast<uint4*>(st + NB * DBOX + swz(r, ch)) =
+              ok ? *reinterpret_cast<const uint4*>(x + static_cast<size_t>(lt.r0 + r) * K + k)
+                 : make_uint4(0u, 0u, 0u, 0u);
+        }
+        mbar_arrive(&full[slot]);
       }
     }
-  };
+  } else {  // ---------------- 4 consumer warps: warp w the panel's columns [w·WC, (w+1)·WC)
+    float acc[MF][2][4];
+#pragma unroll
+    for (int f = 0; f < MF; ++f)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) acc[f][b][0] = acc[f][b][1] = acc[f][b][2] = acc[f][b][3] = 0.f;
+    Tile ct{};
+    int cj = -1;
+    const int xr = 8 * (lane >> 4) + (lane & 7), hi = (lane >> 3) & 1;
+    for (int step = 0; step < nsteps; ++step) {
+      const int slot = step % DSTAGES, j = step / nch, c = step - j * nch;
+      if (j != cj) {
+        ct = tile_of<DXR, DPW>(roff, toff, cid + j * ncl, n_col, G);
+        cj = j;
+      }
+      const int kr = min(DCK, K - c * DCK);  // the in-dim's rows in this stage
+      const bool two = ct.r1 - ct.r0 > 8;    // warp-uniform: a second n8 block of rows
+      mbar_wait(&full[slot], (step / DSTAGES) & 1);
+      const uint8_t* st = smem + slot * DSTAGE;
+      // every fragment first, then the products: the loads' latencies overlap
+      uint32_t b[4][4];      // per k16 step: x rows 0-7 (k 0-7 | 8-15), rows 8-15 (...)
+      uint32_t a[4][MF][4];  // per k16 step and fragment: [k][n] transposed, an A fragment
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        if (16 * ks >= kr) break;
+        ldsm_x4(b[ks], st + NB * DBOX + swz(xr, 2 * ks + hi));
+#pragma unroll
+        for (int f = 0; f < MF; ++f) {
+          const int col = warp * WC + 16 * f;
+          ldsm_x4_t(a[ks][f], st + (col / 64) * DBOX +
+                                  swz(16 * ks + (lane & 7) + 8 * (lane >> 4), (col % 64) / 8 + hi));
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);  // the fragments are in registers
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        if (16 * ks >= kr) break;
+#pragma unroll
+        for (int f = 0; f < MF; ++f) {
+          mma_bf16_16816(acc[f][0], a[ks][f], b[ks][0], b[ks][1]);
+          if (two) mma_bf16_16816(acc[f][1], a[ks][f], b[ks][2], b[ks][3]);
+        }
+      }
 
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const bool live = wm < r1 - r0;  // warp-uniform: the warp has rows of the group
-  float acc[2][4][4];
+      if (c == nch - 1) {  // the item is done: its rows and columns from the registers
+        // lane 4g + t4 holds columns (g, g + 8) of each fragment, rows 2t4, 2t4 + 1
+        const int rows = ct.r1 - ct.r0;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+        for (int f = 0; f < MF; ++f)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-  const int nk = (R + BK - 1) / BK;
+          for (int h = 0; h < 2; ++h) {
+            const int n = ct.n0 + warp * WC + 16 * f + (lane >> 2) + 8 * h;
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_tile(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; and stage (kt-1)%STAGES is free
-    const int pf = kt + STAGES - 1;
-    if (pf < nk) load_tile(pf % STAGES, pf);
-    cp_async_commit();
-    if (!live) continue;
-    const bf16* as = sA[kt % STAGES];
-    const bf16* bs = sB[kt % STAGES];
+            for (int bb = 0; bb < 2; ++bb)
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[2][4], bf[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)  // matrices (rows 0-7|8-15) x (k 0-7|8-15)
-        ldsm_x4(af[mi], as + (wm + mi * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDA +
-                            ks + 8 * (lane >> 4));
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)  // [k][n] rows: matrices (k 0-7|8-15) x (n 0-7|8-15), transposed
-        ldsm_x4_t(bf[nj], bs + (ks + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDB +
-                              wn + nj * 16 + 8 * (lane >> 4));
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16_16816(acc[mi][ni], af[mi], bf[ni >> 1][2 * (ni & 1)],
-                         bf[ni >> 1][2 * (ni & 1) + 1]);
+              for (int e = 0; e < 2; ++e) {
+                const int r = 8 * bb + 2 * (lane & 3) + e;
+                if (r < rows && n < N) out[static_cast<size_t>(ct.r0 + r) * N + n] = acc[f][bb][2 * h + e];
+                acc[f][bb][2 * h + e] = 0.f;
+              }
+          }
+      }
     }
-  }
-  cp_async_wait<0>();
-  if (!live) return;
 
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int ra = r0 + wm + mi * 16 + (lane >> 2), rb = ra + 8;
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = n0 + wn + ni * 8 + 2 * (lane & 3);
-      if (ra < r1) store2(out + static_cast<size_t>(ra) * Nout, n, Nout, acc[mi][ni][0], acc[mi][ni][1]);
-      if (rb < r1) store2(out + static_cast<size_t>(rb) * Nout, n, Nout, acc[mi][ni][2], acc[mi][ni][3]);
-    }
+    // rows [Σ sizes, M) are zeros, as ragged_dot gives
+    const size_t total = static_cast<size_t>(roff[G]) * N, end = static_cast<size_t>(M) * N;
+    for (size_t i = total + static_cast<size_t>(blockIdx.x) * 128 + tid; i < end;
+         i += static_cast<size_t>(gridDim.x) * 128)
+      out[i] = 0.f;
   }
 }
 
@@ -352,25 +429,6 @@ __device__ __forceinline__ void wg_setup(WgSmem& sm, const int* group_sizes, int
   __syncthreads();
 }
 
-// Tile t of the row-grouped products: expert g (largest with toff[g] <=
-// t / n_col, a non-empty group), then its column panel, then its row tile.
-struct RowTile {
-  int g, r0, r1, n0;
-};
-
-__device__ __forceinline__ RowTile row_tile(const WgSmem& sm, int t, int n_col, int G) {
-  const int q = t / n_col;
-  int lo = 0, hi = G - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (sm.toff[mid] <= q) lo = mid;
-    else hi = mid - 1;
-  }
-  const int nt = sm.toff[lo + 1] - sm.toff[lo], local = t - sm.toff[lo] * n_col;
-  const int r0 = sm.roff[lo] + (local % nt) * WM;
-  return {lo, r0, min(sm.roff[lo + 1], r0 + WM), (local / nt) * WN};
-}
-
 // The forward (kDx false): a = x (M, R = K), w (G, R, Nout) [k][n] through
 // a 3-D map with 64 x 64 x 1 boxes, out (M, Nout) f32. dX (kDx true): a = dy
 // (M, R = N), w (G, Nout = K, R) through a 3-D map with 64 x 128 x 1 boxes
@@ -392,7 +450,7 @@ grouped_gemm_wg_kernel(const __grid_constant__ CUtensorMap map_a,
     if (tid == 0) {
       Ring<WSTAGES> ring;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-        const RowTile tl = row_tile(sm, t, n_col, G);
+        const Tile tl = tile_of<WM, WN>(sm.roff, sm.toff, t, n_col, G);
         for (int kt = 0; kt < nk; ++kt, ring.next()) {
           mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
           uint64_t* full = &sm.full[ring.stage];
@@ -413,7 +471,7 @@ grouped_gemm_wg_kernel(const __grid_constant__ CUtensorMap map_a,
     Ring<WSTAGES> ring;
     float acc[64];
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      const RowTile tl = row_tile(sm, t, n_col, G);
+      const Tile tl = tile_of<WM, WN>(sm.roff, sm.toff, t, n_col, G);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.f;
       fence_acc(acc);
@@ -579,23 +637,54 @@ int launch_wg(const void* a, const void* w, const void* group_sizes, void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The decode forward: `grid` CTAs, at most DCTAS an SM (the host's plan).
+// TMA reads the weights where their rows are 16-byte aligned.
+template <bool kTma>
+int launch_decode(const void* x, const void* w, const void* group_sizes, void* out, int M, int K,
+                  int N, int G, int grid, cudaStream_t stream) {
+  CUtensorMap map_w = {}, map_x = {};
+  cudaError_t err = cudaSuccess;
+  if constexpr (kTma) {
+    const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K),
+                                  static_cast<cuuint64_t>(G)};
+    const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(N) * 2,
+                                     static_cast<cuuint64_t>(N) * K * 2};
+    const cuuint32_t w_box[3] = {64, DCK, 1};
+    const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+    const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(K) * 2};
+    const cuuint32_t x_box[2] = {DCK, DXR};
+    err = make_map(&map_w, w, 3, w_dims, w_strides, w_box);
+    if (err == cudaSuccess) err = make_map(&map_x, x, 2, x_dims, x_strides, x_box);
+  }
+  static bool opted[lapha::kMaxDevices] = {};
+  const auto kernel = grouped_gemm_decode_kernel<kTma>;
+  if (err == cudaSuccess) err = lapha::smem_opt_in(kernel, dec_smem(GMAX), opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, DT, dec_smem(G), stream>>>(map_w, map_x, static_cast<const bf16*>(x),
+                                            static_cast<const bf16*>(w),
+                                            static_cast<const int*>(group_sizes),
+                                            static_cast<float*>(out), M, K, N, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The forward: x (M, K) bf16, w (G, K, N) bf16 -> out (M, N) f32; K a
 // multiple of 8. `wide` picks the wgmma kernel (N a multiple of 8, x and w
-// 16-byte aligned, else an error), 0 the 64-row mma.sync kernel.
+// 16-byte aligned, else an error; `grid` is not read), 0 the decode kernel
+// on `grid` CTAs (the host's plan, at least 1).
 extern "C" int lapha_grouped_gemm(const void* x, const void* w, const void* group_sizes, void* out,
-                                  int M, int K, int N, int G, int wide, void* stream) {
+                                  int M, int K, int N, int G, int wide, int grid, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || G <= 0 || G > GMAX || K % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) return launch_wg<false, float>(x, w, group_sizes, out, M, K, N, G, s);
-  const int vec_b = (N % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) ? 1 : 0;
-  const dim3 grid((M + BM - 1) / BM + G + 1, (N + BN - 1) / BN);
-  grouped_gemm_kernel<<<grid, NT, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const int*>(group_sizes), static_cast<float*>(out), M, K, N, G, vec_b);
-  return static_cast<int>(cudaGetLastError());
+  if (grid < 1 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // TMA reads the weights where their rows are 16-byte aligned, else element loads
+  if (N % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0)
+    return launch_decode<true>(x, w, group_sizes, out, M, K, N, G, grid, s);
+  return launch_decode<false>(x, w, group_sizes, out, M, K, N, G, grid, s);
 }
 
 // dX (M, K) bf16 from dy (M, N) bf16 and w (G, K, N) on the wgmma kernel;

@@ -133,8 +133,9 @@ def lib() -> ctypes.CDLL:
         # x packed scales out, then B IN OUT G, the plan: rows, columns, splits
         dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         dll.lapha_int4_matmul.restype = _I
-        # ints: M K N G, then 1 for the wgmma kernel, 0 for the 64-row one
-        dll.lapha_grouped_gemm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        # ints: M K N G, then 1 for the wgmma kernel, 0 for the decode kernel,
+        # then the decode kernel's grid
+        dll.lapha_grouped_gemm.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         dll.lapha_grouped_gemm.restype = _I
         for entry in (dll.lapha_grouped_gemm_dx, dll.lapha_grouped_gemm_tgmm):
             entry.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]

@@ -38,9 +38,11 @@ another order: max |diff| <= 1e-3 · max |plain|. Group sizes shifted by one
 row (a planted fault) must fail that check. Its backward kernels (dX,
 tgmm) write bf16: against the plain versions in f32 on the same
 bf16-rounded cotangent, per element |diff| <= 1e-3 · max |plain| + 2^-8 ·
-|plain| (the store's rounding). The forward has a wgmma kernel and a
-64-row mma.sync kernel, picked on the host (``grouped_gemm.forward_kernel``)
-and counted apart; every case asserts which one ran.
+|plain| (the store's rounding). The forward has a wgmma kernel and a decode
+kernel, picked on the host (``grouped_gemm.forward_kernel``) and counted
+apart; every case asserts which one ran. Every output element of the
+decode kernel is written by one thread in a fixed order: two launches give
+the same bits, and so does another grid.
 
 The sink entries of the ragged decode kernel (K5s, bf16 and int8 caches)
 keep the tolerances of their entries without sinks (3e-2; the int8 rule);
@@ -763,7 +765,7 @@ def _gg_bf16_err(out, ref):
 def test_grouped_gemm_kernel_matches_plain(dev, sizes, K, N):
     rng = np.random.default_rng(sum(sizes) + K + N)
     xs, w, gs = _gg_inputs(rng, sizes, K, N, dev)
-    # the host's rule: the 64-row kernel at decode's few rows an expert and
+    # the host's rule: the decode kernel at decode's few rows an expert and
     # for N % 8 != 0, the wgmma kernel above WG_MIN_ROWS rows an expert
     kernel = gg.forward_kernel(sum(sizes), len(sizes), N, w.data_ptr())
     before = dict(_cuda.LAUNCHES)
@@ -844,7 +846,7 @@ def test_moe_block_on_the_card_matches_the_cpu_without_syncs(dev, tokens):
     """The gather path in bf16 on the card (K8) against f32 on the CPU with
     the routing forced equal, and the whole block under the sync debug mode:
     nothing in it reads back to the host. 50 tokens x top-4 over 16 experts
-    take the wgmma kernel, 12 the 64-row one (the host's rule)."""
+    take the wgmma kernel, 12 the decode kernel (the host's rule)."""
     from lapha_tpu_torch.models import qwen2
     from lapha_tpu_torch.ops import moe
 
@@ -901,7 +903,7 @@ GG_WG_CASES = [
 def test_grouped_gemm_wgmma_kernels_match_plain(dev, sizes, K, N, M):
     """The wgmma forward, dX and tgmm against the plain versions at the
     limits of the kernels above: the host's rule picks the wgmma forward
-    (counted apart from the 64-row kernel); rows past the groups get zeros
+    (counted apart from the decode kernel); rows past the groups get zeros
     in the forward and in dX; dW is written whole over a NaN-filled output,
     empty experts exact zeros, and two launches are bit-equal."""
     rng = np.random.default_rng(len(str(sizes)) + K + N)
@@ -950,6 +952,128 @@ def test_grouped_gemm_wgmma_kernels_catch_planted_faults(dev):
         assert _gg_err(bad[0], ref[0]) > 1.0
         assert _gg_bf16_err(bad[1], ref[1]) > 1.0
         assert _gg_bf16_err(bad[2], ref[2]) > 1.0
+
+
+# The decode forward (csrc grouped_gemm_decode_kernel): every forward the
+# host's rule does not send to the wgmma kernel. The MoE models' decode
+# products at full width with routed group sizes (24 tokens: Qwen1.5-MoE
+# top-4 of 60 experts, GPT-OSS-20B top-4 of 32, DeepSeek-V2-Lite top-6 of
+# 64), an expert past one 16-row pass, GMAX experts mostly empty, rows past
+# the groups; then other grids forced through the host's plan.
+GG_DECODE_CASES = [
+    (("route", 24, 4, 60), 2048, 1408, None),
+    (("route", 24, 4, 60), 1408, 2048, None),
+    (("route", 24, 4, 32), 2880, 5760, None),
+    (("route", 24, 4, 32), 2880, 2880, None),
+    (("route", 24, 6, 64), 2048, 1408, None),
+    (("route", 24, 6, 64), 1408, 2048, None),
+    ((0, 9, 0, 40, 17, 1, 0, 33, 0, 12) + (0,) * 6, 256, 192, None),  # 9-40 rows an expert
+    ("gmax", 64, 128, None),
+    ((3, 0, 5, 1, 0, 2, 7, 0), 136, 200, 40),  # 22 rows past the groups; K, N off the tiles
+]
+
+
+def _decode_sizes(rng, sizes):
+    """Group sizes: as given; top-k of random logits over E experts for
+    ("route", tokens, k, E); GMAX experts of which 40 take 1-8 rows."""
+    if sizes == "gmax":
+        out = np.zeros(gg.GMAX, np.int64)
+        out[rng.choice(gg.GMAX, 40, replace=False)] = rng.integers(1, 9, 40)
+        return tuple(int(v) for v in out)
+    if sizes[0] == "route":
+        _, tokens, k, E = sizes
+        top = np.argsort(-rng.normal(size=(tokens, E)), axis=1)[:, :k].reshape(-1)
+        return tuple(int(v) for v in np.bincount(top, minlength=E))
+    return sizes
+
+
+def _decode_inputs(rng, sizes, K, N, dev, M=None, w=None):
+    """xs and the group sizes from numpy; the weights drawn on the card (a
+    GB of numpy draws at GPT-OSS's width would take minutes)."""
+    M = sum(sizes) if M is None else M
+    xs = _bf16(rng, (M, K), dev)
+    if w is None:
+        gen = torch.Generator(device=dev).manual_seed(len(sizes) + K + N)
+        w = (torch.randn((len(sizes), K, N), generator=gen, device=dev) * K ** -0.5).to(
+            torch.bfloat16)
+    return xs, w, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,K,N,M", GG_DECODE_CASES)
+def test_grouped_gemm_decode_kernel_matches_plain(dev, sizes, K, N, M):
+    """The decode kernel against the plain version at K8's limit, counted
+    under "grouped_gemm" (never the wgmma kernel); two launches bit-equal;
+    rows past the groups zero; group sizes shifted by one row (the last row of the
+    first non-empty group handed to the next expert) fail the check."""
+    rng = np.random.default_rng(len(str(sizes)) + K + N)
+    sizes = _decode_sizes(rng, sizes)
+    xs, w, gs = _decode_inputs(rng, sizes, K, N, dev, M)
+    M, G, total = xs.shape[0], len(sizes), sum(sizes)
+    assert gg.forward_kernel(M, G, N, w.data_ptr()) == "grouped_gemm"
+    before = dict(_cuda.LAUNCHES)
+    out = gg.grouped_gemm(xs, w, gs)
+    again = gg.grouped_gemm(xs, w, gs)
+    ref = gg.grouped_gemm_plain(xs, w, gs)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["grouped_gemm"] == before["grouped_gemm"] + 2
+    assert _cuda.LAUNCHES["grouped_gemm_wg"] == before["grouped_gemm_wg"]
+    assert torch.isfinite(out).all() and _gg_err(out, ref) <= 1.0
+    assert torch.equal(out, again)
+    assert not out[total:].any()
+    shifted = gs.clone()
+    first = int(torch.nonzero(gs)[0])
+    shifted[first] -= 1
+    shifted[(first + 1) % G] += 1
+    bad = gg.grouped_gemm(xs, w, shifted)
+    torch.cuda.synchronize()
+    assert _gg_err(bad, ref) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,other", [
+    (1, 2),      # one CTA walks every item, its ring across all of them
+    (2, 1),
+    (5, 64),
+    (64, 3),
+    (200, 7),    # more CTAs than items: the rest only zero rows
+    (396, 33),   # every SM's CTAs
+])
+def test_grouped_gemm_decode_kernel_any_grid(dev, monkeypatch, grid, other):
+    """Grids forced through the host's plan, at decode-shaped groups with an
+    expert past 16 rows and rows past the groups: the plain version's result
+    to K8's limit, bit-equal under another grid."""
+    rng = np.random.default_rng(grid + other)
+    sizes = (2, 0, 1, 8, 0, 0, 3, 5, 19, 0, 1, 4, 7, 0, 0, 6)
+    xs, w, gs = _decode_inputs(rng, sizes, 256, 328, dev, M=70)
+    ref = gg.grouped_gemm_plain(xs, w, gs)
+    monkeypatch.setattr(gg, "decode_grid", lambda *a: grid)
+    out = gg.grouped_gemm(xs, w, gs)
+    torch.cuda.synchronize()
+    assert _gg_err(out, ref) <= 1.0 and not out[sum(sizes):].any()
+    monkeypatch.setattr(gg, "decode_grid", lambda *a: other)
+    assert torch.equal(gg.grouped_gemm(xs, w, gs), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,offset", [(36, 0), (1404, 0), (1408, 1), (200, 3)])
+def test_grouped_gemm_decode_kernel_takes_what_tma_cannot(dev, N, offset):
+    """N % 8 != 0 and a weight pointer off 16 bytes (a view ``offset``
+    elements into its storage): element loads of the weights at any row
+    count, even where the wgmma kernel would take the rows (12 an expert)."""
+    rng = np.random.default_rng(N + offset)
+    sizes = (12, 0, 30, 6, 12, 0, 1, 11)
+    G, K = len(sizes), 136
+    store = _bf16(rng, (G * K * N + offset,), dev)
+    w = store[offset:].view(G, K, N)
+    assert (w.data_ptr() % 16 != 0) == (offset % 8 != 0)
+    xs, _, gs = _decode_inputs(rng, sizes, K, N, dev, w=w)
+    assert gg.forward_kernel(xs.shape[0], G, N, w.data_ptr()) == "grouped_gemm"
+    before = _cuda.LAUNCHES["grouped_gemm"]
+    out = gg.grouped_gemm(xs, w, gs)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["grouped_gemm"] == before + 1
+    assert _gg_err(out, gg.grouped_gemm_plain(xs, w, gs)) <= 1.0
 
 
 # ---------------------------------------------------------------- GPT-OSS: K5s, windowed K1/K3, dh 64
@@ -1438,7 +1562,7 @@ def test_deepseek_forward_and_decode_on_the_card_match_the_cpu(dev, monkeypatch)
     got = run(params, cfg, dev)
     torch.cuda.synchronize()
     # K8: the prefill's 240 pair rows over 8 experts on the wgmma kernel, the
-    # decode's 6 on the 64-row one
+    # decode's 6 on the decode kernel
     for name, count in _cuda.LAUNCHES.items():
         ran = name in ("flash_attention_cached_narrowv", "grouped_gemm", "grouped_gemm_wg")
         assert (count > before[name]) == ran, name
