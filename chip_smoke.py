@@ -256,6 +256,36 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    (device synchronised after each), device time per step (``torch.profiler``,
    the CUDA kernels' own time summed), launches per step and the largest
    kernels.
+19. The evaluation entry, ``lapha_tpu_torch.evalsuite.rollout_jsonl.main``,
+   on the phase-3 model and the first 2 questions of data/math-500.jsonl at
+   eval.sh's sampling (temperature 0.3, top-p 0.8, top-k 20, repetition
+   penalty 1.05), 64 new tokens a step, max model length 2048: value mode
+   (depth 2, breadth 6, 4 simulations, k 4), value mode with
+   ``--kv-quant int8``, react mode (depth 2) and single mode. The tokenizer
+   is ``ChatIdTok`` (no tokenizer files are in reach), and the CLI gets the
+   engine and value function it would build from a checkpoint through its
+   ``engine_override`` / ``value_fn_override`` seam (``Engine(collect_h0=
+   True)`` in value mode, as the CLI's own engine_kw; ``ValueFunction`` on
+   the same weights). Launch counts are zeroed before each run and read
+   after it (eval_value: K1, K3 and K4 must have run; eval_value_q8: K5 and
+   not K4). Each run's JSONL is held to tests/test_cli_e2e.py's contract (2
+   rows, a string completion, completions[0] and final_answers[0] the pass@1
+   fields, 1 <= k <= 4 in value mode, 1 otherwise) and scored by
+   ``eval_math.main`` (``LAPHA_EVAL_DIR`` a temp dir, set before the
+   import), whose summary must count 2 questions. The kernels are held to
+   their plain versions at the shapes this path gives them: copies of the
+   path's own launches (the first of each K1/K3 shape, fresh and after a
+   prefix hit; for K4/K5 and each row count, the layer-0 launch with the
+   longest rows) against the plain versions on the same inputs, with phase
+   1's limits; each decode launch's plan must split its rows (at least one
+   into >= 4 CTAs, where phase 1 checks 2 at this head dim), and the first
+   split's share of each row lost in the merge (a planted fault) must fail
+   the check. In value mode a suffix prefill after
+   a prefix hit must have run, and the last expansion's pooled h0 is held
+   to a value forward over its prompt + completion (phase 4's fused-h0
+   check; FUSED_Q8_RTOL with the int8 cache). Wall seconds per question
+   (the copies included), tokens generated and peak device memory are
+   printed.
 6. Training through the normal entry at full width: ``MTPOTrainer`` on the
    28-layer random bf16 model (gradient checkpointing, beta 1e-8 as
    configs/lapha.yaml), PoorAgent's templates and a token-id chat tokenizer
@@ -328,7 +358,8 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
 Launch counts are read per path (serve_moe: phase 10; serve_gptoss: phase
 11; serve_gemma2 and serve_gemma3: phase 12; serve_deepseek: phase 15;
 serve: phase 3;
-serve_quantized: phase 8; train_step: phase 6; update: phase 7;
+serve_quantized: phase 8; eval_value, eval_value_q8, eval_react and
+eval_single: phase 19; train_step: phase 6; update: phase 7;
 update_moe, update_gptoss and train_step_moe: phase 13; update_gemma2,
 update_gemma3 and train_step_gemma2: phase 14; update_deepseek and
 train_step_deepseek: phase 16; serve_phi3 and serve_starcoder2: phase 17;
@@ -4324,6 +4355,266 @@ def _profile_decode(label, p, cfg, tok, lens, cache, cache_scale, prompt: int, s
               f"{100 * k6_ms / dev_ms:.1f}% of the device time", flush=True)
 
 
+class _CountedEngine:
+    """The engine the CLI is given, counting the tokens it generates and
+    keeping its last answer (the fused-h0 check reads it)."""
+
+    def __init__(self, eng):
+        self.eng, self.tokens, self.last = eng, 0, None
+
+    def generate(self, prompts, sampling_params, use_tqdm=False):
+        outs = self.eng.generate(prompts, sampling_params, use_tqdm=use_tqdm)
+        self.tokens += sum(len(o.token_ids) for r in outs for o in r.outputs)
+        self.last = outs
+        return outs
+
+
+class _PathLaunches:
+    """Copies of the inputs and outputs of some of the path's own launches of
+    the flash kernels (K1, K3) and the decode kernels (K4, K5), taken as the
+    path makes them: the first launch of each flash shape and offset kind
+    (fresh prefill, or a suffix after a prefix hit), and for each decode
+    entry and row count the layer-0 launch with the longest rows. Each launch
+    is the path's own and is counted once; the copies are held against the
+    plain versions after the run (:func:`_check_path_launches`)."""
+
+    def __init__(self):
+        from lapha_tpu_torch.ops import flash_attention as fa
+        from lapha_tpu_torch.ops import ragged_decode_attention as rda
+
+        self.fa, self.rda = fa, rda
+        self.flash, self.decode = {}, {}
+
+    def __enter__(self):
+        self._flash_fn, self._decode_fn = self.fa._attention_cuda, self.rda._ragged_cuda
+        self.fa._attention_cuda, self.rda._ragged_cuda = self._flash, self._decode
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._attention_cuda, self.rda._ragged_cuda = self._flash_fn, self._decode_fn
+
+    def _flash(self, q, k, v, kv_valid, qstart, scale, name, window=0, softcap=0.0):
+        key = (name, tuple(q.shape), k.shape[1], int(qstart.max()) > 0)
+        args = (None if key in self.flash
+                else tuple(t.clone() for t in (q, k, v, kv_valid, qstart)))
+        out, lse = self._flash_fn(q, k, v, kv_valid, qstart, scale, name, window, softcap)
+        if args is not None:
+            self.flash[key] = dict(args=args, kw=(scale, window, softcap), out=out.clone(),
+                                   lse=lse.clone())
+        return out, lse
+
+    def _decode(self, q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale,
+                cache_scale, sinks, softcap=0.0):
+        key = (cache_scale is not None, q.shape[0])
+        keep = int(layer) == 0 and int(slot) > self.decode.get(key, {}).get("slot", -1)
+        if keep:  # layer 0 of the cache: (1, B, nkv, S, dh)
+            rec = dict(slot=int(slot), q=q.clone(), k=k_cache[:1].clone(), v=v_cache[:1].clone(),
+                       lens=lens.clone(), dstart=dstart.clone(),
+                       pstart=None if pstart is None else pstart.clone(), scale=scale,
+                       cache_scale=(None if cache_scale is None
+                                    else tuple(c[:1].clone() for c in cache_scale)))
+        out = self._decode_fn(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale,
+                              cache_scale, sinks, softcap)
+        if keep:
+            check(sinks is None and not softcap, "the eval path's decode has no sinks or cap")
+            self.decode[key] = dict(rec, out=out.clone())
+        return out
+
+
+def _check_path_launches(rec, path: str, card) -> int:
+    """Phase 19's kernel checks: each launch :class:`_PathLaunches` kept from
+    the path's run, its output against the plain version on the same inputs
+    (K1/K3: phase 1's limit and LSE limit; K4: KERNEL_ATOL; K5: Q8_ATOL + 2^-7
+    |plain|). Each decode launch's plan must split its rows (the merge runs),
+    and the first split's share of each row (ceil(n / splits) slots) missing
+    from the merge (a planted fault, through the kernel's pstart) must fail
+    the check. Returns the most splits a kept decode launch had."""
+    import torch
+
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.ops import flash_attention as fa
+    from lapha_tpu_torch.ops import ragged_decode_attention as rda
+
+    check(rec.flash and rec.decode, f"{path}: no flash or decode launch kept")
+    most = 0
+    for (name, qshape, S, suffix), r in sorted(rec.flash.items()):
+        q, k, v, kv_valid, qs = r["args"]
+        scale, window, softcap = r["kw"]
+        ref, ref_lse = fa.attention_plain(q, k, v, kv_valid, qs, scale, window, None, softcap)
+        err = float((r["out"].float() - ref.float()).abs().max())
+        seen = ref_lse > -1e29
+        lse_err = float((r["lse"][seen] - ref_lse[seen]).abs().max())
+        label = (f"{path} {name} B={qshape[0]} T={qshape[1]} S={S} qstart "
+                 f"{int(qs.min())}..{int(qs.max())}")
+        check(bool(torch.isfinite(r["out"].float()).all()) and err <= KERNEL_ATOL,
+              f"{label}: max|diff| {err}")
+        check(lse_err <= 1e-3, f"{label}: LSE max|diff| {lse_err}")
+        print(f"path launch {label}{' (suffix after a prefix hit)' if suffix else ''}: "
+              f"max|diff| {err:.3e}, LSE {lse_err:.3e} [{card}]", flush=True)
+    for (int8, B), r in sorted(rec.decode.items()):
+        q, kc, vc, lens, dstart, pstart = (r[x] for x in ("q", "k", "v", "lens", "dstart",
+                                                          "pstart"))
+        slot, scl = r["slot"], r["cache_scale"]
+        name = "ragged_decode_attention" + ("_q8" if int8 else "")
+        nkv, S, dh = kc.shape[2], kc.shape[3], kc.shape[4]
+        splits = rda.split_plan(B, nkv, q.shape[1] // nkv, slot + 1, _cuda.sm_count(q.device),
+                                dh=dh, int8=int8).splits
+
+        def plain(p0=pstart):
+            return rda.ragged_decode_plain(q, kc, vc, 0, lens, dstart, slot, p0, r["scale"],
+                                           cache_scale=scl)
+
+        def over(out, ref):
+            if int8:
+                return _q8_excess(out, ref)
+            return float((out.float() - ref.float()).abs().max()) - KERNEL_ATOL
+
+        ref = plain()
+        label = f"{path} {name} B={B} S={S} slot={slot} ({splits} splits)"
+        check(splits >= 2, f"{label}: the plan does not split the rows")
+        most = max(most, splits)
+        check(bool(torch.isfinite(r["out"].float()).all()) and over(r["out"], ref) <= 0,
+              f"{label}: max|diff| {float((r['out'].float() - ref.float()).abs().max())}")
+        # a merge that loses the first split: its share of each row's slots
+        # (the valid list, prompt first) is missing from the result
+        p0 = torch.zeros_like(lens) if pstart is None else pstart
+        n = _decode_valid(lens, dstart, slot, S, pstart).sum(1).to(torch.int32)
+        lost = torch.minimum(p0 + (n + splits - 1) // splits, lens).to(torch.int32)
+        bad = rda.ragged_decode_attention(q, kc, vc, 0, lens, dstart, slot, lost, r["scale"],
+                                          cache_scale=scl)
+        torch.cuda.synchronize()
+        check(over(bad, ref) > 0, f"the {label} check missed a planted fault (the first "
+                                  "split's share lost in the merge)")
+        print(f"path launch {label}, rows {[int(x) for x in n]} slots: max|diff| "
+              f"{float((r['out'].float() - ref.float()).abs().max()):.3e}; planted fault (the "
+              f"first split's share lost in the merge) max|diff| "
+              f"{float((bad.float() - ref.float()).abs().max()):.3e}, caught [{card}]",
+              flush=True)
+    return most
+
+
+# eval.sh's sampling defaults; 2 MATH-500 questions, 64 new tokens a step
+EVAL_QUESTIONS = 2
+EVAL_ARGS = ["--dataset-name", "math", "--tokenizer-path", "unused", "--engine", "tpu",
+             "--limit", str(EVAL_QUESTIONS), "--temperature", "0.3", "--top-p", "0.8",
+             "--top-k", "20", "--repetition-penalty", "1.05", "--max-new-tokens", "64",
+             "--max-model-len", "2048"]
+EVAL_VALUE = ["--mode", "value", "--depth", "2", "--breadth", "6", "--mcts-num-sim", "4",
+              "--k", "4"]
+EVAL_RUNS = (("eval_value", EVAL_VALUE),
+             ("eval_value_q8", EVAL_VALUE + ["--kv-quant", "int8"]),
+             ("eval_react", ["--mode", "react", "--depth", "2"]),
+             ("eval_single", ["--mode", "single"]))
+
+
+def eval_entry(params, head, cfg, card) -> dict:
+    """Phase 19: the evaluation entry, ``rollout_jsonl.main``, on the phase-3
+    model in value, value with int8 KV, react and single modes, each scored
+    by ``eval_math.main``; the path's own kernel launches checked against the
+    plain versions, and in value mode the fused pooled h0. Returns each
+    run's launch counts."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine import Engine
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.search import ValueFunction
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "math-500.jsonl")
+    with open(data, encoding="utf-8") as f:
+        gold_rows = [next(f) for _ in range(EVAL_QUESTIONS)]
+    launches, splits = {}, 0
+    with tempfile.TemporaryDirectory() as eval_dir:
+        # eval_math reads LAPHA_EVAL_DIR when it is imported; the gold file
+        # holds the questions the CLI answers (eval_math scores every gold row)
+        gold = os.path.join(eval_dir, "gold.jsonl")
+        with open(gold, "w", encoding="utf-8") as f:
+            f.writelines(gold_rows)
+        os.environ.update(LAPHA_EVAL_DIR=eval_dir, DATA_DIR_MATH=gold)
+        from lapha_tpu_torch.evalsuite import eval_math, rollout_jsonl
+
+        check(str(eval_math.EVAL_DIR) == eval_dir, f"eval_math.EVAL_DIR {eval_math.EVAL_DIR}")
+        tok = ChatIdTok(cfg.vocab_size)
+        pred = os.path.join(eval_dir, "rollouts", "math.pred.jsonl")
+        for path, mode_args in EVAL_RUNS:
+            value = "value" in path
+            # the engine and value function the CLI builds from a checkpoint
+            # (rollout_jsonl.main's engine_kw and build_value_fn), on the
+            # phase-3 weights
+            eng = _CountedEngine(Engine(params, cfg, tok, max_model_len=2048, max_batch=16,
+                                        collect_h0=value,
+                                        kv_quant="int8" if path.endswith("q8") else None))
+            vf = ValueFunction(params, head, cfg, max_model_len=2048) if value else None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            with _PathLaunches() as rec:
+                n = rollout_jsonl.main(["--data", data, "--out", pred, *EVAL_ARGS, *mode_args],
+                                       engine_override=eng, value_fn_override=vf,
+                                       tokenizer_override=tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[path] = dict(_cuda.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            splits = max(splits, _check_path_launches(rec, path, card))
+            if value:
+                check(any(key[0] == "flash_attention_cached" and key[3] for key in rec.flash),
+                      f"{path}: no prefix-hit suffix prefill")
+                # fused value: the engine's pooled h0 of the last expansion's
+                # first sample == a value forward over its prompt + completion
+                ro = eng.last[0]
+                full = np.asarray(ro.prompt_token_ids + ro.outputs[0].token_ids)[None]
+                _, _, h_ref = vf(full, np.ones_like(full, dtype=np.int32), return_h0=True)
+                e_fused = float(np.linalg.norm(ro.outputs[0].pooled_hidden - h_ref[0])
+                                / np.linalg.norm(h_ref[0]))
+                limit = FUSED_Q8_RTOL if path.endswith("q8") else REF_RTOL
+                print(f"{path} fused value check: engine pooled h0 vs value forward over "
+                      f"{full.shape[1]} tokens rel err {e_fused:.3e} (limit {limit}) [{card}]",
+                      flush=True)
+                check(e_fused <= limit, f"{path}: fused value rel err {e_fused}")
+            del rec
+            # the JSONL contract of tests/test_cli_e2e.py
+            with open(pred, encoding="utf-8") as f:
+                rows = [json.loads(line) for line in f]
+            check(n == EVAL_QUESTIONS and len(rows) == EVAL_QUESTIONS, f"{path}: {n} rows")
+            for row in rows:
+                check(set(row) == {"dataset", "qid", "question", "completion", "final_answer",
+                                   "completions", "final_answers", "k"}, f"{path} row keys")
+                check(isinstance(row["completion"], str) and row["dataset"] == "math",
+                      f"{path}: completion is a string")
+                check(row["completions"][0] == row["completion"]
+                      and row["final_answers"][0] == row["final_answer"]
+                      and len(row["completions"]) == len(row["final_answers"]) == row["k"],
+                      f"{path}: first completion and final answer are the pass@1 fields")
+                check(1 <= row["k"] <= 4 if value else row["k"] == 1, f"{path}: k {row['k']}")
+            eval_math.main(["--dataset", "math", "--k", "4"])
+            with open(os.path.join(eval_dir, "results", "math.summary.json"),
+                      encoding="utf-8") as f:
+                summary = json.load(f)
+            check(summary["num"] == EVAL_QUESTIONS, f"{path}: summary num {summary['num']}")
+            used = launches[path]
+            names = (("flash_attention", "flash_attention_cached") if value
+                     else ("flash_attention_cached",))
+            names += ("ragged_decode_attention_q8" if path.endswith("q8")
+                      else "ragged_decode_attention",)
+            for name in names:
+                check(used[name] > 0, f"{name} never launched on {path}")
+            if path.endswith("q8"):
+                check(used["ragged_decode_attention"] == 0,
+                      f"the bf16 decode kernel ran on {path}")
+            print(f"{path}: {wall / n:.2f} s a question ({wall:.2f} s for {n}), "
+                  f"{eng.tokens} tokens generated ({eng.tokens / wall:.1f} tok/s), peak "
+                  f"{peak:.2f} GiB; pass@1 {summary['pass@1']}, answered "
+                  f"{summary['answered']}; k {[r['k'] for r in rows]}; launches "
+                  f"{ {k: v for k, v in used.items() if v} } [{card}]", flush=True)
+            del eng, vf
+            torch.cuda.empty_cache()
+    # phase 1 checks the dh-128 decode at 2 splits; this path runs more
+    check(splits >= 4, f"phase 19's decode launches split their rows {splits} ways at most")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4354,6 +4645,10 @@ def main(argv=None) -> int:
     from lapha_tpu_torch.search import ValueFunction
 
     t0 = time.perf_counter()
+
+    def elapsed(what: str) -> None:  # the script's time so far, against the run's limit
+        print(f"elapsed {time.perf_counter() - t0:.1f} s after {what}", flush=True)
+
     _cuda.build()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
     if args.c5:
@@ -4374,6 +4669,7 @@ def main(argv=None) -> int:
     kernels.update(check_deepseek_kernels(dev, card))
     kernels.update(check_backward_deepseek_kernels(dev, card))
     kernels.update(check_phi3_starcoder2_kernels(dev, card))
+    elapsed("the kernel checks (phases 1-1l)")
 
     # ---------------- MoE serving at full width and depth, counted; freed after
     launches = {"serve_moe": serve_moe(dev, card)}
@@ -4394,6 +4690,7 @@ def main(argv=None) -> int:
                                              (None, "int8"), {"T": 2100, "S": 2176}, "17")
     launches["serve_starcoder2"] = serve_published(dev, card, STARCODER2_3B_CONFIG,
                                                    "StarCoder2-3B", (None, "int8"), {}, "17")
+    elapsed("serving at full depth (phases 10-12, 15, 17)")
 
     cfg = qwen2.Qwen2Config(
         vocab_size=151936, hidden_size=1536, intermediate_size=8960,
@@ -4446,6 +4743,11 @@ def main(argv=None) -> int:
     launches["serve_quantized"] = serve_quantized(params, head, cfg, card)
     profile_decode_step(params, cfg, card)
 
+    elapsed("the dense and quantized serving (phases 2-5, 8, 9)")
+    # ---------------- the evaluation entry (rollout_jsonl.main), each mode counted
+    launches.update(eval_entry(params, head, cfg, card))
+    elapsed("the evaluation entry (phase 19)")
+
     # ---------------- training: the trainer's entry, then the update, counted
     with tempfile.TemporaryDirectory() as tmpdir:
         torch.cuda.synchronize()
@@ -4457,6 +4759,7 @@ def main(argv=None) -> int:
     launches["update"] = update_at_full_width(params, head, cfg, eng, card)
     del eng, vf, params, head
     torch.cuda.empty_cache()
+    elapsed("the dense training (phases 6, 7)")
 
     # ---------------- MoE and GPT-OSS training at full width, counted; each freed after
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -4481,6 +4784,7 @@ def main(argv=None) -> int:
         launches.update(update_published(dev, card, STARCODER2_3B_CONFIG, "StarCoder2-3B",
                                          "update_starcoder2", tmpdir, keep=every_leaf,
                                          phase="18"))
+    elapsed("training at full width (phases 13, 14, 16, 18)")
 
     replaces = {
         "flash_attention": ("lapha_tpu_torch/csrc/flash_attention.cu",

@@ -4,11 +4,13 @@ Port of ``ValueFunction`` from ``lapha_tpu/search/value_fn.py`` (without
 ``mesh``). Batches are rounded to ``batch_bucket`` rows and lengths to
 ``pad_multiple``, as in the JAX version, so both see the same padded shapes.
 The parameters may be a quantized tree (``models/quant.py``).
+``make_fake_value_fn`` is a copy of the JAX module's hash-based test double
+(numpy only).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -121,3 +123,30 @@ class ValueFunction:
         if return_h0:
             return y, v, h0[:B].cpu().numpy()
         return y, v
+
+
+def make_fake_value_fn(hidden_size: int = 8, seed: int = 0) -> Callable:
+    """Deterministic hash-based value fn for hermetic search tests."""
+    rng = np.random.default_rng(seed)
+    proj = rng.normal(size=(64, hidden_size)).astype(np.float32) * 0.1
+
+    def fn(input_ids, attention_mask, response_mask=None, prompt_mask=None,
+           root_h0=None, return_h0: bool = False):
+        ids = np.asarray(input_ids)
+        if ids.ndim == 1:
+            ids = ids[None, :]
+        B = ids.shape[0]
+        h0 = np.zeros((B, hidden_size), np.float32)
+        for i in range(B):
+            row = ids[i][np.asarray(attention_mask).reshape(B, -1)[i] > 0]
+            feat = np.bincount(row % 64, minlength=64).astype(np.float32)
+            h0[i] = feat @ proj
+        centered = h0 - (np.asarray(root_h0, np.float32).reshape(1, -1) if root_h0 is not None else 0.0)
+        nrm = np.linalg.norm(centered / np.sqrt(hidden_size), axis=-1, keepdims=True)
+        y = np.tanh(nrm) / np.maximum(nrm, 1e-6) * centered / np.sqrt(hidden_size)
+        v = 1.0 / (1.0 + np.exp(-h0.sum(axis=-1)))
+        if return_h0:
+            return y, v, h0
+        return y, v
+
+    return fn

@@ -1,7 +1,8 @@
 """The port's MCTS and latent clustering against lapha_tpu.search (CPU).
 
-Both agents get the same scripted engine (the JAX package's ``FakeEngine``,
-plain Python), the same hash-based value function and a ``random.Random(0)``;
+Each agent gets its own package's scripted ``FakeEngine`` and hash-based
+``make_fake_value_fn`` (the port's are copies, held to the JAX ones by
+``test_fakes_match_jax``) on the same script, and a ``random.Random(0)``;
 the port's tree differs only in its pruning geometry, the port's float32
 ``poincare_dist_matrix``. The pruned trees get a fresh text for every
 sample, hence distinct ball points: coincident points (a node expanded
@@ -26,14 +27,18 @@ import pytest
 
 import lapha_tpu.search.mcts as jmcts_module
 import lapha_tpu_torch.search.mcts as tmcts_module
-from lapha_tpu.engine import FakeEngine, SamplingParams
+from lapha_tpu.engine import FakeEngine as JFake
+from lapha_tpu.engine import SamplingParams
 from lapha_tpu.search import LatentBank as JBank
 from lapha_tpu.search import MCTSAgent as JMCTS
 from lapha_tpu.search import cluster_and_select_disabled as j_cluster
-from lapha_tpu.search import make_fake_value_fn
+from lapha_tpu.search import make_fake_value_fn as j_fake_value_fn
+from lapha_tpu_torch.engine import FakeEngine as TFake
+from lapha_tpu_torch.engine import SamplingParams as TSamplingParams
 from lapha_tpu_torch.search import LatentBank as TBank
 from lapha_tpu_torch.search import MCTSAgent as TMCTS
 from lapha_tpu_torch.search import cluster_and_select_disabled as t_cluster
+from lapha_tpu_torch.search import make_fake_value_fn as t_fake_value_fn
 
 from test_search import ChatTok, _tool
 
@@ -62,7 +67,8 @@ def _agent_classes(base):
     return {"poor": Poor, "tool": Tool}
 
 
-CLASSES = {"jax": (_agent_classes(JMCTS), JBank), "torch": (_agent_classes(TMCTS), TBank)}
+CLASSES = {"jax": (_agent_classes(JMCTS), JBank, JFake, j_fake_value_fn, SamplingParams),
+           "torch": (_agent_classes(TMCTS), TBank, TFake, t_fake_value_fn, TSamplingParams)}
 
 SCRIPTS = {
     "basic": (dict(depth=3, num_sim=4), [
@@ -84,19 +90,19 @@ SCRIPTS = {
 def _search(side, name):
     kw, script = SCRIPTS[name]
     kw = dict(kw)
-    classes, bank_cls = CLASSES[side]
+    classes, bank_cls, fake_engine, fake_value_fn, sp_cls = CLASSES[side]
     cls = classes[kw.pop("agent", "poor")]
     tok = ChatTok()
     if script == "unique":
         count = itertools.count()
-        eng = FakeEngine(tok, default=lambda prompt, n: [
+        eng = fake_engine(tok, default=lambda prompt, n: [
             f"w{next(count)} </think> go" for _ in range(n)])
     else:
-        eng = FakeEngine(tok, script=script)
+        eng = fake_engine(tok, script=script)
     agent = cls(tokenizer=tok, depth=kw["depth"], breadth=kw.get("breadth", 2),
                 output_dir="/tmp/mcts-torch-test", llm=eng,
-                max_model_len=512, sampling_params=SamplingParams(max_tokens=64),
-                value_fn=make_fake_value_fn(hidden_size=8),
+                max_model_len=512, sampling_params=sp_cls(max_tokens=64),
+                value_fn=fake_value_fn(hidden_size=8),
                 reward_fns=[lambda c, gt: 1.0 if f"<answer>{gt}</answer>" in c else 0.0],
                 c_puct=1.0, v_prior=0.0, value_trust=0.5, num_sim=kw["num_sim"],
                 prune_per=kw.get("prune_per", 100), num_pos_sim=99,
@@ -142,3 +148,33 @@ def test_cluster_and_select_disabled_matches_jax(seed):
     assert tcen.keys() == jcen.keys()
     for key in jcen:
         np.testing.assert_allclose(tcen[key], jcen[key], atol=1e-6)
+
+
+def test_fakes_match_jax():
+    """The port's FakeEngine and make_fake_value_fn (copies) give the JAX
+    ones' outputs on the same prompts: scripted, default and n > script."""
+    tok = ChatTok()
+    script = [(r"2\+2", ["a </think> <answer>4</answer>", "b </think> go"]),
+              (r"STEP-2", ["deep </think> x"])]
+    prompts = ["what is 2+2?", "STEP-2: go on", "no match here"]
+    outs = {}
+    for side, fake in (("jax", JFake), ("torch", TFake)):
+        eng = fake(tok, script=script)
+        outs[side] = (eng.generate(prompts, SamplingParams(n=3)), eng.calls)
+    (jres, jcalls), (tres, tcalls) = outs["jax"], outs["torch"]
+    assert tcalls == jcalls
+    for jr, tr in zip(jres, tres, strict=True):
+        assert tr.prompt == jr.prompt
+        for jo, to in zip(jr.outputs, tr.outputs, strict=True):
+            assert (to.token_ids, to.cumulative_logprob, to.token_logprobs, to.text) == \
+                (jo.token_ids, jo.cumulative_logprob, jo.token_logprobs, jo.text)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 500, (5, 40))
+    mask = (rng.random((5, 40)) > 0.2).astype(np.int32)
+    root = rng.normal(size=8).astype(np.float32)
+    for kw in ({}, {"root_h0": root, "return_h0": True}):
+        j = j_fake_value_fn(hidden_size=8, seed=2)(ids, mask, **kw)
+        t = t_fake_value_fn(hidden_size=8, seed=2)(ids, mask, **kw)
+        assert len(t) == len(j)
+        for ja, ta in zip(j, t):
+            np.testing.assert_array_equal(ta, ja)
