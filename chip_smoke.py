@@ -4,7 +4,11 @@
     python3 chip_smoke.py          # from the repo root, one H100
     python3 chip_smoke.py --c5     # only the GPT-OSS fused-h0 probe (ROADMAP C5)
 
-Phases, each of which fails the run (traceback, non-zero exit) on any fault:
+Phases, each of which fails the run (traceback, non-zero exit) on any fault.
+Phases 10-12, 14, 15, 17 and 18 make their models at full width with the
+first CUT_LAYERS (8) layers of the published stack, so that the whole run
+stays inside its time limit; the layer counts and sizes given for them
+below are the published model's:
 
 1. Build the CUDA kernels from ``lapha_tpu_torch/csrc`` (one nvcc per
    source, in parallel) and hold each forward kernel against its plain
@@ -129,7 +133,7 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    that differ between the two; the same with the card's routing replayed
    on the CPU; then the MoE block of layer 0 alone with the card's routing
    forced on the CPU, relative error <= 1e-2.
-10. MoE serving at the full width and depth of Qwen1.5-MoE-A2.7B (24
+10. MoE serving at the full width of Qwen1.5-MoE-A2.7B (24
    layers, H 2048, 16/16 heads, 60 experts top-4 of width 1408, a
    sigmoid-gated shared expert of 5632, V 151936, untied; random bf16
    weights from a seed, 28.6 GB): the phase-3 round (4 parents x 512, n=6,
@@ -152,7 +156,7 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    window): the routing choices that differ between the card and the CPU
    are counted, then the check (rel err <= 5e-2) is made with the card's
    routing replayed on the CPU.
-11. GPT-OSS serving at the full width and depth of GPT-OSS-20B, from its
+11. GPT-OSS serving at the full width of GPT-OSS-20B, from its
    published config.json through ``Qwen2Config.from_hf`` (24 layers, H
    2880, 64/8 heads of dim 64, alternating 128-token sliding windows, YaRN
    x32, 32 experts top-4 of width 2880, V 201088, untied; random bf16
@@ -169,7 +173,7 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    is freed before the Gemma models are made.
 2f. Two full-width layers of each Gemma model, phase 2's check (Gemma-3 at
    prompts of 560 and 534 tokens, past its 512-token window).
-12. Gemma serving at full width and depth, from the published config.json
+12. Gemma serving at full width, from the published config.json
    of Gemma-2-2B (26 layers, H 2304, 8/4 heads of dim 256, I 9216 GeGLU,
    alternating 4096 windows, softcaps 50/30, V 256000 tied; 5.2 GB) and
    Gemma-3-1B (26 layers, H 1152, 4/1 heads of dim 256, I 6912, 512 windows
@@ -188,7 +192,7 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    over its int8 quantization: the routing choices that differ between the
    card and the CPU are counted, then the check (rel err <= 5e-2) is made
    with the card's routing replayed on the CPU.
-15. DeepSeek MLA serving at the full width and depth of DeepSeek-V2-Lite,
+15. DeepSeek MLA serving at the full width of DeepSeek-V2-Lite,
    from its published config.json through ``DeepseekConfig.from_hf`` (27
    layers, H 2048, 16 heads, kv_lora 512, Q/K 192 (nope 128 + rope 64), V
    128, YaRN x40, one dense layer of I 10944, then 64 experts top-6 of
@@ -205,7 +209,7 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    every layer sliding at 2047, V 32064 untied; 7.64 GB) and StarCoder2-3B
    (30 layers, H 3072, 24/2 heads of dim 128, I 12288 plain gelu FFN,
    biased LayerNorms and projections, every layer sliding at 4096, V 49152
-   tied; 6.06 GB) served at full width and depth from their published
+   tied; 6.06 GB) served at full width from their published
    config.json through ``Qwen2Config.from_hf``, random bf16 weights from the
    seed, each made and freed in turn: phase 2's two-layer check (Phi-3's at
    prompts of 2100 and 2074 tokens, past its window), then phase 12's
@@ -272,7 +276,7 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    rows, a string completion, completions[0] and final_answers[0] the pass@1
    fields, 1 <= k <= 4 in value mode, 1 otherwise) and scored by
    ``eval_math.main`` (``LAPHA_EVAL_DIR`` a temp dir, set before the
-   import), whose summary must count 2 questions. The kernels are held to
+   module is (re)loaded), whose summary must count 2 questions. The kernels are held to
    their plain versions at the shapes this path gives them: copies of the
    path's own launches (the first of each K1/K3 shape, fresh and after a
    prefix hit; for K4/K5 and each row count, the layer-0 launch with the
@@ -286,12 +290,12 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    check; FUSED_Q8_RTOL with the int8 cache). Wall seconds per question
    (the copies included), tokens generated and peak device memory are
    printed.
-6. Training through the normal entry at full width: ``MTPOTrainer`` on the
-   28-layer random bf16 model (gradient checkpointing, beta 1e-8 as
-   configs/lapha.yaml), PoorAgent's templates and a token-id chat tokenizer
-   over the whole vocabulary; one ``train_step`` on two questions with a
-   CoT anchor (depth 2, breadth 4, num_sim 4, 32 new tokens per step).
-   Random weights may leave no trainable group; that is printed, not hidden.
+6. One ``MTPOTrainer.train_step`` at full width through the normal entry:
+   the first step of phase 20's run (28 layers, gradient checkpointing,
+   beta 1e-8 as configs/lapha.yaml, a token-id chat tokenizer over the
+   whole vocabulary, two questions with a CoT anchor, depth 2, breadth 4,
+   num_sim 4, 32 new tokens per step), its launches counted apart as
+   "train_step"; finite loss and grad norm where it trained.
 7. The update at full width, always run: three update steps
    (``losses.make_update_fn``, remat "full") on 8 packed rows of 512 prompt
    + 512 completion tokens, launch counts zeroed just before and read just
@@ -315,7 +319,7 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    memory, the profile's K8 device time by kernel; then one
    MTPOTrainer.train_step on the MoE model as phase 6 ("train_step_moe":
    its decode rounds on the decode K8).
-14. Gemma training at full width and depth, after phase 13: Gemma-2-2B
+14. Gemma training at full width, after phase 13: Gemma-2-2B
    (26 layers, 2.6 B params, softcaps biting: q_proj x16, embedding x32)
    and Gemma-3-1B (26 layers, 512 windows), each made and freed in turn:
    phase 2b's gradient check on its first two layers (Gemma-3 at rows past
@@ -345,7 +349,7 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    narrow-V K3 prefill and the decode K8 in the rollout, the KL reference
    of beta 1e-8 through the DeepSeek forward), its peak memory; the
    profile's K8 device time by kernel.
-18. Phi-3-mini-4k and StarCoder2-3B training at full width and depth (3.82
+18. Phi-3-mini-4k and StarCoder2-3B training at full width (3.82
    and 3.03 B params), after phase 16, each made and freed in turn: phase
    14's steps (phase 2b's check on the first two layers, non-zero gradients
    in every layer's q/k/v/o, norms (StarCoder2's LayerNorm biases) and MLP
@@ -354,6 +358,24 @@ Phases, each of which fails the run (traceback, non-zero exit) on any fault:
    Phi-3; finite loss and grad norm, moved params, generation after the
    update with changed logits, a warm and a profiled step, the peak
    memory); then one MTPOTrainer.train_step on Phi-3 ("train_step_phi3").
+20. The training entry, ``lapha_tpu_torch.run_dapo.main``, after phase 7 on
+   the phase-3 model (28 layers at Qwen2.5-1.5B's full width): the weights
+   written by ``loader.export_hf`` with Qwen2.5-1.5B-Instruct's published
+   config.json (phase 3's max_position_embeddings) and loaded back
+   bit-equal; then ``main`` with configs/lapha.yaml and typed overrides
+   (phase 6's search knobs, 2 steps of 2 questions, lr 1e-3, no warmup,
+   ``--device cuda``), ``ChatIdTok`` and four DAPO-format MATH-500 rows
+   written as a parquet and read by the entry's ``dataloader``, each
+   record given a CoT anchor. Checks: step 2 reached, metrics.jsonl with
+   two steps of the reference's scalar names, ``checkpoints/step_2`` and
+   ``latest``, ``save_model``'s export and both value-head files loaded
+   back bit-equal to the trainer's params and head, moved and finite
+   leaves, K1, K2 (dq and dk/dv), K3 and K4 counted, and the path's own
+   first K1/K3 launch of each shape, longest layer-0 K4 launch and first
+   dq and dk/dv launches held to the plain versions (phase 19's checks and
+   planted decode fault; K2 at phase 1b's limits). The files go where the
+   machine has ~32 GB free (checked first) and are deleted after. Seconds
+   per part, bytes written, peak memory and the PNG count are printed.
 
 Launch counts are read per path (serve_moe: phase 10; serve_gptoss: phase
 11; serve_gemma2 and serve_gemma3: phase 12; serve_deepseek: phase 15;
@@ -363,7 +385,8 @@ eval_single: phase 19; train_step: phase 6; update: phase 7;
 update_moe, update_gptoss and train_step_moe: phase 13; update_gemma2,
 update_gemma3 and train_step_gemma2: phase 14; update_deepseek and
 train_step_deepseek: phase 16; serve_phi3 and serve_starcoder2: phase 17;
-update_phi3, update_starcoder2 and train_step_phi3: phase 18). Prints the
+update_phi3, update_starcoder2 and train_step_phi3: phase 18; train_entry:
+phase 20). Prints the
 card's name and power
 limit, each timing beside them, one JSON line of per-kernel results (each
 row with its time, the plain version's, the time of one PyTorch call that
@@ -415,9 +438,13 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 SEED = 0
 GEMMA_CAP = 50.0  # Gemma-2's attention softcap
+# the layers of the published stack that phases 10-12, 14, 15, 17 and 18
+# make (full width; the first layers, so that every window kind and, for
+# DeepSeek, the dense layer stay): the run's time limit
+CUT_LAYERS = 8
 
 # GPT-OSS-20B's published config.json (HF openai/gpt-oss-20b), the model
-# phases 2e and 11 serve at full width and depth through Qwen2Config.from_hf
+# phases 2e and 11 serve at full width through Qwen2Config.from_hf
 GPTOSS_20B_CONFIG = {
     "architectures": ["GptOssForCausalLM"], "model_type": "gpt_oss",
     "vocab_size": 201088, "hidden_size": 2880, "intermediate_size": 2880,
@@ -437,7 +464,7 @@ GPTOSS_20B_CONFIG = {
 
 # Gemma-2-2B's published config.json (HF google/gemma-2-2b) and Gemma-3-1B's
 # (HF google/gemma-3-1b-it, the text model gemma3_text), the models phases
-# 2f and 12 serve at full width and depth through Qwen2Config.from_hf
+# 2f and 12 serve at full width through Qwen2Config.from_hf
 GEMMA2_2B_CONFIG = {
     "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
     "attention_bias": False, "attention_dropout": 0.0, "attn_logit_softcapping": 50.0,
@@ -488,7 +515,7 @@ STARCODER2_3B_CONFIG = {
 }
 
 # DeepSeek-V2-Lite's published config.json (HF deepseek-ai/DeepSeek-V2-Lite),
-# the model phases 2h and 15 serve at full width and depth through
+# the model phases 2h and 15 serve at full width through
 # DeepseekConfig.from_hf (the auto_map entry of the remote code left out)
 DEEPSEEK_V2_LITE_CONFIG = {
     "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2",
@@ -1244,6 +1271,10 @@ def _k1_repeats(launch, out, lse, what) -> None:
           f"{what}: two launches differ")
 
 
+def _tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
 def _bwd_close(got, ref) -> tuple[float, list]:
     """(worst |diff| / limit over dq, dk, dv; the max |diff| of each), the
     limit being phase 1b's BWD_RTOL · max|plain| + BWD_ATOL; inf where the
@@ -1813,8 +1844,9 @@ def _library_err(lib_fn, ref, seen, what) -> float:
 
 
 def _published_model(dev, card, hf_config, label):
-    """A model at full width and depth from its published config (Gemma,
-    Phi-3, StarCoder2), random bf16 weights from the seed. With Gemma-2's
+    """A model at full width from its published config (Gemma, Phi-3,
+    StarCoder2), its first CUT_LAYERS layers, random bf16 weights from the
+    seed. With Gemma-2's
     softcaps the q projections are scaled x16 and the embedding x32, so
     that attention logits reach ~1-2x the cap of 50 and the final logits
     the cap of 30 (with the init's scales neither cap would bite)."""
@@ -1822,7 +1854,7 @@ def _published_model(dev, card, hf_config, label):
 
     from lapha_tpu_torch.models import qwen2, quant, value_model
 
-    cfg = qwen2.Qwen2Config.from_hf(hf_config)
+    cfg = qwen2.Qwen2Config.from_hf(dict(hf_config, num_hidden_layers=CUT_LAYERS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2029,8 +2061,11 @@ def _profile_served(label, params, cfg, rows: int, plen: int, S: int, seed: int,
 
 
 def serve_moe(dev, card):
-    """Phases 2d and 10 on one MoE model made here and freed before the
-    return. Returns the launch counts of the first round."""
+    """Phases 2d and 10 on one MoE model made here (the first CUT_LAYERS
+    layers) and freed before the return. Returns the launch counts of the
+    first round."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2039,7 +2074,7 @@ def serve_moe(dev, card):
     from lapha_tpu_torch.ops import _cuda
     from lapha_tpu_torch.search import ValueFunction
 
-    cfg = _moe_cfg()
+    cfg = dataclasses.replace(_moe_cfg(), num_hidden_layers=CUT_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = t_phase = time.perf_counter()
@@ -2278,8 +2313,9 @@ def check_h0_routing_replayed(eng, vf, cfg, rng, plen: int, extra: int, new: int
 
 
 def serve_gptoss(dev, card):
-    """Phases 2e and 11 on one GPT-OSS-20B model made here and freed before
-    the return. Returns the launch counts of the counted rounds."""
+    """Phases 2e and 11 on one GPT-OSS-20B model made here (the first
+    CUT_LAYERS layers) and freed before the return. Returns the launch
+    counts of the counted rounds."""
     import numpy as np
     import torch
 
@@ -2288,7 +2324,7 @@ def serve_gptoss(dev, card):
     from lapha_tpu_torch.search import ValueFunction
 
     t_phase = time.perf_counter()
-    params, head, cfg = _gptoss_model(dev, card)
+    params, head, cfg = _gptoss_model(dev, card, layers=CUT_LAYERS)
     check_gptoss_reference(params, cfg, dev)
     # prompts past the 128-token window
     check_moe_gradient_reference(params, head, cfg, dev, "GPT-OSS-20B", (200, 150), (40, 90))
@@ -2805,14 +2841,18 @@ def check_phi3_starcoder2_kernels(dev, card):
     return results
 
 
-def _deepseek_model(dev, card):
-    """DeepSeek-V2-Lite at full width and depth from its published config,
-    random bf16 weights from the seed (the JAX init's scales)."""
+def _deepseek_model(dev, card, layers=None):
+    """DeepSeek-V2-Lite at full width and depth from its published config
+    (its first ``layers`` layers when given), random bf16 weights from the
+    seed (the JAX init's scales)."""
     import torch
 
     from lapha_tpu_torch.models import deepseek, quant, value_model
 
-    cfg = deepseek.DeepseekConfig.from_hf(DEEPSEEK_V2_LITE_CONFIG)
+    hf = DEEPSEEK_V2_LITE_CONFIG
+    if layers is not None:
+        hf = dict(hf, num_hidden_layers=layers)
+    cfg = deepseek.DeepseekConfig.from_hf(hf)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2927,8 +2967,9 @@ def check_deepseek_reference(params, cfg, dev):
 
 
 def serve_deepseek(dev, card):
-    """Phases 2h and 15 on DeepSeek-V2-Lite, made here and freed before the
-    return. Returns the launch counts of the counted rounds."""
+    """Phases 2h and 15 on DeepSeek-V2-Lite (the first CUT_LAYERS layers:
+    1 dense, then MoE), made here and freed before the return. Returns the
+    launch counts of the counted rounds."""
     import numpy as np
     import torch
 
@@ -2937,7 +2978,7 @@ def serve_deepseek(dev, card):
     from lapha_tpu_torch.search import ValueFunction
 
     t_phase = time.perf_counter()
-    params, head, cfg = _deepseek_model(dev, card)
+    params, head, cfg = _deepseek_model(dev, card, layers=CUT_LAYERS)
     check_deepseek_reference(params, cfg, dev)
 
     P, n, plen, new = 4, 6, 512, 64
@@ -4024,8 +4065,8 @@ def update_published(dev, card, hf_config, label: str, which: str, tmpdir: str,
                      ref_lens=((90, 40), (30, 60)), trainer_path=None,
                      keep=lambda n: not n.endswith(".b"), phase="14"):
     """Phases 14 (Gemma: ``which`` = "update_gemma2" or "update_gemma3") and
-    18 (Phi-3, StarCoder2): training at full width and depth, the model made
-    here from its published config (``_published_model``: for Gemma-2
+    18 (Phi-3, StarCoder2): training at full width on CUT_LAYERS layers,
+    the model made here from its published config (``_published_model``: for Gemma-2
     q_proj x16 and embedding x32, so that both softcaps bite) and freed
     before the return. Phase 2b's gradient check on its first two layers
     (rows of ``ref_lens`` tokens; for Gemma-2 the largest scaled attention
@@ -4371,27 +4412,52 @@ class _CountedEngine:
 
 class _PathLaunches:
     """Copies of the inputs and outputs of some of the path's own launches of
-    the flash kernels (K1, K3) and the decode kernels (K4, K5), taken as the
-    path makes them: the first launch of each flash shape and offset kind
-    (fresh prefill, or a suffix after a prefix hit), and for each decode
-    entry and row count the layer-0 launch with the longest rows. Each launch
-    is the path's own and is counted once; the copies are held against the
-    plain versions after the run (:func:`_check_path_launches`)."""
+    the flash kernels (K1, K3), the decode kernels (K4, K5) and the flash
+    backward (K2, the entries the autograd Function's backward calls), taken
+    as the path makes them: the first launch of each flash shape and offset
+    kind (fresh prefill, or a suffix after a prefix hit), for each decode
+    entry and row count the layer-0 launch with the longest rows, and the
+    first dq and the first dk/dv launch. Each launch is the path's own and
+    is counted once; the copies are held against the plain versions after
+    the run (:func:`_check_path_launches`)."""
 
     def __init__(self):
         from lapha_tpu_torch.ops import flash_attention as fa
         from lapha_tpu_torch.ops import ragged_decode_attention as rda
 
         self.fa, self.rda = fa, rda
-        self.flash, self.decode = {}, {}
+        self.flash, self.decode, self.bwd = {}, {}, {}
 
     def __enter__(self):
-        self._flash_fn, self._decode_fn = self.fa._attention_cuda, self.rda._ragged_cuda
-        self.fa._attention_cuda, self.rda._ragged_cuda = self._flash, self._decode
+        fa = self.fa
+        self._fns = (fa._attention_cuda, self.rda._ragged_cuda, fa.attention_bwd_dq_cuda,
+                     fa.attention_bwd_dkv_cuda)
+        self._flash_fn, self._decode_fn, self._dq_fn, self._dkv_fn = self._fns
+        fa._attention_cuda, self.rda._ragged_cuda = self._flash, self._decode
+        fa.attention_bwd_dq_cuda, fa.attention_bwd_dkv_cuda = self._dq, self._dkv
         return self
 
     def __exit__(self, *exc):
-        self.fa._attention_cuda, self.rda._ragged_cuda = self._flash_fn, self._decode_fn
+        (self.fa._attention_cuda, self.rda._ragged_cuda, self.fa.attention_bwd_dq_cuda,
+         self.fa.attention_bwd_dkv_cuda) = self._fns
+
+    def _bwd(self, which, fn, args):
+        import torch
+
+        keep = which not in self.bwd
+        saved = (tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args) if keep
+                 else None)
+        out = fn(*args)
+        if keep:
+            self.bwd[which] = dict(args=saved, out=tuple(
+                o.clone() for o in (out if isinstance(out, tuple) else (out,))))
+        return out
+
+    def _dq(self, *args):
+        return self._bwd("flash_attention_bwd_dq", self._dq_fn, args)
+
+    def _dkv(self, *args):
+        return self._bwd("flash_attention_bwd_dkv", self._dkv_fn, args)
 
     def _flash(self, q, k, v, kv_valid, qstart, scale, name, window=0, softcap=0.0):
         key = (name, tuple(q.shape), k.shape[1], int(qstart.max()) > 0)
@@ -4416,19 +4482,22 @@ class _PathLaunches:
         out = self._decode_fn(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale,
                               cache_scale, sinks, softcap)
         if keep:
-            check(sinks is None and not softcap, "the eval path's decode has no sinks or cap")
+            check(sinks is None and not softcap, "the path's decode has no sinks or cap")
             self.decode[key] = dict(rec, out=out.clone())
         return out
 
 
 def _check_path_launches(rec, path: str, card) -> int:
-    """Phase 19's kernel checks: each launch :class:`_PathLaunches` kept from
-    the path's run, its output against the plain version on the same inputs
-    (K1/K3: phase 1's limit and LSE limit; K4: KERNEL_ATOL; K5: Q8_ATOL + 2^-7
-    |plain|). Each decode launch's plan must split its rows (the merge runs),
+    """Phase 19's and 20's kernel checks: each launch :class:`_PathLaunches`
+    kept from the path's run, its output against the plain version on the
+    same inputs (K1/K3: phase 1's limit and LSE limit; K4: KERNEL_ATOL; K5:
+    Q8_ATOL + 2^-7 |plain|; K2: phase 1b's limits for dq, dk and dv, with
+    the launch brought to unit scale, and a relaunch at that scale). Each
+    decode launch's plan must split its rows (the merge runs),
     and the first split's share of each row (ceil(n / splits) slots) missing
     from the merge (a planted fault, through the kernel's pstart) must fail
-    the check. Returns the most splits a kept decode launch had."""
+    the check; so must a K2 relaunch with one head of dq zeroed, or with dk
+    and dv swapped. Returns the most splits a kept decode launch had."""
     import torch
 
     from lapha_tpu_torch.ops import _cuda
@@ -4490,7 +4559,58 @@ def _check_path_launches(rec, path: str, card) -> int:
               f"first split's share lost in the merge) max|diff| "
               f"{float((bad.float() - ref.float()).abs().max()):.3e}, caught [{card}]",
               flush=True)
+    _check_path_bwd(rec, path, card)
     return most
+
+
+def _check_path_bwd(rec, path: str, card) -> None:
+    """The K2 part of :func:`_check_path_launches`: each kept dq and dk/dv
+    launch at unit scale, and the planted faults."""
+    import torch
+
+    from lapha_tpu_torch.ops import flash_attention as fa
+
+    for name, r in sorted(rec.bwd.items()):
+        dq = name.endswith("_dq")
+        plain = fa.attention_bwd_dq_plain if dq else fa.attention_bwd_dkv_plain
+        kernel = rec._dq_fn if dq else rec._dkv_fn
+        args = r["args"]
+        q = args[0]
+        label = (f"{path} {name} B={q.shape[0]} T={q.shape[1]} S={args[1].shape[1]} "
+                 f"{q.shape[2]}/{args[1].shape[2]} heads")
+        ref = _tuple(plain(*args))
+        top = max(float(t.float().abs().max()) for t in ref)
+        check(math.isfinite(top) and top > 0, f"{label}: max|plain| {top}")
+        # dq, dk and dv are linear in dO and delta, so a power of two brings
+        # the launch to unit scale exactly; there phase 1b's limits bite (at
+        # the path's own scale BWD_ATOL alone would pass a kernel that wrote
+        # zeros). The path's launch is held at that scale, and the kernel is
+        # launched again on dO and delta times c
+        c = 2.0 ** round(-math.log2(top))
+        own, own_errs = _bwd_close([o.float() * c for o in r["out"]],
+                                   [t.float() * c for t in ref])
+        scaled = (*args[:6], args[6] * c, args[7] * c, *args[8:])
+        again = _tuple(kernel(*scaled))
+        unit = _tuple(plain(*scaled))
+        torch.cuda.synchronize()
+        worst, errs = _bwd_close(again, unit)
+        check(own <= 1.0 and worst <= 1.0,
+              f"{label}: max|diff| {own_errs} (x{c:.3e}) and {errs} at unit scale, past phase "
+              f"1b's limits")
+        # planted faults: one query head's dq dropped; dk and dv swapped
+        if dq:
+            bad = again[0].clone()
+            bad[:, :, 0] = 0
+            fault, planted = "head 0 of dq zeroed", (bad,)
+        else:
+            fault, planted = "dk and dv swapped", (again[1], again[0])
+        missed, bad_errs = _bwd_close(planted, unit)
+        check(missed > 1.0, f"the {label} check missed a planted fault ({fault})")
+        print(f"path launch {label}: max|plain| {top:.3e}, held at x{c:.3e}: max|diff| "
+              f"{[f'{e:.3e}' for e in own_errs]}, {own:.3f} of phase 1b's limit; launched again "
+              f"at that scale (max|plain| {max(float(t.float().abs().max()) for t in unit):.3f}):"
+              f" max|diff| {[f'{e:.3e}' for e in errs]}, {worst:.3f} of the limit; planted fault "
+              f"({fault}) {missed:.1f} of the limit, caught [{card}]", flush=True)
 
 
 # eval.sh's sampling defaults; 2 MATH-500 questions, 64 new tokens a step
@@ -4531,8 +4651,13 @@ def eval_entry(params, head, cfg, card) -> dict:
         with open(gold, "w", encoding="utf-8") as f:
             f.writelines(gold_rows)
         os.environ.update(LAPHA_EVAL_DIR=eval_dir, DATA_DIR_MATH=gold)
+        import importlib
+
         from lapha_tpu_torch.evalsuite import eval_math, rollout_jsonl
 
+        # the training package's graders come through the evalsuite package,
+        # which may have imported eval_math (and read the variable) already
+        importlib.reload(eval_math)
         check(str(eval_math.EVAL_DIR) == eval_dir, f"eval_math.EVAL_DIR {eval_math.EVAL_DIR}")
         tok = ChatIdTok(cfg.vocab_size)
         pred = os.path.join(eval_dir, "rollouts", "math.pred.jsonl")
@@ -4615,6 +4740,252 @@ def eval_entry(params, head, cfg, card) -> dict:
     return launches
 
 
+# Qwen/Qwen2.5-1.5B-Instruct's published config.json (the phase-3 model's
+# widths); phase 20 writes it with phase 3's max_position_embeddings
+QWEN25_1_5B_INSTRUCT_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 151643,
+    "eos_token_id": 151645, "hidden_act": "silu", "hidden_size": 1536, "initializer_range": 0.02,
+    "intermediate_size": 8960, "max_position_embeddings": 32768, "max_window_layers": 21,
+    "model_type": "qwen2", "num_attention_heads": 12, "num_hidden_layers": 28,
+    "num_key_value_heads": 2, "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
+    "sliding_window": 32768, "tie_word_embeddings": True, "torch_dtype": "bfloat16",
+    "transformers_version": "4.43.1", "use_cache": True, "use_sliding_window": False,
+    "vocab_size": 151936,
+}
+# phase 6's knobs as the entry's typed overrides, a learning rate that moves
+# bf16 weights, two steps of two questions
+TRAIN_ENTRY_FLAGS = ["--max-steps", "2", "--device", "cuda", "--depth", "2", "--breadth", "4",
+                     "--num-sim", "4", "--leaves-per-sim", "2", "--max-completion-length", "32",
+                     "--max-model-len", "1024", "--max-prompt-length", "1024",
+                     "--per-device-train-batch-size", "2", "--save-steps", "0",
+                     "--learning-rate", "1e-3", "--warmup-ratio", "0", "--debug-print", "false"]
+TRAIN_ENTRY_QUESTIONS = 4
+# the start export (f32), the step-2 checkpoint (bf16 params, f32 Adam
+# moments) and save_model's export (f32): ~28 GB at 1.54 B params
+TRAIN_ENTRY_BYTES = 32e9
+# the scalar names of the reference's trainer (metrics.jsonl)
+TRAIN_SCALARS = {"avgAcc", "pass@1", "VMap/mean", "VMap/std", "Loss/ValueLoss",
+                 "Loss/PolicyLoss", "Loss/Loss", "Metrics/KL", "Metrics/ContextLength"}
+
+
+class _Stopwatch:
+    """Wall seconds (the device synchronised at both ends), return values and
+    kernel launches of the named methods of ``cls``, for every call made
+    while active."""
+
+    def __init__(self, cls, names):
+        self.cls, self.names = cls, names
+        self.seconds = {n: [] for n in names}
+        self.returned = {n: [] for n in names}
+        self.launches = {n: [] for n in names}
+
+    def __enter__(self):
+        import torch
+
+        from lapha_tpu_torch.ops import _cuda
+
+        self._orig = {n: getattr(self.cls, n) for n in self.names}
+        for n, fn in self._orig.items():
+            def timed(*a, _n=n, _fn=fn, **kw):
+                torch.cuda.synchronize()
+                before = dict(_cuda.LAUNCHES)
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_n].append(time.perf_counter() - t0)
+                self.returned[_n].append(out)
+                self.launches[_n].append({k: v - before[k] for k, v in _cuda.LAUNCHES.items()})
+                return out
+            setattr(self.cls, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self.cls, n, fn)
+
+
+def _bytes_under(d: str) -> int:
+    return sum(os.path.getsize(os.path.join(base, f)) for base, _, files in os.walk(d)
+               for f in files)
+
+
+def train_entry(params, cfg, card) -> dict:
+    """Phase 20: the training entry, ``lapha_tpu_torch.run_dapo.main``, from a
+    checkpoint on disk to ``save_model``'s export, at the phase-3 model's
+    full width and depth; its first train_step is phase 6. Returns the
+    entry's launch counts ("train_entry") and its first step's
+    ("train_step")."""
+    import shutil
+
+    import torch
+
+    from lapha_tpu_torch import run_dapo
+    from lapha_tpu_torch.models import loader, qwen2
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.train import MTPOTrainer, losses
+    from lapha_tpu_torch.train.dataset import (_PROMPT_SHIM_OLD_HEAD, _PROMPT_SHIM_OLD_TAIL,
+                                               dataloader)
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="train_entry_") as work:
+        free = shutil.disk_usage(work).free
+        check(free >= TRAIN_ENTRY_BYTES,
+              f"phase 20 writes ~28 GB and needs {TRAIN_ENTRY_BYTES / 1e9:.0f} GB free: "
+              f"{work} has {free / 1e9:.1f} GB")
+        start, out = os.path.join(work, "start"), os.path.join(work, "out")
+        # ---- the start checkpoint: the phase-3 weights in HF layout
+        t0 = time.perf_counter()
+        loader.export_hf(params, cfg, start)
+        hf_config = dict(QWEN25_1_5B_INSTRUCT_CONFIG,
+                         max_position_embeddings=cfg.max_position_embeddings)
+        with open(os.path.join(start, "config.json"), "w") as f:
+            json.dump(hf_config, f, indent=2)
+        t_export = time.perf_counter() - t0
+        check(qwen2.Qwen2Config.from_hf(hf_config) == cfg,
+              "Qwen2.5-1.5B-Instruct's config does not parse to the phase-3 config")
+        t0 = time.perf_counter()
+        back, back_cfg = loader.load_params(start, device="cuda")
+        torch.cuda.synchronize()
+        t_start_load = time.perf_counter() - t0
+        want = dict(losses.tree_paths(params))
+        got = dict(losses.tree_paths(back))
+        check(back_cfg == cfg and got.keys() == want.keys()
+              and all(torch.equal(got[k], w) for k, w in want.items()),
+              "the start checkpoint does not load back bit-equal")
+        del back, got
+        start_bytes = _bytes_under(start)
+
+        # ---- the dataset: a DAPO-format parquet of MATH-500 rows, read
+        # through the entry's --dataset branch (its parser and load_records);
+        # each record then gets a CoT anchor (the trainer's d_goal anchor,
+        # which DAPO's rows do not carry): random weights answer nothing, and
+        # without it no tree has a value signal to train on
+        import pandas as pd
+
+        with open(os.path.join(here, "data", "math-500.jsonl"), encoding="utf-8") as f:
+            gold = [json.loads(next(f)) for _ in range(TRAIN_ENTRY_QUESTIONS)]
+        parquet = os.path.join(work, "dapo.parquet")
+        pd.DataFrame({
+            "prompt": [[{"content": _PROMPT_SHIM_OLD_HEAD + g["question"] + _PROMPT_SHIM_OLD_TAIL,
+                         "role": "user"}] for g in gold],
+            "reward_model": [{"ground_truth": g["answer"], "style": "rule"} for g in gold],
+        }).to_parquet(parquet)
+        argv = ["--config", os.path.join(here, "configs", "lapha.yaml"),
+                "--model-name-or-path", start, "--output-dir", out, *TRAIN_ENTRY_FLAGS]
+        rows = run_dapo.load_records(
+            run_dapo.build_parser().parse_known_args(argv + ["--dataset", parquet])[0])
+        check(rows == dataloader(parquet)
+              and [r["ground_truth"] for r in rows] == [g["answer"] for g in gold]
+              and all(r["question"].endswith("`<answer>...</answer>`.") for r in rows),
+              "the DAPO rows did not come back through --dataset and the prompt shim")
+        records = [dict(r, cot=f"<think>{g['answer']}</think><answer>{g['answer']}</answer>")
+                   for r, g in zip(rows, gold)]
+
+        # ---- the entry, counted
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        with _PathLaunches() as rec, _Stopwatch(MTPOTrainer, ("__init__", "train_step",
+                                                              "save_checkpoint",
+                                                              "save_model")) as sw:
+            trainer = run_dapo.main(argv, tokenizer_override=ChatIdTok(cfg.vocab_size),
+                                    dataset_override=records)
+        torch.cuda.synchronize()
+        t_entry = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        # ---- checks
+        args = trainer.args
+        check(trainer.global_step == 2, f"the entry ended at step {trainer.global_step}")
+        check((args.breadth, args.learning_rate, args.debug_print, args.attn_implementation,
+               args.beta, args.gradient_checkpointing, args.bf16)
+              == (4, 1e-3, False, "pallas", 1e-8, True, True),
+              "the typed overrides and lapha.yaml's knobs did not reach the trainer")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        names = {m["name"] for m in metrics}
+        check({m["step"] for m in metrics} == {0, 1}, "metrics.jsonl does not hold two steps")
+        check(all(n in TRAIN_SCALARS or n.startswith("Rollout/rej_") for n in names)
+              and {"avgAcc", "pass@1", "Loss/Loss"} <= names,
+              f"metrics.jsonl names {sorted(names)}")
+        ckpt = os.path.join(out, "checkpoints")
+        with open(os.path.join(ckpt, "latest")) as f:
+            check(f.read().strip() == "2" and os.path.isfile(os.path.join(ckpt, "step_2",
+                                                                          "state.pt")),
+                  "checkpoints/step_2 and its latest pointer")
+        for name in ("model.safetensors", "value_head.npz", "value_head.pt"):
+            check(os.path.isfile(os.path.join(out, name)), f"save_model wrote no {name}")
+        with open(os.path.join(out, "config.json"), "rb") as f, \
+                open(os.path.join(start, "config.json"), "rb") as g:
+            check(f.read() == g.read(), "save_model's config.json is not the start's")
+        t0 = time.perf_counter()
+        final, final_cfg = loader.load_params(out, device="cuda")
+        heads = [loader.load_value_head(os.path.join(out, n), cfg.hidden_size, device="cuda")
+                 for n in ("value_head.npz", "value_head.pt")]
+        torch.cuda.synchronize()
+        t_reload = time.perf_counter() - t0
+        trained = dict(losses.tree_paths(trainer.params))
+        got = dict(losses.tree_paths(final))
+        check(final_cfg == cfg and got.keys() == trained.keys()
+              and all(torch.equal(got[k], w.detach()) for k, w in trained.items()),
+              "save_model's export does not load back bit-equal to the trainer's params")
+        check(all(torch.equal(h[k], trainer.head[k].detach()) for h in heads for k in ("w", "b")),
+              "the value-head files do not load back equal to the trainer's head")
+        moved = [k for k, w in trained.items() if not torch.equal(w.detach(), want[k])]
+        check(moved, "no leaf moved from the start weights")
+        check(all(bool(torch.isfinite(w).all()) for w in trained.values()),
+              "a trained leaf is not finite")
+        for name in ("flash_attention", "flash_attention_cached", "ragged_decode_attention",
+                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            check(launches[name] > 0, f"{name} never launched on train_entry")
+        check(set(rec.bwd) == {"flash_attention_bwd_dq", "flash_attention_bwd_dkv"},
+              f"the path's K2 launches kept: {sorted(rec.bwd)}")
+        _check_path_launches(rec, "train_entry", card)
+        pngs = sorted(os.path.relpath(os.path.join(b, f), out)
+                      for b, _, files in os.walk(os.path.join(out, "viz")) for f in files
+                      if f.endswith("_disk.png"))
+        why = ""
+        if not pngs:
+            import importlib.util
+
+            why = (" (matplotlib absent: plot_tree_disk returns None)"
+                   if importlib.util.find_spec("matplotlib") is None
+                   else " (plot_tree_disk returned None with matplotlib present)")
+        written = start_bytes + _bytes_under(out)
+        steps = sw.returned["train_step"]
+        # phase 6: the entry's first train_step, counted apart
+        first = steps[0]
+        if first["n_samples"]:
+            check(all(math.isfinite(first[k]) for k in ("loss", "grad_norm")),
+                  f"phase 6 metrics {first}")
+        shown = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in first.items()}
+        print(f"train_step (the entry's first step; {cfg.num_hidden_layers} layers, depth 2, "
+              f"breadth 4, num_sim 4, 32 new tokens): n_samples {first['n_samples']}, "
+              f"num_groups {first['num_groups']}, skipped {first.get('skipped')}, rollout "
+              f"{first['rollout_s']:.2f} s, update {first.get('update_s', 0.0):.2f} s [{card}]; "
+              f"metrics {shown}", flush=True)
+        print(f"train_entry: start export {t_export:.2f} s ({start_bytes / 1e9:.2f} GB f32), "
+              f"its reload {t_start_load:.2f} s; run_dapo.main {t_entry:.2f} s: the trainer's "
+              f"load {sw.seconds['__init__'][0]:.2f} s, steps "
+              f"{[(round(m['rollout_s'], 2), round(m.get('update_s', 0.0), 2)) for m in steps]} "
+              f"(rollout s, update s), n_samples {[m['n_samples'] for m in steps]}, checkpoint "
+              f"save {sum(sw.seconds['save_checkpoint']):.2f} s, save_model "
+              f"{sw.seconds['save_model'][0]:.2f} s; reload of the export and heads "
+              f"{t_reload:.2f} s; {written / 1e9:.2f} GB written; peak {peak:.2f} GiB; "
+              f"{len(moved)} of {len(trained)} leaves moved [{card}]", flush=True)
+        print(f"train_entry: {len(pngs)} tree PNGs written{why}; launches "
+              f"{ {k: v for k, v in launches.items() if v} } [{card}]", flush=True)
+        del trainer, final, got, trained, heads, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"train_entry": launches, "train_step": sw.launches["train_step"][0]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4671,26 +5042,26 @@ def main(argv=None) -> int:
     kernels.update(check_phi3_starcoder2_kernels(dev, card))
     elapsed("the kernel checks (phases 1-1l)")
 
-    # ---------------- MoE serving at full width and depth, counted; freed after
+    # ---------------- MoE serving at full width, counted; freed after
     launches = {"serve_moe": serve_moe(dev, card)}
-    # ---------------- GPT-OSS-20B serving at full width and depth, counted; freed after
+    # ---------------- GPT-OSS-20B serving at full width, counted; freed after
     launches["serve_gptoss"] = serve_gptoss(dev, card)
     # ---------------- Gemma-2-2B (bf16, then int8 KV) and Gemma-3-1B serving at
-    # full width and depth, counted; each freed after
+    # full width, counted; each freed after
     launches["serve_gemma2"] = serve_published(dev, card, GEMMA2_2B_CONFIG, "Gemma-2-2B",
                                                (None, "int8"), {})
     # Gemma-3's two-layer check at prompts past its 512-token window
     launches["serve_gemma3"] = serve_published(dev, card, GEMMA3_1B_CONFIG, "Gemma-3-1B",
                                                (None,), {"T": 560, "S": 592})
-    # ---------------- DeepSeek-V2-Lite serving at full width and depth, counted; freed after
+    # ---------------- DeepSeek-V2-Lite serving at full width, counted; freed after
     launches["serve_deepseek"] = serve_deepseek(dev, card)
     # ---------------- Phi-3-mini (two-layer check past its 2047 window) and
-    # StarCoder2-3B serving at full width and depth, counted; each freed after
+    # StarCoder2-3B serving at full width, counted; each freed after
     launches["serve_phi3"] = serve_published(dev, card, PHI3_MINI_4K_CONFIG, "Phi-3-mini-4k",
                                              (None, "int8"), {"T": 2100, "S": 2176}, "17")
     launches["serve_starcoder2"] = serve_published(dev, card, STARCODER2_3B_CONFIG,
                                                    "StarCoder2-3B", (None, "int8"), {}, "17")
-    elapsed("serving at full depth (phases 10-12, 15, 17)")
+    elapsed(f"serving at full width, {CUT_LAYERS} layers (phases 10-12, 15, 17)")
 
     cfg = qwen2.Qwen2Config(
         vocab_size=151936, hidden_size=1536, intermediate_size=8960,
@@ -4748,24 +5119,21 @@ def main(argv=None) -> int:
     launches.update(eval_entry(params, head, cfg, card))
     elapsed("the evaluation entry (phase 19)")
 
-    # ---------------- training: the trainer's entry, then the update, counted
-    with tempfile.TemporaryDirectory() as tmpdir:
-        torch.cuda.synchronize()
-        _cuda.reset_launches()
-        train_through_the_trainer(params, cfg, card, tmpdir)
-        launches["train_step"] = dict(_cuda.LAUNCHES)
-    print(f"launches in train_step: {launches['train_step']}", flush=True)
-    torch.cuda.empty_cache()
+    # ---------------- training: the update, then the training entry
+    # (run_dapo.main), whose first train_step is phase 6, counted
     launches["update"] = update_at_full_width(params, head, cfg, eng, card)
+    elapsed("the dense update (phase 7)")
+    launches.update(train_entry(params, cfg, card))
+    print(f"launches in train_step: {launches['train_step']}", flush=True)
     del eng, vf, params, head
     torch.cuda.empty_cache()
-    elapsed("the dense training (phases 6, 7)")
+    elapsed("the training entry (phases 20 and 6)")
 
     # ---------------- MoE and GPT-OSS training at full width, counted; each freed after
     with tempfile.TemporaryDirectory() as tmpdir:
         for which in ("update_moe", "update_gptoss"):
             launches.update(update_moe(dev, card, which, tmpdir))
-        # ---------------- Gemma training at full width and depth, counted; each freed after
+        # ---------------- Gemma training at full width, counted; each freed after
         launches.update(update_published(dev, card, GEMMA2_2B_CONFIG, "Gemma-2-2B",
                                          "update_gemma2", tmpdir,
                                          trainer_path="train_step_gemma2"))
@@ -4774,8 +5142,8 @@ def main(argv=None) -> int:
                                          "update_gemma3", tmpdir, ((530, 300), (40, 60))))
         # ---------------- DeepSeek-V2-Lite training at full width, counted; freed after
         launches.update(update_deepseek(dev, card, tmpdir))
-        # ---------------- Phi-3-mini and StarCoder2-3B training at full width and
-        # depth, counted; each freed after (k_proj's bias gets no gradient:
+        # ---------------- Phi-3-mini and StarCoder2-3B training at full width,
+        # counted; each freed after (k_proj's bias gets no gradient:
         # softmax is shift-invariant along a row)
         every_leaf = lambda n: not n.endswith("k_proj.b")  # noqa: E731
         launches.update(update_published(dev, card, PHI3_MINI_4K_CONFIG, "Phi-3-mini-4k",

@@ -31,7 +31,7 @@ rollout, hyperbolic shaping, GRPO + value update):
 - ``models.value_model``   — linear value head + value_forward
 - ``models.quant``         — int8 / int4 weight quantization
 - ``models.loader``        — HF load (dense, MoE and gpt_oss, optionally quantized),
-                             value-head load, params_from_numpy
+                             HF export, value-head load and save, params_from_numpy
 - ``engine.adapter``       — SamplingParams / CompletionOutput / RequestOutput
 - ``engine.sampling``      — vLLM-order sampling with logprobs (exact top-k)
 - ``engine.prefix_cache``  — token-prefix KV store
@@ -48,7 +48,10 @@ rollout, hyperbolic shaping, GRPO + value update):
                              the update step
 - ``train.optim``          — the JAX trainer's optax chain, written out
 - ``train.trainer``        — MTPOTrainer: rollout_batch, train_step, train,
-                             checkpoints
+                             checkpoints, save_model (HF export + value head)
+- ``train.dataset``        — the DAPO parquet, its row converter, the rewards
+- ``train.viz``            — Poincaré-disk tree plots
+- ``run_dapo``             — the training entry (typed overrides, --device)
 - ``native``               — the prefix trie: the repo's C++ extension from
                              ``native/`` when built, else pure Python
 

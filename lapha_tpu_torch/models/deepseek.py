@@ -42,9 +42,12 @@ whenever it is truthy, as the JAX model checkpoints its layer scan on any
 truthy value: a named policy ("save_qkv", ...) means the full recompute
 here too.
 
+``export_hf`` writes the tree back to an HF-layout checkpoint (the
+trainer's ``save_model``).
+
 Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
-item): ``decode_step_multi`` (A8, speculative decoding), ``export_hf`` (A7,
-``save_model``) and ``moe_impl="dispatch"`` (A11).
+item): ``decode_step_multi`` (A8, speculative decoding) and
+``moe_impl="dispatch"`` (A11).
 """
 
 from __future__ import annotations
@@ -703,4 +706,62 @@ def load_params(model_dir: str, cfg: DeepseekConfig | None = None,
 
 def export_hf(params: dict, cfg: DeepseekConfig, out_dir: str,
               src_config_dir: str | None = None) -> None:
-    _not_ported("export_hf (the HF checkpoint export of save_model)", "A7, save_model")
+    """Write params back to an HF-layout f32 safetensors dir that reloads
+    through this loader and vanilla Deepseek{V2,V3}ForCausalLM (the deepseek
+    analogue of ``loader.export_hf``; quantized leaves are dequantized in
+    f32), in the JAX package's key order. The config and tokenizer files
+    are copied from ``src_config_dir``."""
+    import os
+
+    from safetensors.numpy import save_file
+
+    from .loader import copy_config_files, host_f32
+
+    os.makedirs(out_dir, exist_ok=True)
+    sd = {}
+
+    def put(name: str, t, transpose=False):
+        sd[name] = host_f32(name, dequant(t, torch.float32), transpose)
+
+    put("model.embed_tokens.weight", params["embed"]["weight"])
+    put("model.norm.weight", params["norm"]["scale"])
+    if not cfg.tie_word_embeddings and "lm_head" in params:
+        put("lm_head.weight", params["lm_head"]["weight"])
+    Ld = cfg.num_dense_layers_
+    for l, p in enumerate(_layers(params)):
+        pre = f"model.layers.{l}."
+        put(pre + "input_layernorm.weight", p["input_layernorm"]["scale"])
+        put(pre + "post_attention_layernorm.weight", p["post_attention_layernorm"]["scale"])
+        a = p["attn"]
+        if cfg.q_lora_rank > 0:
+            put(pre + "self_attn.q_a_proj.weight", a["q_a"]["w"], transpose=True)
+            put(pre + "self_attn.q_a_layernorm.weight", a["q_a_norm"]["scale"])
+            put(pre + "self_attn.q_b_proj.weight", a["q_b"]["w"], transpose=True)
+        else:
+            put(pre + "self_attn.q_proj.weight", a["q"]["w"], transpose=True)
+        put(pre + "self_attn.kv_a_proj_with_mqa.weight", a["kv_a"]["w"], transpose=True)
+        put(pre + "self_attn.kv_a_layernorm.weight", a["kv_a_norm"]["scale"])
+        put(pre + "self_attn.kv_b_proj.weight", a["kv_b"]["w"], transpose=True)
+        put(pre + "self_attn.o_proj.weight", a["o"]["w"], transpose=True)
+        if l < Ld:
+            for proj in ("gate", "up", "down"):
+                put(pre + f"mlp.{proj}_proj.weight", p["mlp"][f"{proj}_proj"]["w"],
+                    transpose=True)
+            continue
+        moe = p["moe"]
+        put(pre + "mlp.gate.weight", moe["router"]["w"], transpose=True)
+        if "bias" in moe["router"]:
+            put(pre + "mlp.gate.e_score_correction_bias", moe["router"]["bias"])
+        for e in range(cfg.n_routed_experts):
+            for proj in ("gate", "up", "down"):
+                w = moe["experts"][f"{proj}_proj"]["w"]
+                w = {k: v[e] for k, v in w.items()} if isinstance(w, dict) else w[e]
+                put(pre + f"mlp.experts.{e}.{proj}_proj.weight", w, transpose=True)
+        if "shared" in moe:
+            for proj in ("gate", "up", "down"):
+                put(pre + f"mlp.shared_experts.{proj}_proj.weight",
+                    moe["shared"][f"{proj}_proj"]["w"], transpose=True)
+    save_file(sd, os.path.join(out_dir, "model.safetensors"))
+    copy_config_files(src_config_dir, out_dir, ("config.json", "tokenizer.json",
+                                                "tokenizer_config.json",
+                                                "generation_config.json"))

@@ -10,6 +10,11 @@ parameter pytree after ``tree_map(np.asarray)`` into this package's tensors
 
 ``load_params`` and ``load_value_head`` put the tensors on the card unless
 the caller passes ``device="cpu"``; without a card they raise.
+
+The way back: ``export_hf`` writes a tree to an HF-layout f32
+``model.safetensors`` for every family the loader takes (DeepSeek through
+``deepseek.export_hf``), and ``save_value_head`` writes the value head as
+the reference's ``{weight (1, H), bias (1,)}``, the JAX package's writers.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 
 import numpy as np
 import torch
@@ -369,3 +375,161 @@ def _pick_head_keys(sd: dict):
         if re.search(r"value_head\.weight$", k):
             return sd[k], sd.get(k.replace("weight", "bias"), np.zeros(1))
     raise KeyError(f"no value-head weight in keys {list(sd)[:8]}...")
+
+
+def save_value_head(path: str, head: dict) -> None:
+    """Write the head artifact. ``.pt``/``.bin`` produce the reference's
+    torch state-dict convention ({weight (1,H), bias (1,)}) so its tools
+    load it unchanged; anything else writes .npz with the same keys."""
+    w = np.ascontiguousarray(head["w"].detach().float().cpu().numpy().reshape(1, -1))
+    b = np.ascontiguousarray(head["b"].detach().float().cpu().numpy().reshape(1))
+    if path.endswith(".pt") or path.endswith(".bin"):
+        torch.save({"weight": torch.from_numpy(w), "bias": torch.from_numpy(b)}, path)
+        return
+    np.savez(path if path.endswith(".npz") else path + ".npz", weight=w, bias=b)
+
+
+def host_f32(name: str, t, transpose: bool = False) -> np.ndarray:
+    """A leaf as the C-contiguous f32 host array an export writes (safetensors
+    writes raw buffers, so a transposed view must be copied), cast and
+    transposed where the leaf lives: on the card that is ~4x faster than a
+    host transpose. A quantized leaf raises: the exports write
+    full-precision trees."""
+    if is_quantized(t):
+        raise ValueError(f"{name}: a quantized leaf; export a full-precision tree "
+                         "(load with quantize=None)")
+    t = t.detach().float()
+    if transpose:
+        t = t.transpose(-1, -2)
+    return t.contiguous().cpu().numpy()
+
+
+def copy_config_files(src_config_dir: str | None, out_dir: str, names) -> None:
+    """Copy the config and tokenizer files ``names`` that ``src_config_dir`` has."""
+    if not src_config_dir:
+        return
+    for fname in names:
+        src = os.path.join(src_config_dir, fname)
+        if os.path.exists(src):
+            shutil.copyfile(src, os.path.join(out_dir, fname))
+
+
+def export_hf(params: dict, cfg: Qwen2Config, out_dir: str,
+              src_config_dir: str | None = None) -> None:
+    """Write params back to an HF-layout safetensors dir (policy only), one
+    f32 ``model.safetensors`` in the JAX package's key order: dense qwen2 /
+    llama / qwen3 / mistral, gemma2 / gemma3 (the +1 folded back out of
+    every RMS scale), the MoE families through ``_MOE_FMTS``, gpt_oss (the
+    gate_up columns re-interleaved, the biases and sinks), phi3 (fused qkv
+    and gate_up) and starcoder2 (plain MLP, LayerNorm biases). The config
+    and tokenizer files are copied from ``src_config_dir``. A
+    ``DeepseekConfig`` tree goes through ``deepseek.export_hf``."""
+    if type(cfg).__name__ == "DeepseekConfig":
+        from . import deepseek
+
+        return deepseek.export_hf(params, cfg, out_dir, src_config_dir)
+    from safetensors.numpy import save_file
+
+    os.makedirs(out_dir, exist_ok=True)
+    sd: dict[str, np.ndarray] = {}
+
+    def put(name: str, t, transpose: bool = False):
+        sd[name] = host_f32(name, t, transpose)
+
+    put("model.embed_tokens.weight", params["embed"]["weight"])
+    lp = params["layers"]
+    # gemma checkpoints store w of the (1 + w) RMS scale; the load folded it in
+    nsub = 1.0 if cfg.sandwich_norms else 0.0
+
+    def put_norm(name, t):
+        put(name, t - nsub if nsub else t)
+
+    for i in range(cfg.num_hidden_layers):
+        pre = f"model.layers.{i}."
+        put_norm(pre + "input_layernorm.weight", lp["input_layernorm"]["scale"][i])
+        put_norm(pre + "post_attention_layernorm.weight",
+                 lp["post_attention_layernorm"]["scale"][i])
+        if cfg.norm_style == "layernorm":
+            put(pre + "input_layernorm.bias", lp["input_layernorm"]["bias"][i])
+            put(pre + "post_attention_layernorm.bias", lp["post_attention_layernorm"]["bias"][i])
+        if cfg.sandwich_norms:
+            put_norm(pre + "pre_feedforward_layernorm.weight",
+                     lp["pre_feedforward_layernorm"]["scale"][i])
+            put_norm(pre + "post_feedforward_layernorm.weight",
+                     lp["post_feedforward_layernorm"]["scale"][i])
+        at = lp["attn"]
+        if cfg.fused_qkv:  # phi3: the fused [q; k; v] mat
+            put(pre + "self_attn.qkv_proj.weight",
+                torch.cat([at[f"{p}_proj"]["w"][i] for p in ("q", "k", "v")], dim=-1),
+                transpose=True)
+        else:
+            for proj in ("q", "k", "v"):
+                put(pre + f"self_attn.{proj}_proj.weight", at[f"{proj}_proj"]["w"][i],
+                    transpose=True)
+                if cfg.attention_bias:  # llama/qwen3 store no q/k/v bias
+                    put(pre + f"self_attn.{proj}_proj.bias", at[f"{proj}_proj"]["b"][i])
+        if cfg.qk_norm:
+            put_norm(pre + "self_attn.q_norm.weight", at["q_norm"]["scale"][i])
+            put_norm(pre + "self_attn.k_norm.weight", at["k_norm"]["scale"][i])
+        put(pre + "self_attn.o_proj.weight", at["o_proj"]["w"][i], transpose=True)
+        if cfg.o_proj_bias:
+            put(pre + "self_attn.o_proj.bias", at["o_proj"]["b"][i])
+        if cfg.attn_sinks:
+            put(pre + "self_attn.sinks", at["sinks"][i])
+        if "moe" in lp and cfg.moe_style == "gptoss":
+            moe = lp["moe"]
+            put(pre + "mlp.router.weight", moe["router"]["w"][i], transpose=True)
+            put(pre + "mlp.router.bias", moe["router"]["b"][i])
+
+            def reinter(name, t):  # [gate | up] halves -> interleaved columns
+                a = host_f32(name, t)
+                half = a.shape[-1] // 2
+                out = np.empty_like(a)
+                out[..., 0::2] = a[..., :half]
+                out[..., 1::2] = a[..., half:]
+                sd[name] = np.ascontiguousarray(out)
+
+            reinter(pre + "mlp.experts.gate_up_proj", moe["experts"]["gate_up"]["w"][i])
+            reinter(pre + "mlp.experts.gate_up_proj_bias", moe["experts"]["gate_up"]["b"][i])
+            put(pre + "mlp.experts.down_proj", moe["experts"]["down"]["w"][i])
+            put(pre + "mlp.experts.down_proj_bias", moe["experts"]["down"]["b"][i])
+        elif "moe" in lp:
+            moe = lp["moe"]
+            router_fmt, gate_fmt, up_fmt, down_fmt = _MOE_FMTS[cfg.moe_layout]
+            # _MOE_FMTS names are loader-relative; the export adds "model."
+            put("model." + router_fmt.format(i=i), moe["router"]["w"][i], transpose=True)
+            for e in range(moe["experts"]["gate_proj"]["w"].shape[1]):
+                for proj, fmt in (("gate", gate_fmt), ("up", up_fmt), ("down", down_fmt)):
+                    put("model." + fmt.format(i=i, e=e),
+                        moe["experts"][f"{proj}_proj"]["w"][i, e], transpose=True)
+            if "shared" in moe:  # qwen2_moe; qwen3_moe has no shared expert
+                for proj in ("gate", "up", "down"):
+                    put(pre + f"mlp.shared_expert.{proj}_proj.weight",
+                        moe["shared"][f"{proj}_proj"]["w"][i], transpose=True)
+                put(pre + "mlp.shared_expert_gate.weight", moe["shared"]["gate"]["w"][i],
+                    transpose=True)
+        elif cfg.mlp_style == "plain":  # starcoder2
+            mlp = lp["mlp"]
+            put(pre + "mlp.c_fc.weight", mlp["c_fc"]["w"][i], transpose=True)
+            put(pre + "mlp.c_fc.bias", mlp["c_fc"]["b"][i])
+            put(pre + "mlp.c_proj.weight", mlp["c_proj"]["w"][i], transpose=True)
+            put(pre + "mlp.c_proj.bias", mlp["c_proj"]["b"][i])
+        elif cfg.fused_qkv:  # phi3: the fused [gate; up] mat
+            mlp = lp["mlp"]
+            put(pre + "mlp.gate_up_proj.weight",
+                torch.cat([mlp["gate_proj"]["w"][i], mlp["up_proj"]["w"][i]], dim=-1),
+                transpose=True)
+            put(pre + "mlp.down_proj.weight", mlp["down_proj"]["w"][i], transpose=True)
+        else:
+            for proj in ("gate", "up", "down"):
+                put(pre + f"mlp.{proj}_proj.weight", lp["mlp"][f"{proj}_proj"]["w"][i],
+                    transpose=True)
+    put_norm("model.norm.weight", params["norm"]["scale"])
+    if cfg.norm_style == "layernorm":
+        put("model.norm.bias", params["norm"]["bias"])
+    if not cfg.tie_word_embeddings and "lm_head" in params:
+        put("lm_head.weight", params["lm_head"]["weight"])
+    save_file(sd, os.path.join(out_dir, "model.safetensors"))
+    copy_config_files(src_config_dir, out_dir,
+                      ("config.json", "tokenizer.json", "tokenizer_config.json", "vocab.json",
+                       "merges.txt", "generation_config.json"))

@@ -15,10 +15,12 @@ Port of ``lapha_tpu/train/trainer.py`` on one device:
   prefers the newest ``step_N`` over the ``latest`` pointer; metrics keep
   the reference's scalar names.
 
-Left out (ROADMAP A7): the Poincaré-disk plots of ``train/viz.py`` (the JAX
-trainer swallows their failures; matplotlib is not a dependency of the
-port), ``save_model`` (HF export), the named remat policies, and the
-multi-device mesh (``mesh_model``/``mesh_sequence`` > 1 raise).
+Each step plots its first four trees on the Poincaré disk
+(``train/viz.py``, a side output: without matplotlib no PNG is written),
+and ``save_model`` writes the HF-layout export and the value head.
+
+Left out: the named remat policies (ROADMAP A7) and the multi-device mesh
+(``mesh_model``/``mesh_sequence`` > 1 raise).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..search.value_fn import ValueFunction
 from . import losses, optim
 from .config import MTPOConfig
 from .shaping import ShapingConfig, best_var_window_constrained, compute_action_rewards, has_answer
+from .viz import plot_tree_disk
 
 
 class MetricsWriter:
@@ -101,14 +104,14 @@ class MTPOTrainer:
 
         # ---- model + tokenizer ----
         if isinstance(model, str):
-            from transformers import AutoTokenizer
-
             from ..models import loader
 
             self.params, self.model_cfg = loader.load_params(
                 model, dtype=torch.bfloat16 if args.bf16 else torch.float32,
                 device=device or "cuda")
             if tokenizer is None:
+                from transformers import AutoTokenizer  # ~8 s to import: only when needed
+
                 tokenizer = AutoTokenizer.from_pretrained(model, trust_remote_code=True)
                 if tokenizer.pad_token is None:
                     tokenizer.pad_token = tokenizer.eos_token
@@ -474,8 +477,11 @@ class MTPOTrainer:
         batch_pass1 = float(np.mean(pass1s)) if pass1s else 0.0
         self.writer.add_scalar("avgAcc", batch_avg_acc, self.global_step)
         self.writer.add_scalar("pass@1", batch_pass1, self.global_step)
-        # The JAX trainer plots each tree on the Poincaré disk here
-        # (train/viz.py); not ported (see the module docstring).
+        # Poincaré-disk plot of each of the first four trees
+        viz_dir = os.path.join(args.output_dir, "viz", f"step-{self.global_step}")
+        for tid, (chains, root_step, _bank) in enumerate(viz_payload[:4]):
+            plot_tree_disk(chains, root_step, os.path.join(viz_dir, f"tree{tid}_disk.png"),
+                           title=f"tree{tid}")
         for k, v in rej.items():
             if v:
                 self.writer.add_scalar(f"Rollout/rej_{k}", v, self.global_step)
@@ -755,5 +761,11 @@ class MTPOTrainer:
         return True
 
     def save_model(self, out_dir: str, src_config_dir: Optional[str] = None):
-        raise NotImplementedError("save_model (HF export + value head artifact) is not "
-                                  "ported yet (ROADMAP A7); use save_checkpoint")
+        """Export the policy (HF layout, f32) and the value head as
+        ``value_head.npz`` and ``value_head.pt``: the reference's
+        policy/value-head split, no post-processing step needed."""
+        from ..models import loader
+
+        loader.export_hf(self.params, self.model_cfg, out_dir, src_config_dir=src_config_dir)
+        loader.save_value_head(os.path.join(out_dir, "value_head.npz"), self.head)
+        loader.save_value_head(os.path.join(out_dir, "value_head.pt"), self.head)

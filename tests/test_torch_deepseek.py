@@ -508,14 +508,18 @@ def test_value_model_and_function_match_jax(loaded):
 
 # ---------------------------------------------------------------- refusals
 
-def test_unported_parts_raise_naming_their_items(v2):
-    """decode_step_multi (A8), export_hf (A7), the dispatch impl (A11) and
-    a windowed-short cache raise."""
+def test_unported_parts_raise_naming_their_items(v2, tmp_path):
+    """decode_step_multi (A8), the dispatch impl (A11) and a windowed-short
+    cache raise. export_hf, which raised here until it was ported, now
+    writes the tree: the loader reads the export back bit-equal."""
     _, _, tcfg, tp = v2
     with pytest.raises(NotImplementedError, match="A8"):
         td.decode_step_multi(tp, tcfg)
-    with pytest.raises(NotImplementedError, match="A7"):
-        td.export_hf(tp, tcfg, "unused")
+    td.export_hf(tp, tcfg, str(tmp_path))
+    back, _ = loader.load_params(str(tmp_path), cfg=tcfg, dtype=torch.float32, device="cpu")
+    assert back.keys() == tp.keys()
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tp)):
+        assert torch.equal(a, b)
     ids = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="A11"):
         td.forward(tp, dataclasses.replace(tcfg, moe_impl="dispatch"), ids)

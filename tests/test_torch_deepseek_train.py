@@ -23,6 +23,7 @@ both sides (it only chooses experts); ref logps within 1e-4; remat's
 gradients equal to the gradients without it, bit for bit.
 """
 
+import os
 import sys
 
 import jax
@@ -277,7 +278,8 @@ def test_trainer_builds_and_steps_on_a_deepseek_tree(tmp_path, monkeypatch):
     update and value-sum-of-squares functions, and one train_step (the
     scripted FakeEngine's rollout, a fake reward, gradient checkpointing
     with a named policy and the KL reference of beta 1e-8) updates the
-    tree in place; save_model still raises, naming ROADMAP A7. The metrics
+    tree in place; save_model (which raised until it was ported) writes the
+    DeepSeek export and both value-head files, read back bit-equal. The metrics
     go to the JSONL file only (TensorBoard's import pulls in TensorFlow
     here, ~10 s)."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
@@ -302,8 +304,14 @@ def test_trainer_builds_and_steps_on_a_deepseek_tree(tmp_path, monkeypatch):
                  "0.moe_layers.moe.experts.down_proj.w"):  # the first moment of the update
         assert trainer.opt_state["mu"][names.index(leaf)].abs().max() > 0, leaf
     assert trainer.ref_params is not None  # the KL reference ran on the DeepSeek tree
-    with pytest.raises(NotImplementedError, match="A7"):
-        trainer.save_model(str(tmp_path / "hf"))
+    out = str(tmp_path / "hf")
+    trainer.save_model(out)
+    back, _ = loader.load_params(out, cfg=tcfg, dtype=torch.float32, device="cpu")
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(trainer.params)):
+        assert torch.equal(a, b.detach())
+    for name in ("value_head.npz", "value_head.pt"):
+        h = loader.load_value_head(os.path.join(out, name), tcfg.hidden_size, device="cpu")
+        assert all(torch.equal(h[k], trainer.head[k].detach()) for k in ("w", "b")), name
 
 
 def test_dense_only_deepseek_trains():

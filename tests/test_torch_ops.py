@@ -132,7 +132,9 @@ def test_package_imports_no_jax():
             "lapha_tpu_torch.ops.int4_matmul, lapha_tpu_torch.ops.moe, "
             "lapha_tpu_torch.ops.grouped_gemm, lapha_tpu_torch.evalsuite.rollout_jsonl, "
             "lapha_tpu_torch.evalsuite.eval_math, lapha_tpu_torch.tools, "
-            "lapha_tpu_torch.tools.server; "
+            "lapha_tpu_torch.tools.server, lapha_tpu_torch.run_dapo, "
+            "lapha_tpu_torch.train.dataset, lapha_tpu_torch.train.viz, "
+            "lapha_tpu_torch.models.loader, lapha_tpu_torch.models.deepseek; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'lapha_tpu')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

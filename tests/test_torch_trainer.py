@@ -290,10 +290,22 @@ def test_checkpoint_roundtrip_and_stale_latest(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """The multi-device mesh raises (A11). save_model, which raised here
+    until it was ported, writes the HF export and both value-head files:
+    the loader reads them back bit-equal."""
+    from lapha_tpu_torch.models import loader
+
     params, cfg = _model(vocab=512)
     with pytest.raises(NotImplementedError, match="A11"):
         MTPOTrainer(model=(params, cfg), agent_cls_list=[PoorAgent],
                     args=_args(tmp_path, mesh_model=2), reward_fns=[], train_dataset=[],
                     tokenizer=ChatTok())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(tmp_path, 0).save_model(str(tmp_path / "export"))
+    trainer = _trainer(tmp_path, 0)
+    out = str(tmp_path / "export")
+    trainer.save_model(out)
+    back, _ = loader.load_params(out, cfg=trainer.model_cfg, dtype=torch.float32, device="cpu")
+    for a, b in zip(losses.tree_leaves(back), losses.tree_leaves(trainer.params)):
+        assert torch.equal(a, b.detach())
+    for name in ("value_head.npz", "value_head.pt"):
+        h = loader.load_value_head(os.path.join(out, name), cfg.hidden_size, device="cpu")
+        assert all(torch.equal(h[k], trainer.head[k].detach()) for k in ("w", "b")), name
