@@ -376,6 +376,42 @@ below are the published model's:
    planted decode fault; K2 at phase 1b's limits). The files go where the
    machine has ~32 GB free (checked first) and are deleted after. Seconds
    per part, bytes written, peak memory and the PNG count are printed.
+21. The serving entry, ``lapha_tpu_torch.engine.server.main``, after phase
+   20, on phase 3's weights as drawn (made again from the seed; phase 7's
+   update leaves a model whose greedy stream is one token for every
+   prompt, where nearly every greedy token is a near tie the check skips),
+   exported by ``loader.export_hf`` (28 layers at Qwen2.5-1.5B's full
+   width), ``--device cuda``, ChatIdTok, port 0, 16 rows, 2048 columns,
+   the served weights held bit-equal to the drawn ones: a burst of 12
+   concurrent requests from the port's ``EngineClient`` (prompts of
+   200-500 ids, n 1-4, 32-128 new tokens,
+   greedy and sampled at 0.7 / top_p 0.95 by turns, a repetition penalty
+   of 1.05 on every third), a short request admitted while a long one
+   decodes (both prefix hits; the short one finishes first), a streamed
+   request (its deltas make each finish event, then done), the routes
+   (health, world size 1, prefix reset) and a weight reload from the same
+   directory (the same greedy answer); the server again with 256 prompt
+   columns of 512, where a compaction must happen; ``Engine(
+   auto_continuous=True)`` on 32 prompts whose greedy streams stop at
+   skewed lengths (an EOS set picked from a probe run before the counted
+   window; fewer decode steps than the sum of the waves' maxima); all
+   counted as "serve_http". Then the server with ``--kv-quant int8``, a
+   second burst and a second late pair ("serve_http_q8"). The bursts are
+   timed with the launch recorder off. Every sample is held to a
+   teacher-forced forward of the same weights: a sampled token's logprob
+   within SERVE_LP_ATOL (SERVE_LP_Q8_ATOL) of the forward's after
+   ``sampling.process_logits`` with the request's parameters and presence,
+   a greedy token the argmax wherever the top-2 margin exceeds the limit.
+   The path's own K3 / K4 / K5 launches are held to the plain versions
+   (phase 19's checks; the kept decode launch is the first whose live rows
+   start their decode ranges at the most columns, and must have two or
+   more). A planted fault (rows installed with dstart = slab in place of
+   their admission column) must fail the teacher-forced check. Printed:
+   requests, tokens, wall s, tok/s, p50 and max latency, steps, waves,
+   compactions, one scheduler chunk's host and device ms, peak memory,
+   launches, the phase's seconds. The engine's prefill writes a cache and
+   so runs the cached entry (K3's counter) at qstart 0: K1's counter does
+   not move on these paths.
 
 Launch counts are read per path (serve_moe: phase 10; serve_gptoss: phase
 11; serve_gemma2 and serve_gemma3: phase 12; serve_deepseek: phase 15;
@@ -386,7 +422,7 @@ update_moe, update_gptoss and train_step_moe: phase 13; update_gemma2,
 update_gemma3 and train_step_gemma2: phase 14; update_deepseek and
 train_step_deepseek: phase 16; serve_phi3 and serve_starcoder2: phase 17;
 update_phi3, update_starcoder2 and train_step_phi3: phase 18; train_entry:
-phase 20). Prints the
+phase 20; serve_http and serve_http_q8: phase 21). Prints the
 card's name and power
 limit, each timing beside them, one JSON line of per-kernel results (each
 row with its time, the plain version's, the time of one PyTorch call that
@@ -4986,6 +5022,551 @@ def train_entry(params, cfg, card) -> dict:
     return {"train_entry": launches, "train_step": sw.launches["train_step"][0]}
 
 
+# phase 21: a returned logprob against a teacher-forced forward of the same
+# weights (prompt + completion through K1, the logits through
+# sampling.process_logits with the request's parameters; also the top-2
+# margin past which a greedy token must be the argmax). Decode (a token a
+# step through K4/K5 over the cache) and the forward round differently in
+# bf16: ~2.5x the 5.9e-2 read on an H100 with a bf16 cache, ~2.8x the
+# 8.9e-2 read with an int8 cache (each vector rounded to amax/254)
+SERVE_LP_ATOL = 0.15
+SERVE_LP_Q8_ATOL = 0.25
+# a sampled token that the reference's top-p nucleus leaves out is a
+# nucleus-edge case when the reference's mass before it is within this of
+# top_p (the two sides' logits order the tail differently)
+SERVE_EDGE_MASS = 0.02
+# the server CLI as phase 21 runs it: one card, 16 rows, 2048 columns
+SERVE_ARGS = ["--host", "127.0.0.1", "--port", "0", "--device", "cuda", "--max-batch", "16"]
+SERVE_BURST = 12
+
+
+class _ServedLaunches(_PathLaunches):
+    """:class:`_PathLaunches` for a scheduler's path. While ``sched`` is
+    None every launch passes through untouched (a timed burst runs so).
+    Otherwise the decode launch kept for each entry and row count is the
+    first layer-0 launch whose live rows (the rows ``sched``'s requests
+    hold) start their decode ranges at more distinct columns than the
+    launch kept before it, read from the scheduler's host state (no device
+    read); its live rows are kept with it."""
+
+    sched = None
+
+    def _flash(self, q, k, v, kv_valid, qstart, scale, name, window=0, softcap=0.0):
+        if self.sched is None:
+            return self._flash_fn(q, k, v, kv_valid, qstart, scale, name, window, softcap)
+        return super()._flash(q, k, v, kv_valid, qstart, scale, name, window, softcap)
+
+    def _decode(self, q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale,
+                cache_scale, sinks, softcap=0.0):
+        key = (cache_scale is not None, q.shape[0])
+        keep = False
+        if int(layer) == 0 and self.sched is not None:
+            live = sorted(self.sched._rows)
+            ds = self.sched._state["dstart"]
+            rank = len({int(ds[r]) for r in live})
+            keep = rank > self.decode.get(key, {}).get("rank", 0)
+        if keep:  # layer 0 of the cache: (1, B, nkv, S, dh)
+            rec = dict(slot=int(slot), rank=rank, live=live, q=q.clone(), k=k_cache[:1].clone(),
+                       v=v_cache[:1].clone(), lens=lens.clone(), dstart=dstart.clone(),
+                       pstart=None if pstart is None else pstart.clone(), scale=scale,
+                       cache_scale=(None if cache_scale is None
+                                    else tuple(c[:1].clone() for c in cache_scale)))
+        out = self._decode_fn(q, k_cache, v_cache, layer, lens, dstart, slot, pstart, scale,
+                              cache_scale, sinks, softcap)
+        if keep:
+            check(sinks is None and not softcap, "the path's decode has no sinks or cap")
+            self.decode[key] = dict(rec, out=out.clone())
+        return out
+
+
+def _chat(ids) -> str:
+    """Token ids as ChatIdTok's words."""
+    return " ".join(f"<{int(t)}>" for t in ids)
+
+
+def _served_excess(params, cfg, served, limit: float) -> dict:
+    """Phase 21's check of served completions against a teacher-forced
+    forward of ``params``. ``served`` holds (prompt ids, sampling dict,
+    completion ids, logprobs). A sampled token's logprob must be the
+    reference's within ``limit`` (a token the reference's nucleus leaves out
+    must sit at its edge, SERVE_EDGE_MASS); a greedy token must be the
+    reference's argmax of the penalised logits, and its logprob the
+    reference's, wherever the top-2 margin exceeds ``limit``. Returns the
+    largest logprob error, the count of tokens past these rules ("over"),
+    of tokens checked, of greedy tokens at a near tie and of nucleus-edge
+    tokens."""
+    import torch
+
+    from lapha_tpu_torch.engine import sampling
+    from lapha_tpu_torch.models import qwen2
+
+    dev = params["embed"]["weight"].device
+    st = dict(err=0.0, over=0, checked=0, ties=0, edge=0)
+    with torch.inference_mode():
+        for prompt, sp, comp, lps in served:
+            T = len(comp)
+            if T == 0:
+                continue
+            ids = torch.tensor([list(prompt) + list(comp)], device=dev)
+            _, hidden, _ = qwen2.forward(params, cfg, ids, return_hidden=True,
+                                         compute_logits=False)
+            logits = qwen2._lm_head(params, cfg, hidden[0, len(prompt) - 1:-1])  # (T, V)
+            tok = torch.tensor(comp, device=dev)
+            rows = torch.arange(T, device=dev)
+            # the row's presence at each step: the prompt, then the tokens before it
+            seen = torch.zeros((T, cfg.vocab_size), dtype=torch.int32, device=dev)
+            seen[rows, tok] = 1
+            pres = torch.zeros_like(seen)
+            pres[1:] = torch.cumsum(seen, 0)[:-1]
+            pres[:, torch.tensor(list(prompt), device=dev)] = 1
+            pres = (pres > 0).to(torch.int8)
+
+            def full(v):
+                return torch.full((T,), float(v), device=dev)
+
+            rp, temp = sp.get("repetition_penalty", 1.0), sp["temperature"]
+            top_p = sp.get("top_p", 1.0)
+            proc = sampling.process_logits(logits, presence=pres, repetition_penalty=full(rp),
+                                           temperature=full(temp),
+                                           top_p=full(top_p) if top_p < 1.0 else None)
+            ref = torch.log_softmax(proc, -1)[rows, tok]
+            got = torch.tensor(lps, device=dev)
+            pen = sampling.apply_repetition_penalty(logits, pres, full(rp))
+            if temp == 0.0:
+                top2 = pen.topk(2, dim=-1)
+                sure = (top2.values[:, 0] - top2.values[:, 1]) > limit
+                err = (got - ref).abs()[sure]
+                st["over"] += int((sure & (top2.indices[:, 0] != tok)).sum())
+                st["ties"] += int((~sure).sum())
+            else:
+                inside = proc[rows, tok] > sampling.NEG_INF / 2
+                err = (got - ref).abs()[inside]
+                if not bool(inside.all()):
+                    probs = torch.softmax(pen / temp, -1)
+                    p_tok = probs[rows, tok][:, None]
+                    before = torch.where(probs > p_tok, probs, 0.0).sum(-1)
+                    edge = ~inside & (before < top_p + SERVE_EDGE_MASS)
+                    st["edge"] += int(edge.sum())
+                    st["over"] += int((~inside & ~edge).sum())
+            st["over"] += int((err > limit).sum())
+            st["checked"] += int(err.numel())
+            if err.numel():
+                st["err"] = max(st["err"], float(err.max()))
+    return st
+
+
+def _burst(client, rng, vocab: int, count: int, prefix=()):
+    """``count`` concurrent /generate requests, one client thread each:
+    prompts of 200-500 random ids (after ``prefix``'s, where given), n 1-4,
+    32-128 new tokens, greedy and sampled (0.7, top_p 0.95) by turns, a
+    repetition penalty of 1.05 on every third. Returns the requests as
+    (prompt ids, sampling dict, response), each thread's latency in s, and
+    the wall s."""
+    import threading
+
+    reqs = []
+    for i in range(count):
+        prompt = list(prefix[i]) if i < len(prefix) else []
+        prompt += [int(t) for t in rng.integers(2, vocab, int(rng.integers(200, 501)))]
+        sp = dict(n=int(rng.integers(1, 5)), max_tokens=int(rng.integers(32, 129)),
+                  temperature=0.0 if i % 2 == 0 else 0.7, top_p=1.0 if i % 2 == 0 else 0.95,
+                  repetition_penalty=1.05 if i % 3 == 0 else 1.0)
+        reqs.append([prompt, sp, None])
+    lat = [0.0] * count
+
+    def call(i):
+        t0 = time.perf_counter()
+        reqs[i][2] = client.generate([_chat(reqs[i][0])], timeout=600, **reqs[i][1])
+        lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(count)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(all(r[2] is not None for r in reqs), "a burst request did not come back")
+    return reqs, lat, wall
+
+
+def _served_samples(reqs) -> list:
+    """(prompt ids, sampling dict, completion ids, logprobs) of every sample
+    of the answers, after the schema's checks: n samples, at most
+    max_tokens each (fewer only at EOS, token 1), finish reasons, finite
+    logprobs <= 0."""
+    out = []
+    for prompt, sp, resp in reqs:
+        ids, lps = resp["completion_ids"][0], resp["logprobs"][0]
+        check(len(ids) == len(lps) == sp["n"], f"{len(ids)} samples, expected {sp['n']}")
+        for comp, lp, why in zip(ids, lps, resp["finish_reasons"][0]):
+            stop = bool(comp) and comp[-1] == 1
+            check(len(comp) == len(lp) and (len(comp) == sp["max_tokens"] or stop)
+                  and why == ("stop" if stop else "length"),
+                  f"{len(comp)} tokens ({why}) for max_tokens {sp['max_tokens']}")
+            check(all(math.isfinite(x) and x <= 0.0 for x in lp), "logprobs finite and <= 0")
+            out.append((prompt, sp, comp, lp))
+    return out
+
+
+def _report_excess(label, st, limit, card) -> None:
+    print(f"{label}: teacher-forced check of {st['checked']} tokens: max |logprob diff| "
+          f"{st['err']:.3e} (limit {limit}), {st['ties']} greedy tokens at a near tie "
+          f"(top-2 margin <= the limit), {st['edge']} sampled at the nucleus edge, "
+          f"{st['over']} past the limit [{card}]", flush=True)
+    check(st["over"] == 0, f"{label}: {st['over']} tokens past the teacher-forced check")
+
+
+def _serve_http(args, vocab: int):
+    """The server as ``main`` starts it (``--device cuda``, ChatIdTok), on port
+    0 in a background thread; returns (httpd, client)."""
+    from lapha_tpu_torch.engine import EngineClient
+    from lapha_tpu_torch.engine import server as engine_server
+
+    httpd = engine_server.main(args, tokenizer_override=ChatIdTok(vocab), background=True)
+    client = EngineClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+    check(client.check_server(total_timeout=30, retry_interval=0.2), "server not healthy")
+    return httpd, client
+
+
+def _wait_steps(sched, steps: int, timeout: float = 120.0) -> None:
+    t0 = time.perf_counter()
+    while sched.steps_executed < steps and time.perf_counter() - t0 < timeout:
+        time.sleep(0.002)
+    check(sched.steps_executed >= steps, f"the scheduler ran {sched.steps_executed} steps")
+
+
+def _check_live_dstarts(rec, int8: bool, path: str, card) -> None:
+    """At least one kept decode launch of the path held live rows whose
+    decode ranges start at two or more columns."""
+    kept = [r for (q8, _), r in rec.decode.items() if q8 == int8]
+    best = max(kept, key=lambda r: r["rank"], default=None)
+    starts = [] if best is None else sorted({int(best["dstart"][r]) for r in best["live"]})
+    check(len(starts) >= 2,
+          f"{path}: no checked decode launch held live rows of two or more dstart values")
+    print(f"{path}: the checked decode launch at slot {best['slot']} held {len(best['live'])} "
+          f"live rows whose decode ranges start at columns {starts} [{card}]", flush=True)
+
+
+def _late_pair(client, sched, first, second, after: int):
+    """``first`` (prompt ids, sampling dict) from one client thread; once the
+    scheduler has run ``after`` more steps, ``second`` from another. Returns
+    both as (prompt ids, sampling dict, response), and whether the second
+    finished while the first still decoded."""
+    import threading
+
+    done = {}
+
+    def call(i, req):
+        done[i] = (client.generate([_chat(req[0])], timeout=600, **req[1]),
+                   time.perf_counter())
+
+    before = sched.steps_executed
+    ta = threading.Thread(target=call, args=(0, first))
+    ta.start()
+    _wait_steps(sched, before + after)
+    tb = threading.Thread(target=call, args=(1, second))
+    tb.start()
+    tb.join(600)
+    first_running = ta.is_alive()
+    ta.join(600)
+    check(0 in done and 1 in done, "a request did not come back")
+    return ([(first[0], first[1], done[0][0]), (second[0], second[1], done[1][0])],
+            first_running and done[1][1] < done[0][1])
+
+
+def serve_entry(cfg, card) -> dict:
+    """Phase 21: the serving entry, ``lapha_tpu_torch.engine.server.main``, on
+    phase 3's weights as drawn, made again from SEED and exported in HF
+    layout (28 layers at Qwen2.5-1.5B's full width). Returns the launch
+    counts of the bf16-KV servers and auto_continuous engine ("serve_http")
+    and of the int8-KV server ("serve_http_q8"). The teacher-forced
+    references run after each counted window."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine import ContinuousEngine, Engine, SamplingParams
+    from lapha_tpu_torch.models import loader, qwen2
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.train import losses
+
+    t_phase = time.perf_counter()
+    V = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 21)
+    launches = {}
+    # phase 3's weights as drawn: phase 7's steps at lr 1e-3 leave a model
+    # whose greedy stream is one token for every prompt, which leaves the
+    # greedy check nothing but near ties and no EOS set can skew
+    fresh = qwen2.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+
+    # auto_continuous's 2 x max_batch prompts, whose greedy streams stop at
+    # skewed lengths: an EOS set picked from a probe of the sync engine, run
+    # before the counted window
+    prompts = [[int(t) for t in rng.integers(2, V, int(rng.integers(100, 301)))]
+               for _ in range(32)]
+    sp0 = SamplingParams(n=1, temperature=0.0, max_tokens=48)
+    probe_eng = Engine(fresh, cfg, ChatIdTok(V), max_model_len=2048, max_batch=16,
+                       eos_token_ids=[])
+    streams = [r.outputs[0].token_ids
+               for r in probe_eng.generate([_chat(p) for p in prompts], sp0)]
+    del probe_eng
+
+    def lengths_for(eos):
+        return [next((i + 1 for i, t in enumerate(s) if t in eos), len(s)) for s in streams]
+
+    eos: set = set()
+    for s in streams:
+        if sum(n < 48 for n in lengths_for(eos)) >= 24:
+            break
+        eos.add(s[5])
+    by_len = sorted(range(32), key=lambda i: -lengths_for(eos)[i])
+    # one long row in each wave of 16
+    prompts = [prompts[i] for i in [by_len[0]] + by_len[2:17] + [by_len[1]] + by_len[17:]]
+
+    with tempfile.TemporaryDirectory(prefix="serve_entry_") as model:
+        t0 = time.perf_counter()
+        loader.export_hf(fresh, cfg, model)
+        with open(os.path.join(model, "config.json"), "w") as f:
+            json.dump(dict(QWEN25_1_5B_INSTRUCT_CONFIG,
+                           max_position_embeddings=cfg.max_position_embeddings), f, indent=2)
+        t_export = time.perf_counter() - t0
+        args = SERVE_ARGS + ["--model", model, "--max-model-len", "2048"]
+        want = dict(losses.tree_paths(fresh))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- bf16 KV, counted: the burst (timed, the recorder off), a late
+        # request beside a long one, streaming, the routes and a reload; a
+        # compaction; auto_continuous
+        _cuda.reset_launches()
+        with _ServedLaunches() as rec:
+            t0 = time.perf_counter()
+            httpd, client = _serve_http(args, V)
+            t_start = time.perf_counter() - t0
+            srv = httpd.engine_server
+            sched, eng = srv.scheduler, srv.engine
+            check(sched is not None and eng.device.type == "cuda" and eng.kv_quant is None,
+                  "the server does not run the scheduler on the card")
+            got = dict(losses.tree_paths(eng.params))
+            check(got.keys() == want.keys() and all(torch.equal(got[k], w)
+                                                    for k, w in want.items()),
+                  "the served weights are not the drawn ones")
+            del got
+            reqs, lat, wall = _burst(client, rng, V, SERVE_BURST)
+            burst = (len(reqs), lat, wall, sched.steps_executed, sched.waves, sched.compactions)
+            rec.sched = sched
+            # a short request admitted while a long one decodes, both prefix
+            # hits on the burst's prompts
+            hits = eng.prefix_cache.hits
+            late = [(reqs[0][0] + [int(t) for t in rng.integers(2, V, 64)],
+                     dict(n=1, temperature=0.0, max_tokens=128)),
+                    (reqs[1][0] + [int(t) for t in rng.integers(2, V, 40)],
+                     dict(n=1, temperature=0.7, top_p=0.95, max_tokens=16))]
+            pair, overlapped = _late_pair(client, sched, *late, after=16)
+            late_hits = eng.prefix_cache.hits - hits
+            events = list(client.generate_stream([_chat(reqs[2][0])], n=2, temperature=0.0,
+                                                 max_tokens=24))
+            world = client.get_world_size()
+            reset = client.reset_prefix_cache() and len(eng.prefix_cache) == 0
+            probe = dict(n=1, temperature=0.0, max_tokens=16)
+            first = client.generate([_chat(reqs[3][0])], **probe)
+            t0 = time.perf_counter()
+            reloaded = client.update_named_param(path=model)
+            t_reload = time.perf_counter() - t0
+            reset = reset and client.reset_prefix_cache() and len(eng.prefix_cache) == 0
+            again = client.generate([_chat(reqs[3][0])], **probe)
+            httpd.shutdown()
+            del srv, eng, sched, httpd
+
+            # a compaction: 256 prompt columns, 256 decode columns; the second
+            # request's budget fits only once the first's decode is folded in
+            httpd, client = _serve_http(SERVE_ARGS + ["--model", model, "--max-model-len",
+                                                      "512", "--prompt-slab", "256"], V)
+            sched = httpd.engine_server.scheduler
+            rec.sched = sched
+            comp = [([int(t) for t in rng.integers(2, V, 150)],
+                     dict(n=1, temperature=0.0, max_tokens=120)),
+                    ([int(t) for t in rng.integers(2, V, 100)],
+                     dict(n=1, temperature=0.7, top_p=0.95, max_tokens=200))]
+            comp_pair, _ = _late_pair(client, sched, *comp, after=64)
+            compactions, comp_steps = sched.compactions, sched.steps_executed
+            httpd.shutdown()
+            del sched, httpd
+
+            # Engine(auto_continuous=True) on the probe's prompts (the planted
+            # fault and the profiled chunk take these weights too)
+            auto = Engine(fresh, cfg, ChatIdTok(V), max_model_len=2048, max_batch=16,
+                          eos_token_ids=sorted(eos), auto_continuous=True)
+            rec.sched = auto._continuous()
+            t0 = time.perf_counter()
+            outs = auto.generate([_chat(p) for p in prompts], sp0)
+            t_auto = time.perf_counter() - t0
+            d_cont = auto._auto_sched.steps_executed
+            auto._auto_sched.stop()
+            rec.sched = None
+            del auto
+        torch.cuda.synchronize()
+        launches["serve_http"] = dict(_cuda.LAUNCHES)
+
+        # ---- the bf16 path's checks
+        served = _served_samples(reqs)
+        ntok = sum(len(s[2]) for s in served)
+        n_req, lat, wall, steps, waves, comps = burst
+        print(f"serve_http burst (the recorder off): {n_req} requests, {len(served)} samples, "
+              f"{ntok} completion tokens in {wall:.2f} s = {ntok / wall:.1f} tok/s; latency p50 "
+              f"{float(np.median(lat)):.2f} s, max {max(lat):.2f} s; steps_executed {steps}, "
+              f"waves {waves}, compactions {comps}; export {t_export:.2f} s, server start "
+              f"(load) {t_start:.2f} s [{card}]", flush=True)
+        check(overlapped, "the short request did not finish while the long one decoded")
+        check(late_hits == 2, f"{late_hits} of the late requests were prefix hits")
+        served += _served_samples(pair)
+        check(events[-1] == {"type": "done"}, f"the stream ended with {events[-1]}")
+        for k in (0, 1):
+            fin = [e for e in events if e["type"] == "finish" and e["sample"] == k]
+            deltas = [t for e in events if e["type"] == "delta" and e["sample"] == k
+                      for t in e["token_ids"]]
+            check(len(fin) == 1 and deltas == fin[0]["token_ids"] and len(deltas) == 24,
+                  f"stream sample {k}: its deltas do not make its finish event")
+        check(world == 1 and reset, f"world size {world}, prefix store reset {reset}")
+        check(reloaded == {"ok": True, "path": model} and again == first,
+              "the answer changed across a reload of the same weights")
+        _report_excess("serve_http", _served_excess(fresh, cfg, served, SERVE_LP_ATOL),
+                       SERVE_LP_ATOL, card)
+        check(compactions >= 1, "no compaction happened")
+        _report_excess(f"serve_http compaction ({compactions} compactions, {comp_steps} steps)",
+                       _served_excess(fresh, cfg, _served_samples(comp_pair), SERVE_LP_ATOL),
+                       SERVE_LP_ATOL, card)
+        lengths = [len(r.outputs[0].token_ids) for r in outs]
+        d_sync = sum(max(lengths[lo:lo + 16]) for lo in (0, 16))
+        print(f"auto_continuous: {len(prompts)} prompts, lengths {sorted(lengths)}, EOS set "
+              f"{sorted(eos)}: {d_cont} decode steps against {d_sync} for the waves' maxima, "
+              f"{t_auto:.2f} s (the recorder on) [{card}]", flush=True)
+        check(len(set(lengths)) > 1 and d_cont < d_sync,
+              f"auto_continuous took {d_cont} steps, the waves {d_sync}")
+        _report_excess("auto_continuous", _served_excess(fresh, cfg, [
+            (p, dict(temperature=0.0), r.outputs[0].token_ids, r.outputs[0].token_logprobs)
+            for p, r in zip(prompts, outs)], SERVE_LP_ATOL), SERVE_LP_ATOL, card)
+        used = launches["serve_http"]
+        for name in ("flash_attention_cached", "ragged_decode_attention"):
+            check(used[name] > 0, f"{name} never launched on serve_http")
+        check(used["ragged_decode_attention_q8"] == 0, "the int8 decode kernel ran on serve_http")
+        check(any(k[0] == "flash_attention_cached" and k[3] for k in rec.flash),
+              "serve_http: no prefix-hit suffix prefill kept")
+        _check_path_launches(rec, "serve_http", card)
+        _check_live_dstarts(rec, False, "serve_http", card)
+        del rec, outs
+
+        # ---- a planted fault: rows installed with dstart = slab in place of
+        # their admission column must fail the teacher-forced check
+        eng = Engine(fresh, cfg, ChatIdTok(V), max_model_len=2048, max_batch=16,
+                     eos_token_ids=[])
+        ce = ContinuousEngine(eng)
+        admit, cols = ce._admit, []
+
+        def planted(reqs_):
+            cols.append(int(ce._state["col"]))
+            admit(reqs_)
+            for r in reqs_:
+                for row in r.rows:
+                    ce._state["dstart"][row] = ce.slab
+
+        ce._admit = planted
+        ce.start()
+        try:
+            fa = ce.submit(_chat(rng.integers(2, V, 300)),
+                           SamplingParams(temperature=0.0, max_tokens=256))
+            _wait_steps(ce, 192)
+            pb = [int(t) for t in rng.integers(2, V, 300)]
+            spb = dict(n=1, temperature=0.7, top_p=0.95, max_tokens=32)
+            ob = ce.submit(_chat(pb), SamplingParams(**spb)).result(timeout=300).outputs[0]
+            fa.result(timeout=300)
+        finally:
+            ce.stop()
+        bad = _served_excess(fresh, cfg, [(pb, spb, ob.token_ids, ob.token_logprobs)],
+                             SERVE_LP_ATOL)
+        print(f"planted fault (rows admitted at columns {cols} installed with dstart = slab "
+              f"{ce.slab}): {bad['over']} of {bad['checked']} tokens past the limit, max "
+              f"|logprob diff| {bad['err']:.3e} [{card}]", flush=True)
+        check(bad["over"] > 0, "the teacher-forced check missed a planted fault (dstart = slab)")
+        del ce
+
+        # ---- int8 KV, counted: the burst again (timed, the recorder off) and
+        # a late pair, held at the int8 limit
+        _cuda.reset_launches()
+        with _ServedLaunches() as rec:
+            httpd, client = _serve_http(args + ["--kv-quant", "int8"], V)
+            sched = httpd.engine_server.scheduler
+            q8 = httpd.engine_server.engine.kv_quant
+            reqs, lat, wall = _burst(client, rng, V, SERVE_BURST)
+            burst = (sched.steps_executed, sched.waves, sched.compactions)
+            rec.sched = sched
+            late = [(reqs[0][0] + [int(t) for t in rng.integers(2, V, 64)],
+                     dict(n=1, temperature=0.0, max_tokens=96)),
+                    (reqs[1][0] + [int(t) for t in rng.integers(2, V, 40)],
+                     dict(n=1, temperature=0.7, top_p=0.95, max_tokens=16))]
+            pair, _ = _late_pair(client, sched, *late, after=16)
+            httpd.shutdown()
+            del sched, httpd
+        torch.cuda.synchronize()
+        launches["serve_http_q8"] = dict(_cuda.LAUNCHES)
+    check(q8 == "int8", f"the server's KV is {q8}")
+    served = _served_samples(reqs)
+    ntok = sum(len(s[2]) for s in served)
+    print(f"serve_http_q8 burst (the recorder off): {len(reqs)} requests, {len(served)} samples, "
+          f"{ntok} completion tokens in {wall:.2f} s = {ntok / wall:.1f} tok/s; latency p50 "
+          f"{float(np.median(lat)):.2f} s, max {max(lat):.2f} s; steps_executed {burst[0]}, "
+          f"waves {burst[1]}, compactions {burst[2]} [{card}]", flush=True)
+    served += _served_samples(pair)
+    _report_excess("serve_http_q8", _served_excess(fresh, cfg, served, SERVE_LP_Q8_ATOL),
+                   SERVE_LP_Q8_ATOL, card)
+    used = launches["serve_http_q8"]
+    check(used["flash_attention_cached"] > 0 and used["ragged_decode_attention_q8"] > 0
+          and used["ragged_decode_attention"] == 0,
+          f"serve_http_q8 launches {({k: v for k, v in used.items() if v})}")
+    _check_path_launches(rec, "serve_http_q8", card)
+    _check_live_dstarts(rec, True, "serve_http_q8", card)
+
+    # ---- one scheduler chunk (16 rows x 16 steps): host clock, then profiled
+    # (last: the bursts run before any profile of this phase)
+    from concurrent.futures import Future
+
+    from lapha_tpu_torch.engine import scheduler as sched_mod
+
+    pc = ContinuousEngine(eng)
+    pc._init_state()
+    sp_p = SamplingParams(temperature=0.7, top_p=0.95, max_tokens=64)
+    with torch.inference_mode():
+        pc._admit([sched_mod._Request("", [int(t) for t in rng.integers(2, V, 256)], sp_p,
+                                      1, Future()) for _ in range(16)])
+        pc._decode_chunk()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc._decode_chunk()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            pc._decode_chunk()
+            torch.cuda.synchronize()
+    dev_ms = sum(ev.device_time_total for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    check(dev_ms > 0, "the profiler saw no device time in the scheduler chunk")
+    print(f"scheduler chunk (16 rows x {pc.chunk} steps, prompts 256, S {pc.S}): "
+          f"{host_ms:.2f} ms host clock, {dev_ms:.2f} ms device busy "
+          f"({100 * dev_ms / host_ms:.1f}%), {host_ms / pc.chunk:.2f} ms a step [{card}]",
+          flush=True)
+    del pc, eng, prof, rec, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for path, used in launches.items():
+        print(f"{path}: launches {({k: v for k, v in used.items() if v})} [{card}]", flush=True)
+    print(f"phase 21: peak memory {peak:.2f} GiB; the weight reload took {t_reload:.2f} s "
+          f"[{card}]", flush=True)
+    print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5125,9 +5706,13 @@ def main(argv=None) -> int:
     elapsed("the dense update (phase 7)")
     launches.update(train_entry(params, cfg, card))
     print(f"launches in train_step: {launches['train_step']}", flush=True)
+    elapsed("the training entry (phases 20 and 6)")
+    # ---------------- the serving entry (engine.server.main) on phase 3's
+    # weights as drawn, counted
+    launches.update(serve_entry(cfg, card))
     del eng, vf, params, head
     torch.cuda.empty_cache()
-    elapsed("the training entry (phases 20 and 6)")
+    elapsed("the serving entry (phase 21)")
 
     # ---------------- MoE and GPT-OSS training at full width, counted; each freed after
     with tempfile.TemporaryDirectory() as tmpdir:

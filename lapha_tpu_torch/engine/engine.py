@@ -29,11 +29,16 @@
   where that is shorter: engaged when Wpad + (S - Lp) + min(pad_multiple,
   128) <= S, Wpad = max_window rounded up to min(pad_multiple, 128). The
   int8 KV cache quantizes the short cache too.
+- ``auto_continuous``: a ``generate`` call larger than one wave (more than
+  ``max_batch // n`` prompts) goes through an internal
+  :class:`~.scheduler.ContinuousEngine`, so rows that finish early are
+  replaced mid-wave; it falls back to waves wherever the scheduler would
+  change the request (JAX ``generate``). The scheduler draws its own seeds,
+  so sampled tokens differ from the sync path's; greedy tokens agree.
 
 Not ported yet (they raise ``ValueError("... not yet ported")``):
-``seq_mesh``, ``spec_decode``, ``auto_continuous``; sliding-window
-checkpoints of families other than gpt_oss are refused by
-``Qwen2Config.from_hf``.
+``seq_mesh``, ``spec_decode``; sliding-window checkpoints of families other
+than gpt_oss are refused by ``Qwen2Config.from_hf``.
 """
 
 from __future__ import annotations
@@ -78,8 +83,7 @@ class Engine:
         spec_decode: str | None = None,
         auto_continuous: bool = False,
     ):
-        for name, val in (("seq_mesh", seq_mesh), ("spec_decode", spec_decode),
-                          ("auto_continuous", auto_continuous)):
+        for name, val in (("seq_mesh", seq_mesh), ("spec_decode", spec_decode)):
             if val:
                 raise ValueError(f"{name}: not yet ported")
         if kv_quant not in (None, "int8"):
@@ -98,6 +102,9 @@ class Engine:
         self.batch_bucket = int(batch_bucket)
         self._call_counter = 0
         self.collect_h0 = bool(collect_h0)
+        # generate() calls larger than one wave go through the scheduler
+        self.auto_continuous = bool(auto_continuous)
+        self._auto_sched = None
         self.prefix_cache = (
             PrefixCacheStore(prefix_cache_bytes, prefix_cache_min_reuse,
                              pad_to=min(self.pad_multiple, 128))
@@ -209,19 +216,25 @@ class Engine:
                      positions, slot: int, finished, row_budget, generator,
                      temperature, top_k, top_p, min_p, rep_pen, T: int,
                      static_top_k: int = 0, use_presence: bool = True, cache_scale=None,
-                     win_cache=None, win_pad: int = 0):
+                     win_cache=None, win_pad: int = 0, emitted=None):
         """Generate up to T tokens for all B rows over the slot-uniform cache
         (L, B, nkv, S, dh), int8 with ``cache_scale`` = (ks, vs), the
         windowed layers in ``win_cache`` when it is given. A row finishes on
-        EOS or when it has emitted ``row_budget`` tokens; finished rows emit
-        token 0 with logprob 0.
-        Returns (tokens (B,T), logprobs (B,T), finished, h_sum (B,H), steps)."""
+        EOS or when its ``emitted`` count (zeros by default; the scheduler
+        carries it across chunks) reaches ``row_budget``; finished rows emit
+        token 0 with logprob 0. The weights are read once, at entry: a
+        concurrent :meth:`update_params` takes effect at the next call.
+        Returns (tokens (B,T), logprobs (B,T), finished, h_sum (B,H), steps
+        run, the last step's logits (B,V), the next positions, the next
+        column, emitted); the caches are written in place."""
         dev = self.device
+        params = self.params
         B = last_logits.shape[0]
         eos = self._t(self.eos_token_ids or [-1])
         toks = torch.zeros((B, T), dtype=torch.int64, device=dev)
         lps = torch.zeros((B, T), dtype=torch.float32, device=dev)
-        emitted = torch.zeros((B,), dtype=torch.int64, device=dev)
+        emitted = (torch.zeros((B,), dtype=torch.int64, device=dev) if emitted is None
+                   else emitted.to(device=dev, dtype=torch.int64).clone())
         h_sum = torch.zeros((B, self.cfg.hidden_size), device=dev)
         rows = torch.arange(B, device=dev)
         logits = last_logits
@@ -245,7 +258,7 @@ class Engine:
             if use_presence:
                 presence[rows, tok] = torch.maximum(presence[rows, tok], live.to(presence.dtype))
             logits, hidden, cache_k, cache_v, *_ = self._mod.decode_step(
-                self.params, self.cfg, tok, positions, cache_k, cache_v, slot,
+                params, self.cfg, tok, positions, cache_k, cache_v, slot,
                 lens, dstart, return_hidden=self.collect_h0, ragged=True,
                 cache_scale=cache_scale, win_cache=win_cache, win_pad=win_pad)
             if self.collect_h0:
@@ -255,7 +268,7 @@ class Engine:
             finished = finished | is_eos | (emitted >= row_budget)
             positions = positions + 1
             slot += 1
-        return toks, lps, finished, h_sum, steps
+        return toks, lps, finished, h_sum, steps, logits, positions, slot, emitted
 
     # ------------------------------------------------------------------ public API
 
@@ -271,13 +284,45 @@ class Engine:
         n = max(1, int(getattr(sp, "n", 1)))
         prompts = list(prompts)
         group = max(1, self.max_batch // n)
-        results: list[RequestOutput | None] = [None] * len(prompts)
         self.last_timings = {"prefill_s": 0.0, "decode_s": 0.0, "decode_steps": 0}
+        if self.auto_continuous and len(prompts) > group:
+            sched = self._continuous()
+            # routing must not change the request, so it falls back to waves
+            # where the scheduler would: n beyond its rows (submit raises), a
+            # budget beyond its decode region (admission would clamp it), a
+            # prompt beyond its slab (submit would left-truncate it). The
+            # encodings go on to submit, or to the waves, so prompts are
+            # tokenized once.
+            if n <= sched.B:
+                max_new = int(getattr(sp, "max_tokens", 256) or 256)
+                if max_new <= sched.S - sched.slab:
+                    encs = [list(self.tokenizer(p, add_special_tokens=True)["input_ids"])
+                            for p in prompts]
+                    if all(len(e) <= sched.slab for e in encs):
+                        futs = [sched.submit(p, sp, enc=e) for p, e in zip(prompts, encs)]
+                        return [f.result() for f in futs]
+                    return self._generate_waves(prompts, sp, n, group, encs=encs)
+        return self._generate_waves(prompts, sp, n, group)
+
+    def _generate_waves(self, prompts, sp, n: int, group: int, encs=None):
+        results: list[RequestOutput | None] = [None] * len(prompts)
         with torch.inference_mode():
             for lo in range(0, len(prompts), group):
-                for i, ro in enumerate(self._generate_chunk(prompts[lo:lo + group], sp, n)):
+                outs = self._generate_chunk(prompts[lo:lo + group], sp, n,
+                                            encs=None if encs is None else encs[lo:lo + group])
+                for i, ro in enumerate(outs):
                     results[lo + i] = ro
         return results
+
+    def _continuous(self):
+        """The internal :class:`~.scheduler.ContinuousEngine` of
+        ``auto_continuous``, built and started on first use."""
+        if self._auto_sched is None:
+            from .scheduler import ContinuousEngine
+
+            self._auto_sched = ContinuousEngine(self)
+            self._auto_sched.start()
+        return self._auto_sched
 
     # ------------------------------------------------------------------ internals
 
@@ -379,10 +424,12 @@ class Engine:
                               h_sum=(h_sum[i].clone() if self.collect_h0 else None))
         return last, cache, h_sum
 
-    def _generate_chunk(self, prompts: list[str], sp: SamplingParams, n: int):
+    def _generate_chunk(self, prompts: list[str], sp: SamplingParams, n: int,
+                        encs: list[list[int]] | None = None):
         tok = self.tokenizer
         dev = self.device
-        enc = [tok(p, add_special_tokens=True)["input_ids"] for p in prompts]
+        enc = (encs if encs is not None else
+               [tok(p, add_special_tokens=True)["input_ids"] for p in prompts])
         max_prompt = self.max_model_len - 1
         enc = [list(ids)[-max_prompt:] for ids in enc]
         P = len(enc)
@@ -466,7 +513,7 @@ class Engine:
                 if win_cache is not None:
                     wk, wv, (wks, wvs) = self._quantize_cache(win_cache["k"], win_cache["v"])
                     win_cache.update(k=wk, v=wv, ks=wks, vs=wvs)
-            toks_d, lps_d, finished, hs, steps = self._decode_impl(
+            toks_d, lps_d, finished, hs, steps, *_ = self._decode_impl(
                 ck, cv, presence, last_logits, self._t(lens.astype(np.int32)),
                 torch.full((B,), Lp, dtype=torch.int32, device=dev),
                 lens_t, Lp, finished,

@@ -1,10 +1,12 @@
-"""Token radix trie for the prefix cache.
+"""Token radix trie for the prefix cache, and the scheduler's row allocator.
 
-Uses the compiled ``lapha_native.PrefixTree`` (built from the repo's
-``native/`` sources, the same extension the JAX package uses) when it can be
-imported, else a pure-Python trie with the same API and semantics (a copy of
-``lapha_tpu/native.py``'s ``PyPrefixTree``, so this package needs nothing of
-the JAX package). Nothing is compiled here.
+Uses the compiled ``lapha_native.PrefixTree`` and ``lapha_native.SlotAllocator``
+(built from the repo's ``native/`` sources, the same extension the JAX
+package uses) when they can be imported, else pure-Python versions with the
+same API and semantics (copies of ``lapha_tpu/native.py``'s ``PyPrefixTree``
+and ``PySlotAllocator``, so this package needs nothing of the JAX package).
+Nothing is compiled here. The two allocators may hand out rows in different
+orders.
 """
 
 from __future__ import annotations
@@ -75,6 +77,34 @@ class PyPrefixTree:
         return len(self._handles)
 
 
+class PySlotAllocator:
+    """Free-list of row indices; same API as lapha_native.SlotAllocator."""
+
+    def __init__(self, capacity: int):
+        self.capacity = int(capacity)
+        self._free = list(range(self.capacity - 1, -1, -1))
+
+    def acquire(self, n: int = 1):
+        if len(self._free) < n:
+            return None
+        return [self._free.pop() for _ in range(n)]
+
+    def release(self, slots):
+        for s in slots:
+            s = int(s)
+            if not 0 <= s < self.capacity:
+                raise ValueError("slot out of range")
+            self._free.append(s)
+
+    def available(self) -> int:
+        return len(self._free)
+
+
 def make_prefix_tree():
     mod = _native_module()
     return mod.PrefixTree() if mod is not None else PyPrefixTree()
+
+
+def make_slot_allocator(capacity: int):
+    mod = _native_module()
+    return mod.SlotAllocator(capacity) if mod is not None else PySlotAllocator(capacity)

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -47,6 +48,7 @@ LAUNCHES.update({name: 0 for name in (
     "int4_matmul", "grouped_gemm", "grouped_gemm_wg", "grouped_gemm_dx", "grouped_gemm_tgmm")})
 
 _lib = None
+_lib_lock = threading.Lock()  # the first launches may come from several threads
 build_log = ""  # nvcc's output of the build this process ran (ptxas register/smem report)
 
 _P = ctypes.c_void_p
@@ -108,9 +110,14 @@ def _run(cmds: list[list[str]]) -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, once however many
+    threads make that call together)."""
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
         dll = ctypes.CDLL(build())
         # the last float of the attention entries is the softcap (0 = off);
         # the forward's ints: B T S nh nkv dh dv window

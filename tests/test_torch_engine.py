@@ -183,8 +183,10 @@ def test_sampled_tokens_inside_keep_set_with_softmax_frequencies():
 
 
 def test_unported_engine_knobs_raise(engines):
+    """spec_decode and seq_mesh are not ported (auto_continuous is: see
+    tests/test_torch_scheduler.py)."""
     _, teng = engines
-    for kw in (dict(spec_decode="pld"), dict(auto_continuous=True)):
+    for kw in (dict(spec_decode="pld"), dict(seq_mesh=object())):
         with pytest.raises(ValueError, match="not yet ported"):
             Engine(teng.params, teng.cfg, IdTok(), **kw)
     # kv_quant takes "int8" only, as the JAX engine
