@@ -127,6 +127,19 @@ below are the published model's:
    32 (dh 128). Planted faults that must fail: K/V of the next head (K1/K3),
    the window W + 1 where it bites, dO of the next head (K2), K/V of the
    next layer (K4/K5).
+1m. The verify attention of speculative decoding (``spec_verify_attention``:
+   no Pallas kernel, JAX's dense verify in ``qwen2.decode_step_multi``)
+   against its plain version at B=24 rows of an S=1152 cache whose decode
+   region has random holes, T = 1 and 4 queries a row at slot 1140:
+   Qwen2.5-1.5B's 12/2 heads of dim 128 (bf16 and int8), GPT-OSS-20B's
+   64/8 of dim 64 with sinks and a window of 128 by position (bf16 and
+   int8), Gemma-2-2B's 8/4 of dim 256 with the softcap 50 (q x25 so that
+   it bites), Phi-3-mini's 32/32 of dim 96 (W 2047) and StarCoder2-3B's
+   24/2; phase 1/1c's limits, two launches bit-equal, and two planted
+   faults that must fail: the holes read as valid, and the causal rule
+   among the new columns off by one. Timed as CUDA-graph replays beside
+   the plain version and SDPA with the boolean (B, nh, T, S) mask where
+   that computes the same function (bf16, no sinks, no softcap).
 2d. Two full-width Qwen1.5-MoE-A2.7B layers, card (kernels, bf16) against
    CPU (plain versions, f32): prefill + one decode step, relative error of
    the logits <= 5e-2, with the count of (token, layer) routing choices
@@ -169,8 +182,12 @@ below are the published model's:
    checks, a warm round timed, peak device memory, one decode step
    profiled as in phase 9. The fused-h0 check is then made again with the
    engine's routing replayed into the value forward (a fresh parent and
-   its prefix-hit child, n=1, each KV mode; ROADMAP C5). The GPT-OSS model
-   is freed before the Gemma models are made.
+   its prefix-hit child, n=1, each KV mode; ROADMAP C5). Last, a greedy
+   round with speculative decoding (2 prompts with a repeated tail x n 4,
+   64 tokens, K 3, M 2, bf16 KV) against the same engine without it:
+   phase 22's agreement rule, the sink verify entry 8 x iterations,
+   counted as "serve_gptoss_spec". The GPT-OSS model is freed before the
+   Gemma models are made.
 2f. Two full-width layers of each Gemma model, phase 2's check (Gemma-3 at
    prompts of 560 and 534 tokens, past its 512-token window).
 12. Gemma serving at full width, from the published config.json
@@ -203,8 +220,11 @@ below are the published model's:
    flash instance and no decode kernel may: MLA decode is torch products);
    phase 4's checks (the fused-h0 check with the engine's routing replayed
    into the value forward where routing flips push it past the limit), a
-   warm round timed, peak device memory, one decode step at 24 rows
-   profiled as in phase 9. The model is freed before the dense one is made.
+   warm round timed, peak device memory, phase 11's spec round with the
+   bf16 latent (counted as "serve_deepseek_spec") and the int8 latent (the
+   weight-absorbed verify is torch products: no attention kernel, K8 for
+   the experts), one decode step at 24 rows profiled as in phase 9. The
+   model is freed before the dense one is made.
 17. Phi-3-mini-4k (32 layers, H 3072, 32/32 heads of dim 96, I 8192 SwiGLU,
    every layer sliding at 2047, V 32064 untied; 7.64 GB) and StarCoder2-3B
    (30 layers, H 3072, 24/2 heads of dim 128, I 12288 plain gelu FFN,
@@ -244,6 +264,23 @@ below are the published model's:
    no-cache kernel), relative error <= 5e-2.
 5. Time a second, warm round on fresh prompts (host clock; the engine
    synchronises the device at each phase boundary).
+22. Speculative decoding (``Engine(spec_decode="pld")``, K 3, M 2) on the
+   phase-3 model (28 layers, the weights as drawn): 24 rows (4 prompts of
+   512 ids with a repeated tail x n 6), 128 new tokens, each run against
+   the same engine without spec. (a) Greedy, bf16 KV, collect_h0 (counted
+   as "serve_spec"), (b) greedy, int8 KV ("serve_spec_q8"): the streams
+   agree up to their first divergence, where the non-spec decode's own
+   top-2 margin must be within phase 21's greedy margin (SPEC_TIE =
+   SERVE_LP_ATOL); printed: the agreed
+   share, ``last_spec_stats``, tok/s with and without spec, host ms an
+   iteration and a step; the verify kernel ran 28 x iterations (+ 28 for
+   (a)'s h0 fix-up), the ragged decode kernel never, K3 for the prefill;
+   the path's 5th layer-0 verify launch held to its plain version. (c)
+   Sampled at temperature 0.8, top_p 0.95: tokens an iteration and tok/s
+   with and without spec. (d) (a)'s 24 pooled h0 against a value forward
+   over prompt + completion (phase 4's limit; the bonus token's fix-up
+   forward included). Last, a profiled 8-token generate with and without
+   spec: device ms an iteration of the decode part.
 8. Quantized serving at bench.py's shape: the phase-3 weights quantized on
    the card (``quantize_params(bits=4)``: int4 projections, int8 embed/head)
    and ``Engine(kv_quant="int8")``; a round is 8 parents x 512 tokens with
@@ -415,7 +452,8 @@ below are the published model's:
 
 Launch counts are read per path (serve_moe: phase 10; serve_gptoss: phase
 11; serve_gemma2 and serve_gemma3: phase 12; serve_deepseek: phase 15;
-serve: phase 3;
+serve: phase 3; serve_spec, serve_spec_q8: phase 22; serve_gptoss_spec: phase
+11; serve_deepseek_spec: phase 15;
 serve_quantized: phase 8; eval_value, eval_value_q8, eval_react and
 eval_single: phase 19; train_step: phase 6; update: phase 7;
 update_moe, update_gptoss and train_step_moe: phase 13; update_gemma2,
@@ -2350,8 +2388,10 @@ def check_h0_routing_replayed(eng, vf, cfg, rng, plen: int, extra: int, new: int
 
 def serve_gptoss(dev, card):
     """Phases 2e and 11 on one GPT-OSS-20B model made here (the first
-    CUT_LAYERS layers) and freed before the return. Returns the launch
-    counts of the counted rounds."""
+    CUT_LAYERS layers) and freed before the return; phase 11 ends with a
+    greedy round with and without speculative decoding. Returns the launch
+    counts of the counted rounds ("serve_gptoss") and of the spec round
+    ("serve_gptoss_spec")."""
     import numpy as np
     import torch
 
@@ -2408,11 +2448,22 @@ def serve_gptoss(dev, card):
     _report_warm("GPT-OSS-20B", warm, params, P, n, new, card)
     del engines, vf, runs, warm
     torch.cuda.empty_cache()
+    # the spec path: greedy with and without speculative decoding, bf16 KV
+    spec = _spec_round(params, cfg, _spec_prompts(rng, cfg.vocab_size, 2, plen), 4, new,
+                       dict(kw, collect_h0=False), "phase 11, GPT-OSS-20B bf16 KV", card,
+                       router="route_topk_softmax")
+    la, it = spec["launches"], spec["stats"]["iterations"]
+    check(la["spec_verify_attention_sink"] == cfg.num_hidden_layers * it,
+          f"spec_verify_attention_sink launched {la['spec_verify_attention_sink']} times on the "
+          f"GPT-OSS spec path, expected {cfg.num_hidden_layers} x {it} iterations")
+    for name in ("ragged_decode_attention_sink", "spec_verify_attention"):
+        check(la[name] == 0, f"{name} ran {la[name]} times on the GPT-OSS spec path")
+    del spec
     _profile_served("GPT-OSS-20B", params, cfg, P * n, plen, plen + 2 * new, SEED + 16, card)
     del params, head
     torch.cuda.empty_cache()
     print(f"phases 2e and 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return {"serve_gptoss": launches, "serve_gptoss_spec": la}
 
 
 def _sdpa_narrow(q, k, v, allowed, scale, ref):
@@ -2877,6 +2928,147 @@ def check_phi3_starcoder2_kernels(dev, card):
     return results
 
 
+# phase 1m's shapes: (family, nh, nkv, dh, window, softcap, sinks, int8 too,
+# the kernels line's rows at T = 4 by cache kind)
+VERIFY_1M_CASES = (("Qwen2.5-1.5B", 12, 2, 128, 0, 0.0, False, True,
+                    {"": "spec_verify_attention", "_q8": "spec_verify_attention_q8"}),
+                   ("GPT-OSS-20B", 64, 8, 64, 128, 0.0, True, True,
+                    {"": "spec_verify_attention_sink"}),
+                   ("Gemma-2-2B", 8, 4, 256, 0, GEMMA_CAP, False, False, {}),
+                   ("Phi-3-mini", 32, 32, 96, 2047, 0.0, False, False, {}),
+                   ("StarCoder2-3B", 24, 2, 128, 4096, 0.0, False, False, {}))
+
+
+def _verify_geometry(gen, B: int, S: int, slot: int, T: int, dev):
+    """A spec-decode cache's validity at B rows: prompts of 300-512 columns
+    in a 512-column slab, decode columns [512, slot) of which ~65% are valid
+    (the rest are rejected drafts' holes), the position map (a prompt
+    column's position is its index; a decode column's, the row's length
+    before it) and the block's T positions after the row's tokens."""
+    import torch
+
+    lens = torch.randint(300, 513, (B,), generator=gen, device=dev)
+    ar = torch.arange(S, device=dev)[None, :]
+    dec = (ar >= 512) & (ar < slot)
+    kept = torch.rand((B, S), generator=gen, device=dev) < 0.65
+    valid = (ar < lens[:, None]) | (dec & kept)
+    before = torch.cumsum((dec & kept).long(), dim=1) - (dec & kept).long()
+    pos_map = torch.where(ar < 512, ar, lens[:, None] + before).to(torch.int32)
+    n_dec = (dec & kept).sum(dim=1)
+    positions = (lens + n_dec)[:, None] + torch.arange(T, device=dev)[None, :]
+    return valid, pos_map, positions.to(torch.int32), dec & ~kept
+
+
+def check_verify_kernels(dev, card):
+    """Phase 1m: the verify attention of speculative decoding
+    (``ops/spec_verify_attention``, no Pallas kernel: JAX's dense verify in
+    ``qwen2.decode_step_multi``) against its plain version on the same
+    inputs, at Qwen2.5-1.5B (12/2 heads, dh 128, bf16 and int8), GPT-OSS-20B
+    (64/8, dh 64, sinks, a window of 128 by position; bf16 and int8),
+    Gemma-2-2B (8/4, dh 256, softcap 50, q x25 so that it bites), Phi-3-mini
+    (32/32, dh 96, W 2047) and StarCoder2-3B (24/2: a group of 12), each at
+    B=24 rows of an S=1152 cache with random holes in the decode region, T =
+    1 and T = 4 queries a row at slot 1140. Limits: phase 1's bf16 limit and
+    phase 1c's int8 rule. Two planted faults must fail each check: the holes
+    read as valid (the holes' V is x4, so reading them shows), and the
+    causal rule among the new columns off by one (query t also sees column
+    slot + t + 1, whose key is x4: the kernel run one column on with column
+    slot marked valid). Timed as CUDA-graph replays beside the plain version
+    and, where it computes the same function (no sinks, no softcap, bf16),
+    SDPA with the boolean (B, nh, T, S) mask over the same cache views."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.bench_k6 import graph_ms
+    from lapha_tpu_torch.models.qwen2 import _quantize_kv
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    L, B, S, slot = 2, 24, 1152, 1140
+    results = {}
+    for fam, nh, nkv, dh, W, cap, with_sinks, with_q8, rows in VERIFY_1M_CASES:
+        scale = dh ** -0.5
+        sinks = (torch.from_numpy(_gptoss_sinks(np.random.default_rng(SEED + 41), nh)).to(dev)
+                 if with_sinks else None)
+        for T in (1, 4):
+            valid, pos_map, positions, holes = _verify_geometry(gen, B, S, slot, T, dev)
+            q = torch.randn((B, T, nh, dh), generator=gen, device=dev) * (25.0 if cap else 1.0)
+            q = q.to(torch.bfloat16)
+            kc = torch.randn((L, B, nkv, S, dh), generator=gen, device=dev)
+            vc = torch.randn((L, B, nkv, S, dh), generator=gen, device=dev)
+            kc[1, :, :, slot + T] *= 4.0                         # the column past the block
+            vc[1] = torch.where(holes[:, None, :, None], vc[1] * 4.0, vc[1])
+            kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+            vis = sva.verify_visible(valid, positions, slot, pos_map, W)
+            cases = [("", kc, vc, None)]
+            if with_q8:
+                (kq, ks), (vq, vs) = _quantize_kv(kc), _quantize_kv(vc)
+                cases.append(("_q8", kq, vq, (ks, vs)))
+            for kind, kk, vv, scl in cases:
+                def kernel(vm=valid, at=slot, pm=pos_map, kk=kk, vv=vv, scl=scl):
+                    return sva.spec_verify_attention(q, kk, vv, 1, at, vm, positions, pm, W,
+                                                     scale, cache_scale=scl, sinks=sinks,
+                                                     softcap=cap)
+
+                def plain(kk=kk, vv=vv, scl=scl):
+                    return sva.spec_verify_plain(q, kk, vv, 1, slot, valid, positions, pos_map,
+                                                 W, scale, cache_scale=scl, sinks=sinks,
+                                                 softcap=cap)
+
+                def excess(out, ref, scl=scl):
+                    if scl is not None:
+                        return _q8_excess(out, ref)
+                    return float((out.float() - ref.float()).abs().max()) - KERNEL_ATOL
+
+                name = sva.launch_name(scl is not None, with_sinks, cap)
+                label = (f"{name} ({fam}) dh={dh} {nh}/{nkv} heads B={B} T={T} S={S} "
+                         f"slot={slot} W={W}")
+                out, again, ref = kernel(), kernel(), plain()
+                # the planted faults: every hole read as valid; query t also
+                # sees column slot + t + 1 (one column on, column slot valid)
+                off_vm, off_pm = valid.clone(), pos_map.clone()
+                off_vm[:, slot] = True
+                off_pm[:, slot] = positions[:, 0]
+                faults = {"the holes read as valid": kernel(vm=valid | holes),
+                          "the causal rule among the new columns off by one":
+                              kernel(vm=off_vm, at=slot + 1, pm=off_pm)}
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                check(bool(torch.isfinite(out.float()).all()) and excess(out, ref) <= 0,
+                      f"{label}: max|diff| {err}")
+                check(torch.equal(out, again), f"{label}: two launches differ")
+                notes = []
+                for what, bad in faults.items():
+                    check(excess(bad, ref) > 0, f"the {label} check missed a planted fault "
+                                                f"({what})")
+                    notes.append(f"planted fault ({what}) max|diff| "
+                                 f"{float((bad.float() - ref.float()).abs().max()):.3e}, caught")
+                lib_fn, lib = None, "none (sinks, a softcap or an int8 cache: no one call)"
+                if scl is None and not with_sinks and not cap:
+                    lib_fn = _sdpa(q, kc[1].transpose(1, 2), vc[1].transpose(1, 2), vis, scale)
+                    lib = "sdpa"
+                ms, plain_ms, lib_ms = _ab_ms(kernel, plain, lib_fn, timer=graph_ms)
+                if lib_ms is not None:
+                    lib = f"{lib} {lib_ms:.4f} ms"
+                # K and V of the columns some query of the row sees (int8: +
+                # two f32 scales) for each KV head; q, out, the map, positions
+                # (and the position map where windowed)
+                per_col = 2 * dh * kk.element_size() + (8 if scl is not None else 0)
+                n_cols = int(vis.any(dim=1).sum())
+                nbytes = (n_cols * nkv * per_col + 2 * _nbytes(q) + _nbytes(valid, positions)
+                          + (_nbytes(pos_map) if W else 0))
+                r = _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh * nh * int(vis.sum()))
+                print(f"kernel {label}: max|diff| {err:.3e}, bit-equal over two launches, "
+                      f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, {lib}, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}); {'; '.join(notes)} [{card}]",
+                      flush=True)
+                if T == 4 and kind in rows:
+                    results[rows[kind]] = r
+    print(f"phase 1m took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results
+
+
 def _deepseek_model(dev, card, layers=None):
     """DeepSeek-V2-Lite at full width and depth from its published config
     (its first ``layers`` layers when given), random bf16 weights from the
@@ -3004,8 +3196,10 @@ def check_deepseek_reference(params, cfg, dev):
 
 def serve_deepseek(dev, card):
     """Phases 2h and 15 on DeepSeek-V2-Lite (the first CUT_LAYERS layers:
-    1 dense, then MoE), made here and freed before the return. Returns the
-    launch counts of the counted rounds."""
+    1 dense, then MoE), made here and freed before the return; phase 15
+    ends with greedy rounds with and without speculative decoding. Returns
+    the launch counts of the counted rounds ("serve_deepseek") and of the
+    bf16-latent spec round ("serve_deepseek_spec")."""
     import numpy as np
     import torch
 
@@ -3060,11 +3254,26 @@ def serve_deepseek(dev, card):
                      params, P, n, new, card)
     del engines, vf, runs, warm
     torch.cuda.empty_cache()
+    # the spec path (the weight-absorbed T-token verify: torch products, no
+    # attention kernel): greedy with and without speculative decoding, bf16
+    # latent (counted) and int8 latent
+    spec_launches = None
+    for kv in (None, "int8"):
+        spec = _spec_round(params, cfg, _spec_prompts(rng, cfg.vocab_size, 2, plen), 4, new,
+                           dict(kw, collect_h0=False, kv_quant=kv),
+                           f"phase 15, DeepSeek-V2-Lite {'bf16' if kv is None else 'int8'} latent",
+                           card, router="route_deepseek")
+        for name, count in spec["launches"].items():
+            check(name in ran or count == 0,
+                  f"{name} ran {count} times on the DeepSeek spec path")
+        check(spec["launches"]["grouped_gemm"] > 0, "K8 never ran on the DeepSeek spec path")
+        spec_launches = spec_launches or spec["launches"]
+        del spec
     _profile_served("DeepSeek-V2-Lite", params, cfg, P * n, plen, plen + 2 * new, SEED + 23, card)
     del params, head
     torch.cuda.empty_cache()
     print(f"phases 2h and 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return {"serve_deepseek": launches, "serve_deepseek_spec": spec_launches}
 
 
 # chip_smoke's phase-3 model (Qwen2.5-1.5B's widths), the dense yardstick of --c5
@@ -5567,6 +5776,396 @@ def serve_entry(cfg, card) -> dict:
     return launches
 
 
+# phases 22, 11 and 15: speculative decoding (Engine(spec_decode="pld"))
+# against the same engine without it, greedy. The two decode the same
+# tokens through different attention kernels (the verify kernel over K+1
+# columns a row, the ragged decode kernel over one; DeepSeek through
+# products of other shapes), so bf16 rounds them apart and a greedy argmax
+# may flip where the top two logits are close: the streams must agree up to
+# their first divergence, and there the non-spec decode's own top-2 margin
+# (recorded as it decodes) must be within SPEC_TIE, phase 21's greedy
+# margin (SERVE_LP_ATOL: decode against a teacher-forced forward, ~2.5x the
+# deviation read on an H100). On an MoE model the two paths also pick
+# different experts where a token's router scores nearly tie (GPT-OSS-20B's
+# first 8 layers, one decode step through each path on copies of one cache,
+# 8 rows x 24 steps: 64 of the 192 row-steps routed some token otherwise, the
+# logits then moved by up to 4.9 and the argmax flipped at margins up to 0.61;
+# the dense model's two steps differ by <= 0.069): there a divergence that
+# follows a routing difference at an earlier position of its row is a tie
+# of the router, counted apart, and the margin rule holds for the others
+SPEC_K, SPEC_NGRAM = 3, 2
+SPEC_TIE = SERVE_LP_ATOL
+
+
+def _spec_prompts(rng, vocab: int, P: int, plen: int) -> list:
+    """P prompts of plen token ids whose last 96 tokens repeat their 32
+    before: the repeated tail that prompt lookup drafts from."""
+    import numpy as np
+
+    out = []
+    for _ in range(P):
+        body = rng.integers(2, vocab, plen - 96)
+        out.append(np.concatenate([body, np.tile(body[-32:], 3)]))
+    return out
+
+
+class _GreedyMargins:
+    """Records, for each decode step of the non-spec engine, every row's
+    top-2 margin of the logits its greedy token is the argmax of (the
+    engine's ``sampling.sample`` wrapped; one small tensor a step, read
+    after the run)."""
+
+    def __enter__(self):
+        from lapha_tpu_torch.engine import sampling
+
+        self.sampling, self.fn, self.steps = sampling, sampling.sample, []
+
+        def wrapped(logits, generator, **kw):
+            src = logits.float()
+            if kw.get("repetition_penalty") is not None and kw.get("presence") is not None:
+                src = sampling.apply_repetition_penalty(src, kw["presence"],
+                                                        kw["repetition_penalty"])
+            top2 = src.topk(2, dim=-1).values
+            self.steps.append(top2[:, 0] - top2[:, 1])
+            return self.fn(logits, generator, **kw)
+
+        sampling.sample = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.sampling.sample = self.fn
+
+    def table(self):
+        import torch
+
+        return torch.stack(self.steps, dim=1).cpu().numpy()  # (B, steps)
+
+
+class _RoutingLog:
+    """The experts an MoE decode path routed each token to, keyed by (row,
+    position, router call of the forward): ``router`` of ``ops.moe`` and the
+    model module's ``decode_step`` / ``decode_step_multi`` wrapped (the
+    forward's positions give each routed token's key); the choices stay on
+    the card until :meth:`table`. A position fed again (a rejected draft's,
+    then the accepted token's) keeps its last routing."""
+
+    def __init__(self, mod, router: str):
+        self.mod, self.router, self.steps, self.cur = mod, router, [], None
+
+    def __enter__(self):
+        from lapha_tpu_torch.ops import moe
+
+        self.moe, self.route = moe, getattr(moe, self.router)
+        self.fns = {name: getattr(self.mod, name) for name in ("decode_step", "decode_step_multi")}
+
+        def route(*a, **k):
+            w, i = self.route(*a, **k)
+            if self.cur is not None:
+                self.cur[1].append(i.sort(dim=-1).values)
+            return w, i
+
+        def wrap(fn, multi):
+            def step(params, cfg, tok, positions, *a, **k):
+                self.cur = (positions if multi else positions[:, None], [])
+                out = fn(params, cfg, tok, positions, *a, **k)
+                self.steps.append(self.cur)
+                self.cur = None
+                return out
+            return step
+
+        setattr(self.moe, self.router, route)
+        for name, fn in self.fns.items():
+            setattr(self.mod, name, wrap(fn, name == "decode_step_multi"))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.moe, self.router, self.route)
+        for name, fn in self.fns.items():
+            setattr(self.mod, name, fn)
+
+    def table(self) -> dict:
+        tab = {}
+        for pos, picks in self.steps:
+            pos = pos.cpu().numpy()
+            B, T = pos.shape
+            for layer, topi in enumerate(picks):
+                topi = topi.reshape(B, T, -1).cpu().numpy()
+                for b in range(B):
+                    for t in range(T):
+                        tab[(b, int(pos[b, t]), layer)] = tuple(topi[b, t])
+        return tab
+
+
+def _agree_to_tie(n: int, spec_out, ref_out, margins, tie: float, routes=None) -> dict:
+    """Phases 22/11/15's agreement rule (above) on greedy outputs of the same
+    prompts, ``margins`` (B, steps) the non-spec run's recorded top-2
+    margins (row r's token t was step t's argmax), ``routes`` the two runs'
+    routing tables (:class:`_RoutingLog`) on an MoE model: the share of
+    tokens before each row's first divergence, the rows that diverge, those
+    after a routing difference and the largest margin at another
+    divergence; raises if a divergence that follows no routing difference
+    has a margin above ``tie``."""
+    agreed = total = diverged = routed = 0
+    worst = 0.0
+    for p, (so, ro) in enumerate(zip(spec_out, ref_out)):
+        lens = len(ro.prompt_token_ids)
+        for j in range(n):
+            r = p * n + j
+            a, b = so.outputs[j].token_ids, ro.outputs[j].token_ids
+            c = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            agreed += c
+            total += len(b)
+            if c >= min(len(a), len(b)) and len(a) == len(b):
+                continue
+            diverged += 1
+            if routes is not None and any(
+                    routes[0].get(key) != routes[1].get(key)
+                    for key in {k for k in routes[1] if k[0] == r and lens <= k[1] < lens + c}):
+                routed += 1
+                continue
+            gap = float(margins[r, c])
+            worst = max(worst, gap)
+            check(gap <= tie, f"spec and non-spec greedy diverge at token {c} of row {r} where "
+                              f"the non-spec top-2 margin is {gap:.4f} > {tie} and no token "
+                              f"before it was routed otherwise")
+    return {"agreed": agreed / max(1, total), "diverged": diverged, "after_routing": routed,
+            "max_gap": worst}
+
+
+class _VerifyCapture:
+    """Keeps a copy of the inputs and output of one launch of the verify
+    kernel on the path (the ``at``-th launch at layer 0 with T > 1, the
+    layer's cache panels cloned as they were), so that it can be held to
+    the plain version on the same inputs afterwards."""
+
+    def __init__(self, at: int):
+        self.at, self.seen, self.kept = at, 0, None
+
+    def __enter__(self):
+        from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+        self.sva, self.fn = sva, sva._verify_cuda
+
+        def wrapped(q, kc, vc, layer, slot, valid, pos, pm, window, scale, scl, sinks, cap):
+            out = self.fn(q, kc, vc, layer, slot, valid, pos, pm, window, scale, scl, sinks, cap)
+            if int(layer) == 0 and q.shape[1] > 1 and self.kept is None:
+                self.seen += 1
+                if self.seen == self.at:
+                    self.kept = dict(
+                        q=q.clone(), k=kc[:1].clone(), v=vc[:1].clone(), slot=int(slot),
+                        valid=valid.clone(), positions=pos.clone(),
+                        pos_map=None if pm is None else pm.clone(), window=window, scale=scale,
+                        scl=None if scl is None else (scl[0][:1].clone(), scl[1][:1].clone()),
+                        sinks=sinks, softcap=cap, out=out.clone())
+            return out
+
+        self.sva._verify_cuda = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.sva._verify_cuda = self.fn
+
+    def check(self, label: str, card: str) -> float:
+        k = self.kept
+        check(k is not None, f"{label}: no verify launch {self.at} at layer 0 with T > 1")
+        ref = self.sva.spec_verify_plain(k["q"], k["k"], k["v"], 0, k["slot"], k["valid"],
+                                         k["positions"], k["pos_map"], k["window"], k["scale"],
+                                         cache_scale=k["scl"], sinks=k["sinks"],
+                                         softcap=k["softcap"])
+        err = float((k["out"].float() - ref.float()).abs().max())
+        excess = (_q8_excess(k["out"], ref) if k["scl"] is not None else err - KERNEL_ATOL)
+        B, T = k["positions"].shape
+        below = k["valid"][:, :k["slot"]]
+        print(f"{label}: the path's verify launch {self.at} (layer 0, B={B} T={T} slot "
+              f"{k['slot']}, {int(below.sum())} valid columns below the block of "
+              f"{below.numel()}) vs its plain version: max|diff| {err:.3e} [{card}]", flush=True)
+        check(excess <= 0, f"{label}: the path's verify launch vs plain: max|diff| {err}")
+        return err
+
+
+def _profile_generate(eng, prompts, sp, label: str, card: str) -> float:
+    """Device busy ms an iteration of one generate call under
+    torch.profiler: the CUDA kernels' own time from the first decode
+    attention launch on (the verify or the ragged decode kernel; the first
+    step's embedding and layer-0 projections before it, a few microseconds,
+    are left out with the prefill), over the decode steps or spec
+    iterations. Its host clock and the profiling's own seconds are printed."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.generate(prompts, sp)
+        torch.cuda.synchronize()
+    steps = max(1, eng.last_timings["decode_steps"])
+    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    first = min((ev.time_range.start for ev in kernels
+                 if "spec_verify" in ev.name or "ragged_decode" in ev.name), default=None)
+    check(first is not None, f"the profiler saw no decode attention kernel ({label})")
+    dev_ms = sum(ev.device_time_total for ev in kernels if ev.time_range.start >= first) / 1e3
+    host_ms = eng.last_timings["decode_s"] * 1e3
+    print(f"profiled generate, {label}: {steps} decode steps or iterations, device busy "
+          f"{dev_ms / steps:.2f} ms an iteration against {host_ms / steps:.2f} ms host "
+          f"({100 * dev_ms / host_ms:.1f}% busy; profiling took {time.perf_counter() - t0:.1f} "
+          f"s) [{card}]", flush=True)
+    return dev_ms / steps
+
+
+def _spec_round(params, cfg, prompts, n: int, new: int, kw: dict, label: str, card: str,
+                capture_at: int = 0, router: str = "") -> dict:
+    """One greedy generate of ``prompts`` x n with ``Engine(spec_decode=
+    "pld")`` (counted) and one without, on engines of ``kw``: the agreement
+    rule, the spec stats, tok/s of each, host ms an iteration. With
+    ``capture_at`` one of the path's verify launches is held to its plain
+    version; ``router`` (an MoE model's ``ops.moe`` router) logs both runs'
+    routing for the rule, which makes their tok/s host clocks of
+    instrumented runs. Returns the spec run's launches and numbers."""
+    import contextlib
+
+    import torch
+
+    from lapha_tpu_torch.engine import Engine, SamplingParams
+    from lapha_tpu_torch.models import model_module
+    from lapha_tpu_torch.ops import _cuda
+
+    def log():
+        return (_RoutingLog(model_module(cfg), router) if router
+                else contextlib.nullcontext())
+
+    t_round = time.perf_counter()
+    text = [_text(pr) for pr in prompts]
+    sp = SamplingParams(n=n, temperature=0.0, max_tokens=new, seed=1)
+    spec_eng = Engine(params, cfg, IdTok(), spec_decode="pld", spec_k=SPEC_K,
+                      spec_ngram=SPEC_NGRAM, **kw)
+    ref_eng = Engine(params, cfg, IdTok(), **kw)
+    spec_eng.generate(text, SamplingParams(n=n, temperature=0.0, max_tokens=8))  # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with log() as spec_routes:
+        if capture_at:
+            with _VerifyCapture(capture_at) as cap:
+                spec_out = spec_eng.generate(text, sp)
+        else:
+            spec_out = spec_eng.generate(text, sp)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    st, t_spec = dict(spec_eng.last_spec_stats), dict(spec_eng.last_timings)
+    with _GreedyMargins() as margins, log() as ref_routes:
+        ref_out = ref_eng.generate(text, sp)
+    t_ref = dict(ref_eng.last_timings)
+    if capture_at:
+        cap.check(label, card)
+    agree = _agree_to_tie(n, spec_out, ref_out, margins.table(), SPEC_TIE,
+                          (spec_routes.table(), ref_routes.table()) if router else None)
+    n_ref = sum(len(o.token_ids) for r in ref_out for o in r.outputs)
+    res = {"launches": launches, "stats": st, "agree": agree, "spec_out": spec_out,
+           "engine": spec_eng, "ref_engine": ref_eng,
+           "tok_s": st["tokens"] / t_spec["decode_s"], "ref_tok_s": n_ref / t_ref["decode_s"],
+           "ms_it": t_spec["decode_s"] / max(1, st["iterations"]) * 1e3,
+           "ref_ms_step": t_ref["decode_s"] / max(1, t_ref["decode_steps"]) * 1e3}
+    print(f"{label}, greedy spec (K {SPEC_K}, M {SPEC_NGRAM}) vs non-spec: {agree['agreed']:.4f} "
+          f"of tokens agreed before a divergence, {agree['diverged']} rows diverged, "
+          f"{agree['after_routing']} of them after a token routed otherwise (largest non-spec "
+          f"top-2 margin at the others {agree['max_gap']:.4f}, limit {SPEC_TIE}); "
+          f"last_spec_stats {st}; "
+          f"{res['tok_s']:.1f} tok/s with spec ({res['ms_it']:.2f} ms host an iteration) vs "
+          f"{res['ref_tok_s']:.1f} tok/s without ({res['ref_ms_step']:.2f} ms a step); the "
+          f"round took {time.perf_counter() - t_round:.1f} s [{card}]", flush=True)
+    return res
+
+
+def serve_spec(params, vf, cfg, card) -> dict:
+    """Phase 22: speculative decoding on phase 3's Qwen2.5-1.5B model (28
+    layers, the weights as drawn), 24 rows (4 prompts of 512 tokens with a
+    repeated tail x n 6), 128 new tokens, K 3, M 2, each against the same
+    engine without spec: (a) greedy with a bf16 cache and collect_h0,
+    counted as "serve_spec"; (b) greedy with an int8 cache, counted as
+    "serve_spec_q8"; (c) sampled at temperature 0.8 and top_p 0.95 (tokens
+    an iteration, tok/s); (d) the pooled h0 of (a)'s rows against a value
+    forward over prompt + completion (phase 4's fused-h0 check: it covers
+    the bonus token's fix-up forward); (e) launches: the verify kernel 28
+    times an iteration (+ 28 for the h0 fix-up) and the ragged decode
+    kernel never, K3 for the prefill, and in (a) and (b) one launch of the
+    path held to its plain version. Then a profiled spec and non-spec
+    generate each (8 tokens) give device ms an iteration."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine import SamplingParams
+
+    t_phase = time.perf_counter()
+    L = cfg.num_hidden_layers
+    P, n, plen, new = 4, 6, 512, 128
+    rng = np.random.default_rng(SEED + 22)
+    prompts = _spec_prompts(rng, cfg.vocab_size, P, plen)
+    kw = dict(max_model_len=1024, max_batch=P * n, decode_chunk=32, pad_multiple=128,
+              batch_bucket=1, eos_token_ids=[], seed=SEED, prefix_cache_bytes=0)
+    out = {}
+    for kv, path in ((None, "serve_spec"), ("int8", "serve_spec_q8")):
+        label = f"phase 22{'a' if kv is None else 'b'}, Qwen2.5-1.5B {'bf16' if kv is None else 'int8'} KV"
+        r = _spec_round(params, cfg, prompts, n, new, dict(kw, kv_quant=kv, collect_h0=kv is None),
+                        label, card, capture_at=5)
+        la, it = r["launches"], r["stats"]["iterations"]
+        name = "spec_verify_attention" + ("" if kv is None else "_q8")
+        want = L * (it + (1 if kv is None else 0))  # + the h0 fix-up forward
+        check(la[name] == want, f"{label}: {name} launched {la[name]} times, expected "
+                                f"{L} x {it} iterations{' + the h0 fix-up' if kv is None else ''}")
+        for other in ("ragged_decode_attention", "ragged_decode_attention_q8"):
+            check(la[other] == 0, f"{label}: {other} ran {la[other]} times in the spec loop")
+        check(la["flash_attention_cached"] > 0, f"{label}: K3 never ran for the prefill")
+        for ro in r["spec_out"]:
+            for o in ro.outputs:
+                check(len(o.token_ids) == new and all(0 <= t < cfg.vocab_size for t in o.token_ids),
+                      f"{label}: {len(o.token_ids)} tokens")
+        print(f"{label}: launches {({k: v for k, v in la.items() if v})} [{card}]", flush=True)
+        out[path] = la
+        if kv is None:
+            # (d) every row's pooled h0 against a value forward of prompt + completion
+            comps = [o.token_ids for ro in r["spec_out"] for o in ro.outputs]
+            full = np.stack([np.concatenate([prompts[i // n], comps[i]]) for i in range(P * n)])
+            _, _, h_ref = vf(full, np.ones_like(full, dtype=np.int32), return_h0=True)
+            pooled = np.stack([o.pooled_hidden for ro in r["spec_out"] for o in ro.outputs])
+            e = float(np.max(np.linalg.norm(pooled - h_ref, axis=-1)
+                             / np.linalg.norm(h_ref, axis=-1)))
+            print(f"{label}: fused value check on the spec path, the {P * n} rows' pooled h0 vs "
+                  f"a value forward: largest rel err {e:.3e} (limit {REF_RTOL}) [{card}]",
+                  flush=True)
+            check(e <= REF_RTOL, f"{label}: spec-path pooled h0 rel err {e}")
+        del r
+    # (c) sampled
+    sp = SamplingParams(n=n, temperature=0.8, top_p=0.95, max_tokens=new, seed=1)
+    text = [_text(pr) for pr in prompts]
+    from lapha_tpu_torch.engine import Engine
+
+    spec_eng = Engine(params, cfg, IdTok(), spec_decode="pld", spec_k=SPEC_K,
+                      spec_ngram=SPEC_NGRAM, **kw)
+    ref_eng = Engine(params, cfg, IdTok(), **kw)
+    outs = spec_eng.generate(text, sp)
+    st, t_spec = dict(spec_eng.last_spec_stats), dict(spec_eng.last_timings)
+    ref_eng.generate(text, sp)
+    t_ref = dict(ref_eng.last_timings)
+    for ro in outs:
+        for o in ro.outputs:
+            check(len(o.token_ids) == new and np.isfinite(o.token_logprobs).all()
+                  and max(o.token_logprobs) <= 0.0, "phase 22c: tokens and logprobs")
+    check(st["tokens_per_iteration"] >= 1.0, f"phase 22c: {st}")
+    print(f"phase 22c, Qwen2.5-1.5B bf16 KV, sampled (temperature 0.8, top_p 0.95): "
+          f"last_spec_stats {st}; {st['tokens'] / t_spec['decode_s']:.1f} tok/s with spec "
+          f"({t_spec['decode_s'] / max(1, st['iterations']) * 1e3:.2f} ms host an iteration) vs "
+          f"{P * n * new / t_ref['decode_s']:.1f} tok/s without "
+          f"({t_ref['decode_s'] / max(1, t_ref['decode_steps']) * 1e3:.2f} ms a step) [{card}]",
+          flush=True)
+    # device ms an iteration, profiled last (a profiler session slows later host work)
+    short = SamplingParams(n=n, temperature=0.0, max_tokens=8, seed=1)
+    _profile_generate(spec_eng, text, short, "phase 22, greedy spec, bf16 KV, 8 tokens", card)
+    _profile_generate(ref_eng, text, short, "phase 22, greedy non-spec, bf16 KV, 8 tokens", card)
+    del spec_eng, ref_eng
+    torch.cuda.empty_cache()
+    print(f"phase 22 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5621,12 +6220,13 @@ def main(argv=None) -> int:
     kernels.update(check_deepseek_kernels(dev, card))
     kernels.update(check_backward_deepseek_kernels(dev, card))
     kernels.update(check_phi3_starcoder2_kernels(dev, card))
-    elapsed("the kernel checks (phases 1-1l)")
+    kernels.update(check_verify_kernels(dev, card))
+    elapsed("the kernel checks (phases 1-1m)")
 
     # ---------------- MoE serving at full width, counted; freed after
     launches = {"serve_moe": serve_moe(dev, card)}
     # ---------------- GPT-OSS-20B serving at full width, counted; freed after
-    launches["serve_gptoss"] = serve_gptoss(dev, card)
+    launches.update(serve_gptoss(dev, card))
     # ---------------- Gemma-2-2B (bf16, then int8 KV) and Gemma-3-1B serving at
     # full width, counted; each freed after
     launches["serve_gemma2"] = serve_published(dev, card, GEMMA2_2B_CONFIG, "Gemma-2-2B",
@@ -5635,7 +6235,7 @@ def main(argv=None) -> int:
     launches["serve_gemma3"] = serve_published(dev, card, GEMMA3_1B_CONFIG, "Gemma-3-1B",
                                                (None,), {"T": 560, "S": 592})
     # ---------------- DeepSeek-V2-Lite serving at full width, counted; freed after
-    launches["serve_deepseek"] = serve_deepseek(dev, card)
+    launches.update(serve_deepseek(dev, card))
     # ---------------- Phi-3-mini (two-layer check past its 2047 window) and
     # StarCoder2-3B serving at full width, counted; each freed after
     launches["serve_phi3"] = serve_published(dev, card, PHI3_MINI_4K_CONFIG, "Phi-3-mini-4k",
@@ -5690,6 +6290,10 @@ def main(argv=None) -> int:
     print(f"warm root value forward (4 x 512): {warm['t_value'] * 1e3:.1f} ms; whole round "
           f"{warm['t_all']:.2f} s [{card}]", flush=True)
     del run, warm
+
+    # ---------------- speculative decoding on the same model, counted
+    launches.update(serve_spec(params, vf, cfg, card))
+    elapsed("speculative decoding (phase 22)")
 
     # ---------------- quantized serving at bench.py's shape, counted
     launches["serve_quantized"] = serve_quantized(params, head, cfg, card)
@@ -5803,6 +6407,14 @@ def main(argv=None) -> int:
                                            "lapha_tpu/ops/flash_attention.py:108"),
         "flash_attention_bwd_dkv_narrowv": ("lapha_tpu_torch/csrc/flash_attention_bwd.cu",
                                             "lapha_tpu/ops/flash_attention.py:165"),
+        # no Pallas kernel: JAX's dense verify attention (XLA einsums) in
+        # decode_step_multi, counted on the spec paths (phases 22 and 11)
+        "spec_verify_attention": ("lapha_tpu_torch/csrc/spec_verify_attention.cu",
+                                  "lapha_tpu/models/qwen2.py:1878"),
+        "spec_verify_attention_q8": ("lapha_tpu_torch/csrc/spec_verify_attention.cu",
+                                     "lapha_tpu/models/qwen2.py:1878"),
+        "spec_verify_attention_sink": ("lapha_tpu_torch/csrc/spec_verify_attention.cu",
+                                       "lapha_tpu/models/qwen2.py:1878"),
     }
     # the softcapped launches (Gemma-2) are counted apart; the dh-256 rows
     # without a softcap (Gemma-3's shapes) count their kernel's launches on

@@ -1,4 +1,4 @@
-from . import sampling
+from . import sampling, spec
 from .adapter import CompletionOutput, FakeEngine, RequestOutput, SamplingParams
 from .client import EngineClient, RemoteEngineAdapter
 from .engine import Engine
@@ -7,4 +7,4 @@ from .scheduler import ContinuousEngine
 
 __all__ = ["CompletionOutput", "ContinuousEngine", "Engine", "EngineClient", "FakeEngine",
            "PrefixCacheStore", "RemoteEngineAdapter", "RequestOutput", "SamplingParams",
-           "sampling"]
+           "sampling", "spec"]

@@ -33,12 +33,24 @@
   ``max_batch // n`` prompts) goes through an internal
   :class:`~.scheduler.ContinuousEngine`, so rows that finish early are
   replaced mid-wave; it falls back to waves wherever the scheduler would
-  change the request (JAX ``generate``). The scheduler draws its own seeds,
-  so sampled tokens differ from the sync path's; greedy tokens agree.
+  change the request (JAX ``generate``), and always under ``spec_decode``.
+  The scheduler draws its own seeds, so sampled tokens differ from the sync
+  path's; greedy tokens agree.
+- ``spec_decode="pld"``: prompt-lookup speculative decoding (``spec.py``).
+  An iteration drafts ``spec_k`` tokens a row by ``spec_ngram``-gram lookup
+  over the row's history and verifies them in one (K+1)-token
+  ``decode_step_multi`` forward (a 1-token one where no live row has a
+  draft); rejected drafts leave holes in the cache, tracked by a per-row
+  validity bitmap, so the decode region is sized (K+1)x the token budget.
+  Greedy streams are the non-speculative loop's; sampled streams keep each
+  position's distribution. The eager loop reads one small tensor back a
+  iteration ("all finished", "any live row has a draft"), where JAX's loop
+  has ``while_loop`` and ``lax.cond``. ``last_spec_stats`` sums the waves of
+  one ``generate`` call.
 
-Not ported yet (they raise ``ValueError("... not yet ported")``):
-``seq_mesh``, ``spec_decode``; sliding-window checkpoints of families other
-than gpt_oss are refused by ``Qwen2Config.from_hf``.
+Not ported yet (it raises ``ValueError("... not yet ported")``):
+``seq_mesh``; sliding-window checkpoints of families other than gpt_oss are
+refused by ``Qwen2Config.from_hf``.
 """
 
 from __future__ import annotations
@@ -81,14 +93,23 @@ class Engine:
         kv_quant: str | None = None,
         seq_mesh=None,
         spec_decode: str | None = None,
+        spec_k: int = 3,
+        spec_ngram: int = 2,
         auto_continuous: bool = False,
     ):
-        for name, val in (("seq_mesh", seq_mesh), ("spec_decode", spec_decode)):
-            if val:
-                raise ValueError(f"{name}: not yet ported")
+        if seq_mesh:
+            raise ValueError("seq_mesh: not yet ported")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant={kv_quant!r}")
+        if spec_decode not in (None, "pld"):
+            raise ValueError(f"unsupported spec_decode={spec_decode!r}")
         self.kv_quant = kv_quant
+        # spec_decode="pld": K drafts an iteration, verified in one (K+1)-token
+        # forward; the decode region is sized (K+1)x the budget (module docstring)
+        self.spec_decode = spec_decode
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
+        self.last_spec_stats: dict | None = None
         self.params = params
         self.cfg = cfg
         self._mod = model_module(cfg)
@@ -270,6 +291,160 @@ class Engine:
             slot += 1
         return toks, lps, finished, h_sum, steps, logits, positions, slot, emitted
 
+    def _decode_spec_impl(self, cache_k, cache_v, presence, last_logits, lens, seq, positions,
+                          slot: int, finished, row_budget, generator, temperature, top_k,
+                          top_p, min_p, rep_pen, T: int, K: int, M: int,
+                          static_top_k: int = 0, cache_scale=None):
+        """The speculative variant of :meth:`_decode_impl` (JAX
+        ``_decode_spec_impl``). Token 0 comes from the prefill logits; then
+        each iteration drafts K tokens a row (``spec.ngram_propose`` over the
+        history ``seq`` (B, H)) and forwards [last token, drafts] through
+        ``decode_step_multi``, or only the last token where no live row has
+        a draft, and runs the acceptance chain (``spec.pick_with_draft``)
+        with presence evolving inside the window. Every iteration advances
+        the shared column by its width; ``valid`` (B, S) marks the columns
+        whose tokens were emitted, ``posm`` each written column's position.
+        The loop stops when every row finished, after T iterations, or when
+        a full window plus the reserved h0 column no longer fits. With
+        ``collect_h0`` a last 1-token forward at the reserved column pools
+        the hidden of rows whose last token was never forwarded (a bonus).
+
+        Returns (tokens (B, T), logprobs (B, T), finished, h_sum (B, H),
+        iterations, active row-iterations, emitted (B,)); the caches are
+        written in place."""
+        from . import spec
+
+        dev = self.device
+        params = self.params
+        step = self._mod.decode_step_multi
+        B = last_logits.shape[0]
+        S = cache_k.shape[3]
+        W = K + 1
+        eos = self._t(self.eos_token_ids or [-1])
+        rows = torch.arange(B, device=dev)
+        pick_kw = dict(repetition_penalty=rep_pen, temperature=temperature, top_k=top_k,
+                       top_p=top_p, min_p=min_p, static_top_k=static_top_k)
+        no_draft = torch.zeros((B,), dtype=torch.bool, device=dev)
+        zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
+
+        def is_eos(t):
+            return (t[..., None] == eos).any(dim=-1)
+
+        def forward(toks_in, pos_in, at: int, hidden: bool):
+            out = step(params, self.cfg, toks_in, pos_in, cache_k, cache_v, at, valid,
+                       return_hidden=hidden, cache_scale=cache_scale, pos_map=posm)
+            return out[0], out[1]
+
+        # the pre-step: token 0 from the prefill logits, forwarded as
+        # iteration 1's first token
+        tok0, lp0 = spec.pick_with_draft(last_logits, generator, zeros, no_draft,
+                                         presence=presence, **pick_kw)
+        emit0 = ~finished & (row_budget > 0)
+        toks = torch.zeros((B, T), dtype=torch.int64, device=dev)
+        lps = torch.zeros((B, T), dtype=torch.float32, device=dev)
+        toks[:, 0] = torch.where(emit0, tok0, 0)
+        lps[:, 0] = torch.where(emit0, lp0, 0.0)
+        em = emit0.long()
+        presence[rows, tok0] = torch.maximum(presence[rows, tok0], emit0.to(presence.dtype))
+        fin = finished | (is_eos(tok0) & emit0) | (em >= row_budget)
+        lens = lens.long()
+        seq = spec.scatter_emit(seq, lens, tok0[:, None], emit0[:, None])
+        cur = lens + emit0.long()
+        arS = torch.arange(S, device=dev)
+        valid = arS[None, :] < lens[:, None]
+        # stored columns' positions: a prompt column's is its index
+        posm = arS[None, :].expand(B, S).contiguous()
+        pos = positions.long()
+        lt = tok0
+        unp = emit0  # lt was emitted and its hidden is not pooled yet
+        hs = torch.zeros((B, self.cfg.hidden_size), device=dev)
+        # the pre-step counts as one active iteration of each emitting row
+        act = emit0.long().sum()
+        it = 0
+        while it < T and slot + W < S:
+            draft, dl = spec.ngram_propose(seq, cur, K, M)
+            active = ~fin
+            # the iteration's one read-back: stop, or verify or single step
+            all_fin, has_drafts = torch.stack(
+                [fin.all(), ((dl > 0) & active).any()]).tolist()
+            if all_fin:
+                break
+            Wb = W if has_drafts else 1
+            toks_in = torch.cat([lt[:, None], draft], dim=1)[:, :Wb]
+            logits_w, hidden = forward(toks_in, pos[:, None] + torch.arange(Wb, device=dev),
+                                       slot, self.collect_h0)
+            em_run, active_i = em, active
+            tok_l, lp_l, emit_l, pool_l = [], [], [], []
+            for i in range(Wb):
+                if i < K and Wb > 1:
+                    d_i, has_d = draft[:, i], active_i & (i < dl)
+                else:
+                    d_i, has_d = zeros, no_draft
+                t_i, l_i = spec.pick_with_draft(logits_w[:, i], generator, d_i, has_d,
+                                                presence=presence, **pick_kw)
+                emit_i = active_i & (em_run < row_budget)
+                # pooled: the draft token was emitted, so its hidden from this
+                # forward joins the h0 sum; the chain also stops on EOS
+                pool_i = (emit_i & (t_i == d_i) & (i < dl) if i < K and Wb > 1
+                          else no_draft)
+                presence[rows, t_i] = torch.maximum(presence[rows, t_i],
+                                                    emit_i.to(presence.dtype))
+                em_run = em_run + emit_i.long()
+                tok_l.append(t_i)
+                lp_l.append(l_i)
+                emit_l.append(emit_i)
+                pool_l.append(pool_i)
+                active_i = pool_i & ~(is_eos(t_i) & emit_i)
+            tok_w, lp_w = torch.stack(tok_l, 1), torch.stack(lp_l, 1)
+            emit_w, pool_w = torch.stack(emit_l, 1), torch.stack(pool_l, 1)
+
+            # the window's bookkeeping (JAX window_post)
+            e = emit_w.long().sum(dim=1)
+            fin = fin | (emit_w & is_eos(tok_w)).any(dim=1) | (em_run >= row_budget)
+            toks = spec.scatter_emit(toks, em, tok_w, emit_w)
+            lps = spec.scatter_emit(lps, em, lp_w, emit_w)
+            seq = spec.scatter_emit(seq, cur, tok_w, emit_w)
+            # column slot holds lt's KV (valid iff the row decoded), slot + 1 + i
+            # draft i's (valid iff that draft was emitted); all of them held a
+            # token at position pos + offset, valid or hole alike
+            valid[:, slot:slot + Wb] = torch.cat([active[:, None], pool_w[:, :Wb - 1]], dim=1)
+            posm[:, slot:slot + Wb] = pos[:, None] + torch.arange(Wb, device=dev)
+            last_pooled = ~unp
+            for i in range(Wb):
+                lt = torch.where(emit_w[:, i], tok_w[:, i], lt)
+                last_pooled = torch.where(emit_w[:, i], pool_w[:, i], last_pooled)
+            unp = torch.where(e > 0, ~last_pooled, unp)
+            if self.collect_h0:
+                hs += hidden[:, 0].float() * active[:, None]
+                for i in range(Wb - 1):
+                    hs += hidden[:, 1 + i].float() * pool_w[:, i][:, None]
+            act = act + active.long().sum()
+            em = em_run
+            pos = pos + e
+            cur = cur + e
+            slot += Wb
+            it += 1
+        if self.collect_h0:
+            # rows whose last emitted token was a bonus (never forwarded): one
+            # 1-token forward at the reserved column (never marked valid)
+            _, hid1 = forward(lt[:, None], pos[:, None], min(slot, S - 1), True)
+            hs += hid1[:, 0].float() * unp[:, None]
+        return toks, lps, fin, hs, it, int(act), em
+
+    def _add_spec_stats(self, tokens: int, iterations: int, active: int) -> None:
+        """Sum one wave into ``last_spec_stats``: tokens emitted, iterations,
+        and active row-iterations (the pre-step counted as one of each
+        emitting row), whose ratio is the tokens a row gets an iteration:
+        1.0 when no draft is ever accepted, K + 1 when all are."""
+        prev = self.last_spec_stats or {"iterations": 0, "tokens": 0,
+                                        "active_row_iterations": 0}
+        tot_tok = prev["tokens"] + tokens
+        tot_act = prev["active_row_iterations"] + active
+        self.last_spec_stats = {
+            "iterations": prev["iterations"] + iterations, "tokens": tot_tok,
+            "active_row_iterations": tot_act,
+            "tokens_per_iteration": round(tot_tok / max(1, tot_act), 3)}
+
     # ------------------------------------------------------------------ public API
 
     def update_params(self, params) -> None:
@@ -285,6 +460,8 @@ class Engine:
         prompts = list(prompts)
         group = max(1, self.max_batch // n)
         self.last_timings = {"prefill_s": 0.0, "decode_s": 0.0, "decode_steps": 0}
+        if self.spec_decode is not None:
+            self.last_spec_stats = None  # summed over this call's waves
         if self.auto_continuous and len(prompts) > group:
             sched = self._continuous()
             # routing must not change the request, so it falls back to waves
@@ -293,7 +470,7 @@ class Engine:
             # prompt beyond its slab (submit would left-truncate it). The
             # encodings go on to submit, or to the waves, so prompts are
             # tokenized once.
-            if n <= sched.B:
+            if sched is not None and n <= sched.B:
                 max_new = int(getattr(sp, "max_tokens", 256) or 256)
                 if max_new <= sched.S - sched.slab:
                     encs = [list(self.tokenizer(p, add_special_tokens=True)["input_ids"])
@@ -316,7 +493,11 @@ class Engine:
 
     def _continuous(self):
         """The internal :class:`~.scheduler.ContinuousEngine` of
-        ``auto_continuous``, built and started on first use."""
+        ``auto_continuous``, built and started on first use; None under
+        ``spec_decode`` (the scheduler's loop does not speculate), and the
+        caller falls back to waves."""
+        if self.spec_decode is not None:
+            return None
         if self._auto_sched is None:
             from .scheduler import ContinuousEngine
 
@@ -437,6 +618,12 @@ class Engine:
         max_new = int(getattr(sp, "max_tokens", 256) or 256)
         Lp = _round_up(min(self.max_model_len, max_len), self.pad_multiple)
         S = _round_up(Lp + max_new, self.pad_multiple)
+        spec = self.spec_decode is not None
+        if spec:
+            # an iteration writes K+1 columns and emits at least one token: the
+            # decode region holds the budget at (K+1)x, + the reserved h0 column
+            budget0 = min(max_new, S - Lp)
+            S = _round_up(Lp + budget0 * (self.spec_k + 1) + 1, self.pad_multiple)
 
         t0 = time.perf_counter()
         last_logits, (ck, cv), h_prompt = self._prefill_rows(enc, S)
@@ -456,7 +643,8 @@ class Engine:
         finished[P * n:] = True
 
         rp_val = float(getattr(sp, "repetition_penalty", 1.0) or 1.0)
-        use_presence = rp_val != 1.0
+        # the spec loop threads presence through its acceptance chain
+        use_presence = rp_val != 1.0 or spec
         presence = None
         if use_presence:
             pres = np.zeros((B, self.cfg.vocab_size), np.int8)
@@ -486,15 +674,18 @@ class Engine:
 
         # every row finishes within `budget` steps, so the loop runs at most
         # that many (the JAX loop's emit buffer is rounded up to a compile
-        # bucket; an eager loop needs no bucket)
-        budget = min(max_new, S - Lp)
+        # bucket; an eager loop needs no bucket). The spec loop keeps JAX's
+        # bucket: it also stops after that many iterations.
+        budget = (min(max_new, (S - Lp - 1) // (self.spec_k + 1)) if spec
+                  else min(max_new, S - Lp))
         h_gen = None
         if budget > 0:
             t0 = time.perf_counter()
             lens_t = self._t(lens)
-            # the windowed-short install, where it saves (long prompts)
+            # the windowed-short install, where it saves (long prompts); the
+            # spec loop keeps full-S panels (its windows go by position)
             win_pad, win_cache = 0, None
-            if self._win_split is not None:
+            if self._win_split is not None and not spec:
                 Wpad = _round_up(self._win_split[2], min(self.pad_multiple, 128))
                 if Wpad + (S - Lp) + min(self.pad_multiple, 128) <= S:
                     win_pad = Wpad
@@ -513,16 +704,30 @@ class Engine:
                 if win_cache is not None:
                     wk, wv, (wks, wvs) = self._quantize_cache(win_cache["k"], win_cache["v"])
                     win_cache.update(k=wk, v=wv, ks=wks, vs=wvs)
-            toks_d, lps_d, finished, hs, steps, *_ = self._decode_impl(
-                ck, cv, presence, last_logits, self._t(lens.astype(np.int32)),
-                torch.full((B,), Lp, dtype=torch.int32, device=dev),
-                lens_t, Lp, finished,
-                torch.full((B,), budget, dtype=torch.int64, device=dev), generator,
-                temperature, top_k, top_p, min_p, rep_pen, T=budget,
-                static_top_k=static_top_k, use_presence=use_presence,
-                cache_scale=cache_scale, win_cache=win_cache, win_pad=win_pad)
-            toks = toks_d.cpu().numpy()
-            lps = lps_d.cpu().numpy()
+            row_budget = torch.full((B,), budget, dtype=torch.int64, device=dev)
+            if spec:
+                T = _round_up(budget, self.decode_chunk)
+                # the token history the drafts are looked up in: prompt, then
+                # every emitted token
+                seq = np.zeros((B, Lp + T), np.int64)
+                for r in range(P * n):
+                    seq[r, :lens[r]] = enc[row_of[r]]
+                toks_d, lps_d, finished, hs, steps, act, em = self._decode_spec_impl(
+                    ck, cv, presence, last_logits, lens_t, self._t(seq), lens_t, Lp, finished,
+                    row_budget, generator, temperature, top_k, top_p, min_p, rep_pen, T=T,
+                    K=self.spec_k, M=self.spec_ngram, static_top_k=static_top_k,
+                    cache_scale=cache_scale)
+                self._add_spec_stats(int(em[:P * n].sum()), steps, act)
+            else:
+                toks_d, lps_d, finished, hs, steps, *_ = self._decode_impl(
+                    ck, cv, presence, last_logits, self._t(lens.astype(np.int32)),
+                    torch.full((B,), Lp, dtype=torch.int32, device=dev),
+                    lens_t, Lp, finished, row_budget, generator,
+                    temperature, top_k, top_p, min_p, rep_pen, T=budget,
+                    static_top_k=static_top_k, use_presence=use_presence,
+                    cache_scale=cache_scale, win_cache=win_cache, win_pad=win_pad)
+            toks = toks_d[:, :budget].cpu().numpy()
+            lps = lps_d[:, :budget].cpu().numpy()
             if self.collect_h0:
                 h_gen = hs.cpu().numpy()
             self.last_timings["decode_s"] += time.perf_counter() - t0

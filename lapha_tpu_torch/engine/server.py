@@ -22,8 +22,9 @@ and batch together on the device; without it a lock serializes them.
 
 ``main`` is the CLI (``python -m lapha_tpu_torch.engine.server --model
 DIR``): JAX's flags, plus ``--device {cuda,cpu}`` (default cuda, which raises
-without a card). ``--spec-decode`` and ``--sequence-parallel`` above 1 raise
-(not ported: ROADMAP A8, A11).
+without a card). ``--spec-decode pld`` serves through the sync path (the
+scheduler's loop does not speculate), as JAX's does. ``--sequence-parallel``
+above 1 raises (not ported: ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -339,7 +340,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-quant", choices=["int8"], default=None,
                     help="int8 KV cache with per-vector scales")
     ap.add_argument("--spec-decode", choices=["pld"], default=None,
-                    help="prompt-lookup speculative decoding (not ported: raises)")
+                    help="prompt-lookup speculative decoding (serves through the "
+                         "sync path)")
     ap.add_argument("--sequence-parallel", type=int, default=0,
                     help="sequence-parallel serving over devices (not ported: "
                          "above 1 raises)")
@@ -363,7 +365,9 @@ def main(argv=None, *, tokenizer_override=None, background: bool = False):
 
     device = _device(args.device, "engine.server (--device)")
     if args.spec_decode:
-        raise ValueError("--spec-decode: speculative decoding is not yet ported (ROADMAP A8)")
+        # the scheduler's chunked loop does not speculate; spec serving uses
+        # the sync engine path
+        args.no_continuous_batching = True
     if args.sequence_parallel > 1:
         raise ValueError("--sequence-parallel above 1: not yet ported (ROADMAP A11)")
     if tokenizer_override is not None:
@@ -376,7 +380,8 @@ def main(argv=None, *, tokenizer_override=None, background: bool = False):
             tokenizer.pad_token = tokenizer.eos_token
     params, cfg = loader.load_params(args.model, device=device, quantize=args.quantize)
     engine = Engine(params, cfg, tokenizer, max_model_len=args.max_model_len,
-                    max_batch=args.max_batch, kv_quant=args.kv_quant, device=device)
+                    max_batch=args.max_batch, kv_quant=args.kv_quant,
+                    spec_decode=args.spec_decode, device=device)
     httpd = serve(engine, args.host, args.port, model_dir=args.model, background=True,
                   continuous=not args.no_continuous_batching, prompt_slab=args.prompt_slab,
                   profile_dir=args.profile_dir, quantize=args.quantize)

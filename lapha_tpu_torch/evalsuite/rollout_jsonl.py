@@ -340,8 +340,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-batch", type=int, default=int(os.getenv("TPU_MAX_BATCH", "16")))
     ap.add_argument("--seed", type=int, default=0)
     # net-new serving levers (engine/engine.py; env-overridable): int8 KV
-    # cache, and prompt-lookup speculative decoding, which main refuses as
-    # not yet ported (ROADMAP A8; the flags stay for CLI compatibility)
+    # cache and prompt-lookup speculative decoding
     ap.add_argument("--kv-quant", choices=["int8"],
                     default=os.getenv("TPU_KV_QUANT") or None)
     ap.add_argument("--spec-decode", choices=["pld"],
@@ -362,9 +361,6 @@ def main(argv=None, *, engine_override=None, value_fn_override=None, tokenizer_o
     if args.tensor_parallel_size > 1:
         raise ValueError(f"--tensor-parallel-size {args.tensor_parallel_size}: the port runs "
                          "on one device; multi-device serving is ROADMAP A11")
-    if args.spec_decode:
-        raise ValueError(f"--spec-decode {args.spec_decode}: speculative decoding is not yet "
-                         "ported to lapha_tpu_torch: ROADMAP A8")
 
     if tokenizer_override is not None:
         tokenizer = tokenizer_override
@@ -395,6 +391,9 @@ def main(argv=None, *, engine_override=None, value_fn_override=None, tokenizer_o
             engine_kw["collect_h0"] = True  # fused value scoring
         if args.kv_quant:
             engine_kw["kv_quant"] = args.kv_quant
+        if args.spec_decode:
+            engine_kw["spec_decode"] = args.spec_decode
+            engine_kw["spec_k"] = int(args.spec_k)
         llm = build_engine_adapter(args.engine, tokenizer=tokenizer, device=device, **engine_kw)
 
     agent = None

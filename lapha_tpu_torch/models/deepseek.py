@@ -45,8 +45,11 @@ here too.
 ``export_hf`` writes the tree back to an HF-layout checkpoint (the
 trainer's ``save_model``).
 
-Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
-item): ``decode_step_multi`` (A8, speculative decoding) and
+``decode_step_multi`` is the T-token verify of speculative decoding: the
+same weight absorption over a block of tokens a row, with a per-row
+validity bitmap.
+
+Not ported yet (it raises ``NotImplementedError`` naming its ROADMAP item):
 ``moe_impl="dispatch"`` (A11).
 """
 
@@ -524,8 +527,82 @@ def decode_step(
     return out + (cache_scale,) if q8 else out
 
 
-def decode_step_multi(*args, **kwargs):
-    _not_ported("decode_step_multi (the T-token speculative verify)", "A8, speculative decoding")
+def decode_step_multi(
+    params: dict,
+    cfg: DeepseekConfig,
+    toks: torch.Tensor,       # (B, T) — [last emitted, draft_1 .. draft_{T-1}]
+    positions: torch.Tensor,  # (B, T) — true sequence positions (RoPE)
+    cache_k: torch.Tensor,    # (L, B, 1, S, cache_width) — decode layout
+    cache_v: torch.Tensor,    # carried inert (init_kv_cache)
+    slot: int,                # the first cache column of this block
+    valid_map: torch.Tensor,  # (B, S) bool — each row's stored-latent validity
+    return_hidden: bool = False,
+    cache_scale: tuple[torch.Tensor, torch.Tensor] | None = None,
+    pos_map: torch.Tensor | None = None,  # accepted for the engine's contract; unused
+):
+    """The T-token MLA verify of speculative decoding (JAX
+    ``decode_step_multi``): :func:`decode_step`'s weight absorption over a
+    block of T tokens a row, with ``qwen2.decode_step_multi``'s contract. The
+    T latents are written at [slot, slot + T) IN PLACE (int8 with one scale a
+    (b, t) vector under ``cache_scale``); query t sees the columns where
+    ``valid_map`` holds and the new columns slot .. slot + t. ``pos_map`` is
+    unused: MLA stacks have no sliding windows.
+
+    Returns (logits (B, T, V) f32, hidden (B, T, H) | None, cache_k,
+    cache_v), plus the (ks, vs) tuple when ``cache_scale`` is given."""
+    del pos_map
+    B, T = toks.shape
+    S = cache_k.shape[3]
+    nh, r = cfg.num_attention_heads, cfg.kv_lora_rank
+    q8 = cache_scale is not None
+    slot = int(slot)
+    x = qwen2._embed(params, cfg, toks)  # (B, T, H)
+    dt = x.dtype
+    cos, sin = rope_freqs(positions, cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_scaling)
+    rel = torch.arange(S, device=x.device)[None, None, :] - slot  # new columns: 0..T-1
+    causal_new = (rel >= 0) & (rel <= torch.arange(T, device=x.device)[None, :, None])
+    valid = (valid_map[:, None, :] != 0) | causal_new            # (B, T, S)
+    valid = valid[:, :, None, :].expand(B, T, nh, S).reshape(B, T * nh, S)
+    for l, p in enumerate(_layers(params)):
+        a = p["attn"]
+        h = rms_norm(x, p["input_layernorm"]["scale"], cfg.rms_norm_eps)
+        q_nope, q_pe = _q_heads(cfg, a, h).split(
+            [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], -1)          # (B, T, nh, .)
+        q_pe = _apply_rope_ds(q_pe, cos, sin, cfg.rope_interleave)
+        c1, kpe1 = _latent(cfg, a, h, cos, sin)                         # (B, T, r), (B, T, 1, p)
+        lat = torch.cat([c1, kpe1[:, :, 0]], dim=-1)                   # (B, T, W)
+        if q8:
+            lat_q, s_vec = qwen2._quantize_kv(lat)
+            cache_k[l, :, 0, slot:slot + T] = lat_q
+            cache_scale[0][l, :, 0, slot:slot + T] = s_vec
+            ks = cache_scale[0][l, :, 0]                                # (B, S)
+        else:
+            cache_k[l, :, 0, slot:slot + T] = lat
+        cc, kp = cache_k[l, :, 0, :, :r], cache_k[l, :, 0, :, r:]       # (B, S, r), (B, S, rope)
+        if q8:
+            cc, kp = cc.to(dt), kp.to(dt)
+        wk, wv = _split_kv_b(cfg, a, dt)
+        # q_lat[b, t, h] = W_UK,h^T q_nope[b, t, h]: a product per head
+        qn = q_nope.reshape(B * T, nh, -1).transpose(0, 1)              # (nh, B·T, dn)
+        q_lat = _bmm_f32(qn, wk.permute(1, 2, 0)).to(dt).transpose(0, 1).reshape(B, T * nh, r)
+        scores = (_bmm_f32(q_lat, cc.transpose(1, 2))
+                  + _bmm_f32(q_pe.reshape(B, T * nh, -1), kp.transpose(1, 2)))  # (B, T·nh, S)
+        if q8:
+            scores = scores * ks[:, None, :]
+        scores = torch.where(valid, scores * cfg.attn_scale_, -1e30)
+        attn = torch.softmax(scores, dim=-1)
+        if q8:
+            attn = attn * ks[:, None, :]
+        ctx = _bmm_f32(attn.to(dt), cc).to(dt)                          # (B, T·nh, r)
+        ctx = ctx.reshape(B * T, nh, r).transpose(0, 1)                 # (nh, B·T, r)
+        out = _bmm_f32(ctx, wv.transpose(0, 1)).to(dt)                  # (nh, B·T, dv)
+        xb = x + _o_proj(cfg, p, out.transpose(0, 1)).reshape(B, T, -1)
+        h2 = rms_norm(xb, p["post_attention_layernorm"]["scale"], cfg.rms_norm_eps)
+        x = xb + _ffn(cfg, p, h2).to(dt)
+    hidden = rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps)
+    logits = qwen2._lm_head(params, cfg, hidden)
+    out = (logits, (hidden if return_hidden else None), cache_k, cache_v)
+    return out + (cache_scale,) if q8 else out
 
 
 # ----------------------------------------------------------------------------

@@ -11,8 +11,9 @@ Attention goes through the port's kernels: the no-cache forward through
 ``flash_attention`` (the value forward and the training forward, whose
 backward is the flash backward pair), the cache-threaded forward through
 ``flash_attention_cached`` (every engine prefill) and ``decode_step``
-through ``ragged_decode_attention``. On the CPU those are their plain
-PyTorch versions.
+through ``ragged_decode_attention``; the T-token verify of speculative
+decoding (``decode_step_multi``) through ``spec_verify_attention``. On the
+CPU those are their plain PyTorch versions.
 
 The attention projections are ``torch.matmul``/``torch.addmm`` in the
 working dtype (f32 accumulation inside, one rounding to the dtype at the
@@ -73,9 +74,8 @@ the JAX model's ``remat_policy``; gradients reach the stacked parameters
 through one ``unbind`` per leaf (``_layer_stack``).
 
 Not ported yet: OLMo-2 (post-norms only, full-width q/k norms) and SmolLM3
-(NoPE layers), which ``from_hf`` refuses (ROADMAP A9), ``decode_step_multi``
-and the named remat policies (``save_qkv``, ``save_attn``,
-``save_qkv_attn``).
+(NoPE layers), which ``from_hf`` refuses (ROADMAP A9), and the named remat
+policies (``save_qkv``, ``save_attn``, ``save_qkv_attn``).
 """
 
 from __future__ import annotations
@@ -90,6 +90,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import flash_attention, flash_attention_cached
 from ..ops.int4_matmul import int4_matmul
 from ..ops.ragged_decode_attention import ragged_decode_attention, ragged_decode_plain
+from ..ops.spec_verify_attention import spec_verify_attention
 from .quant import dequant, is_quantized
 
 # int4 projections with at most this many rows run the int4 kernel; larger
@@ -1144,3 +1145,81 @@ def decode_step(
     if cache_scale is not None:
         out = out + (cache_scale,)
     return out if win_cache is None else out + (win_cache,)
+
+
+def decode_step_multi(
+    params: dict,
+    cfg: Qwen2Config,
+    toks: torch.Tensor,       # (B, T) — [last emitted, draft_1 .. draft_{T-1}]
+    positions: torch.Tensor,  # (B, T) — true sequence positions (RoPE)
+    cache_k: torch.Tensor,    # (L, B, nkv, S, dh) — slot-uniform decode layout
+    cache_v: torch.Tensor,
+    slot: int,                # the first cache column of this block
+    valid_map: torch.Tensor,  # (B, S) bool — each row's stored-column validity
+    return_hidden: bool = False,
+    cache_scale: tuple[torch.Tensor, torch.Tensor] | None = None,
+    pos_map: torch.Tensor | None = None,  # (B, S) — the stored columns' positions
+):
+    """The T-token verify step of speculative decoding (JAX
+    ``decode_step_multi``): a block of T tokens a row forwards against the
+    decode cache in one pass, so the weights are read once for T tokens.
+
+    - The T new K/V columns are written at [slot, slot + T) IN PLACE; with
+      ``cache_scale=(ks, vs)`` (each (L, B, nkv, S) f32) they are quantized
+      per (b, t, head) vector by ``_quantize_kv``, the values one step at a
+      time gives.
+    - Validity is the per-row bitmap ``valid_map``: rejected drafts leave
+      holes that ranges cannot express. Query t also sees the new columns
+      slot .. slot + t. Attention goes through
+      ``ops.spec_verify_attention`` (the kernel on the card, its plain
+      version on the CPU).
+    - Windowed layers band by position: the engine's ``pos_map`` gives each
+      stored column's position, the new columns take ``positions``.
+    - Every family that ``Qwen2Config.from_hf`` takes: q/k norms, Gemma's
+      sandwich norms, softcap and local rope theta on sliding layers,
+      GPT-OSS's sinks and o_proj bias, MoE MLPs, int8 and int4 weights
+      (decode_step's projections).
+
+    Returns (logits (B, T, V) f32, hidden (B, T, H) | None, cache_k,
+    cache_v), plus the (ks, vs) tuple when ``cache_scale`` is given."""
+    L = cfg.num_hidden_layers
+    nh, nkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    B, T = toks.shape
+    W_layers = [cfg.window_for_layer(l) for l in range(L)]
+    if any(W_layers) and pos_map is None:
+        raise ValueError("decode_step_multi: windowed stacks need the engine's pos_map")
+    slot = int(slot)
+    x = _embed(params, cfg, toks)  # (B, T, H)
+    rope_of = _rope_tables(cfg, positions)
+    # the attention's index arguments, converted once for every layer
+    pos32 = positions.to(torch.int32)
+    pm32 = pos_map.to(torch.int32) if any(W_layers) else None
+    for l, p in enumerate(_layer_stack(params)):
+        a = p["attn"]
+        h = _norm(x, p["input_layernorm"], cfg)
+        q = _qk_norm(cfg, a, "q_norm",
+                     _proj_decode(h, a["q_proj"]["w"], a["q_proj"]["b"]).reshape(B, T, nh, dh))
+        k = _qk_norm(cfg, a, "k_norm",
+                     _proj_decode(h, a["k_proj"]["w"], a["k_proj"]["b"]).reshape(B, T, nkv, dh))
+        cos, sin = rope_of(W_layers[l])
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        v = _proj_decode(h, a["v_proj"]["w"], a["v_proj"]["b"]).reshape(B, T, nkv, dh)
+        if cache_scale is not None:
+            (kq, sk), (vq, sv) = _quantize_kv(k), _quantize_kv(v)
+            cache_k[l, :, :, slot:slot + T] = kq.transpose(1, 2)
+            cache_v[l, :, :, slot:slot + T] = vq.transpose(1, 2)
+            cache_scale[0][l, :, :, slot:slot + T] = sk.transpose(1, 2)
+            cache_scale[1][l, :, :, slot:slot + T] = sv.transpose(1, 2)
+        else:
+            cache_k[l, :, :, slot:slot + T] = k.transpose(1, 2)
+            cache_v[l, :, :, slot:slot + T] = v.transpose(1, 2)
+        o = spec_verify_attention(q, cache_k, cache_v, l, slot, valid_map, pos32, pm32,
+                                  W_layers[l], cfg.attn_scale_, cache_scale=cache_scale,
+                                  sinks=a["sinks"] if cfg.attn_sinks else None,
+                                  softcap=cfg.attn_softcap)
+        x = _residual(cfg, p, x, _proj_decode(o.reshape(B, T, nh * dh), a["o_proj"]["w"],
+                                              _o_bias(cfg, a)))
+    x = _norm(x, params["norm"], cfg)
+    logits = _lm_head(params, cfg, x)
+    out = (logits, (x if return_hidden else None), cache_k, cache_v)
+    return out if cache_scale is None else out + (cache_scale,)

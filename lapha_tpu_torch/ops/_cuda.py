@@ -44,6 +44,9 @@ LAUNCHES = {name + cap: 0
                          "flash_attention_bwd_dkv_narrowv", "flash_attention_bwd_dq_narrowv_window",
                          "flash_attention_bwd_dkv_narrowv_window")
             for cap in ("", "_softcap")}
+# the verify attention of speculative decoding, per entry, capped or not
+LAUNCHES.update({"spec_verify_attention" + q8 + sink + cap: 0
+                 for q8 in ("", "_q8") for sink in ("", "_sink") for cap in ("", "_softcap")})
 LAUNCHES.update({name: 0 for name in (
     "int4_matmul", "grouped_gemm", "grouped_gemm_wg", "grouped_gemm_dx", "grouped_gemm_tgmm")})
 
@@ -137,6 +140,13 @@ def lib() -> ctypes.CDLL:
         dll.lapha_ragged_decode_q8_sink.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                                     _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
         dll.lapha_ragged_decode_q8_sink.restype = _I
+        # the verify entries: q k v [k/v scales] valid_map positions pos_map
+        # [sinks], then layer slot T window, out, B nh nkv S dh, scale, softcap
+        tail = [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P]
+        for entry, ptrs in (("lapha_spec_verify", 6), ("lapha_spec_verify_q8", 8),
+                            ("lapha_spec_verify_sink", 7), ("lapha_spec_verify_q8_sink", 9)):
+            getattr(dll, entry).argtypes = [_P] * ptrs + tail
+            getattr(dll, entry).restype = _I
         # x packed scales out, then B IN OUT G, the plan: rows, columns, splits
         dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         dll.lapha_int4_matmul.restype = _I

@@ -143,6 +143,7 @@ class MTPOTrainer:
             collect_h0=True,  # fused value scoring during rollouts
             kv_quant=args.engine_kv_quant,
             spec_decode=args.engine_spec_decode,
+            spec_k=args.engine_spec_k,
         )
         self.value_fn = ValueFunction(
             self.params, self.head, self.model_cfg,

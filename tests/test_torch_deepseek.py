@@ -509,12 +509,15 @@ def test_value_model_and_function_match_jax(loaded):
 # ---------------------------------------------------------------- refusals
 
 def test_unported_parts_raise_naming_their_items(v2, tmp_path):
-    """decode_step_multi (A8), the dispatch impl (A11) and a windowed-short
-    cache raise. export_hf, which raised here until it was ported, now
-    writes the tree: the loader reads the export back bit-equal."""
+    """The dispatch impl (A11) and a windowed-short cache raise. export_hf
+    and decode_step_multi (A8), which raised here until they were ported,
+    now write the tree (the loader reads the export back bit-equal) and
+    verify a block (its parity with JAX: tests/test_torch_spec.py)."""
     _, _, tcfg, tp = v2
-    with pytest.raises(NotImplementedError, match="A8"):
-        td.decode_step_multi(tp, tcfg)
+    ck, cv = (c.permute(0, 1, 3, 2, 4) for c in td.init_kv_cache(tcfg, 1, 8))
+    toks, pos = torch.ones((1, 2), dtype=torch.int64), torch.tensor([[0, 1]])
+    out = td.decode_step_multi(tp, tcfg, toks, pos, ck, cv, 0, torch.zeros((1, 8), dtype=torch.bool))
+    assert out[0].shape == (1, 2, tcfg.vocab_size) and bool(torch.isfinite(out[0]).all())
     td.export_hf(tp, tcfg, str(tmp_path))
     back, _ = loader.load_params(str(tmp_path), cfg=tcfg, dtype=torch.float32, device="cpu")
     assert back.keys() == tp.keys()

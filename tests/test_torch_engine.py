@@ -183,12 +183,16 @@ def test_sampled_tokens_inside_keep_set_with_softmax_frequencies():
 
 
 def test_unported_engine_knobs_raise(engines):
-    """spec_decode and seq_mesh are not ported (auto_continuous is: see
-    tests/test_torch_scheduler.py)."""
+    """seq_mesh is not ported (auto_continuous is: see
+    tests/test_torch_scheduler.py; spec_decode="pld" is: see
+    tests/test_torch_spec_engine.py); spec_decode takes "pld" only, as the
+    JAX engine."""
     _, teng = engines
-    for kw in (dict(spec_decode="pld"), dict(seq_mesh=object())):
-        with pytest.raises(ValueError, match="not yet ported"):
-            Engine(teng.params, teng.cfg, IdTok(), **kw)
+    with pytest.raises(ValueError, match="not yet ported"):
+        Engine(teng.params, teng.cfg, IdTok(), seq_mesh=object())
+    assert Engine(teng.params, teng.cfg, IdTok(), spec_decode="pld").spec_decode == "pld"
+    with pytest.raises(ValueError, match="spec_decode"):
+        Engine(teng.params, teng.cfg, IdTok(), spec_decode="eagle")
     # kv_quant takes "int8" only, as the JAX engine
     with pytest.raises(ValueError, match="kv_quant"):
         Engine(teng.params, teng.cfg, IdTok(), kv_quant="fp4")

@@ -264,8 +264,9 @@ def _write_checkpoint(tcfg, tp, d):
 def test_main_serves_and_reloads_weights(tmp_path, monkeypatch):
     """The CLI on the CPU (f32 loads): continuous by default, then
     /reload_weights from the same directory gives the same greedy answer
-    and clears the prefix store; without a card --device cuda raises, and
-    the unported options raise."""
+    and clears the prefix store; without a card --device cuda raises;
+    --spec-decode pld serves through the sync path; --sequence-parallel 2
+    (not ported) raises."""
     _, _, tcfg, tp = _weights(7)
     d = str(tmp_path / "ckpt")
     _write_checkpoint(tcfg, tp, d)
@@ -294,10 +295,17 @@ def test_main_serves_and_reloads_weights(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             engine_server.main(["--model", d, "--port", "0"], tokenizer_override=ByteTok(),
                                background=True)
-    for extra in (["--spec-decode", "pld"], ["--sequence-parallel", "2"]):
-        with pytest.raises(ValueError, match="not yet ported"):
-            engine_server.main(["--model", d, "--device", "cpu", *extra],
+    httpd = engine_server.main(["--model", d, "--device", "cpu", "--port", "0", "--host",
+                                "127.0.0.1", "--spec-decode", "pld"],
                                tokenizer_override=ByteTok(), background=True)
+    try:
+        srv = httpd.engine_server
+        assert srv.scheduler is None and srv.engine.spec_decode == "pld"
+    finally:
+        httpd.shutdown()
+    with pytest.raises(ValueError, match="not yet ported"):
+        engine_server.main(["--model", d, "--device", "cpu", "--sequence-parallel", "2"],
+                           tokenizer_override=ByteTok(), background=True)
 
 
 @pytest.fixture(scope="module")
