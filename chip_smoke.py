@@ -129,17 +129,21 @@ below are the published model's:
    next layer (K4/K5).
 1m. The verify attention of speculative decoding (``spec_verify_attention``:
    no Pallas kernel, JAX's dense verify in ``qwen2.decode_step_multi``)
-   against its plain version at B=24 rows of an S=1152 cache whose decode
-   region has random holes, T = 1 and 4 queries a row at slot 1140:
+   against its plain version in an S=1152 cache whose decode region has
+   random holes, at slot 1140: B=24 rows at T = 1, 4 and 8 queries a row,
+   B=4 and B=1 at T = 1 and 4 (bf16), and a row whose only live columns are
+   the block's new ones (B=1, T=4: most of the cluster's shares are empty);
    Qwen2.5-1.5B's 12/2 heads of dim 128 (bf16 and int8), GPT-OSS-20B's
    64/8 of dim 64 with sinks and a window of 128 by position (bf16 and
    int8), Gemma-2-2B's 8/4 of dim 256 with the softcap 50 (q x25 so that
    it bites), Phi-3-mini's 32/32 of dim 96 (W 2047) and StarCoder2-3B's
-   24/2; phase 1/1c's limits, two launches bit-equal, and two planted
-   faults that must fail: the holes read as valid, and the causal rule
-   among the new columns off by one. Timed as CUDA-graph replays beside
-   the plain version and SDPA with the boolean (B, nh, T, S) mask where
-   that computes the same function (bf16, no sinks, no softcap).
+   24/2; phase 1/1c's limits, two launches bit-equal, and planted faults
+   that must fail: the holes read as valid, the causal rule among the new
+   columns off by one, and (Qwen2.5 bf16, where the plan splits a row) a
+   build of the kernel whose cluster merge leaves the last rank's partial
+   out. Timed as CUDA-graph replays beside the plain version and SDPA
+   with the boolean (B, nh, T, S) mask where that computes the same
+   function (bf16, no sinks, no softcap).
 2d. Two full-width Qwen1.5-MoE-A2.7B layers, card (kernels, bf16) against
    CPU (plain versions, f32): prefill + one decode step, relative error of
    the logits <= 5e-2, with the count of (token, layer) routing choices
@@ -186,8 +190,13 @@ below are the published model's:
    round with speculative decoding (2 prompts with a repeated tail x n 4,
    64 tokens, K 3, M 2, bf16 KV) against the same engine without it:
    phase 22's agreement rule, the sink verify entry 8 x iterations,
-   counted as "serve_gptoss_spec". The GPT-OSS model is freed before the
-   Gemma models are made.
+   counted as "serve_gptoss_spec". Then ROADMAP C7's probe, printed only:
+   one more token of 16 rows after a block of 160 through
+   ``decode_step`` (K5s) and through ``decode_step_multi`` at T=1 (the
+   verify kernel's sink entry) on copies of one cache, per layer the
+   router input's max |h_a - h_b|, the router logits' difference, the rows
+   routed otherwise and the 4th-5th logit gap. The GPT-OSS model is freed
+   before the Gemma models are made.
 2f. Two full-width layers of each Gemma model, phase 2's check (Gemma-3 at
    prompts of 560 and 534 tokens, past its 512-token window).
 12. Gemma serving at full width, from the published config.json
@@ -236,7 +245,11 @@ below are the published model's:
    rounds with bf16 KV and int8 KV, counted under "serve_phi3" /
    "serve_starcoder2" (the windowed K1/K3 and K4/K5 and nothing else:
    dh 96 for Phi-3, the group of 12 for StarCoder2), phase 4's checks, a
-   warm round timed, peak memory, one decode step profiled.
+   warm round timed, then phase 11's spec round (2 prompts with a repeated
+   tail x n 4, 64 tokens, K 3, M 2, bf16 KV) against the same engine
+   without it, counted as "serve_phi3_spec" / "serve_starcoder2_spec"
+   (the verify kernel's bf16 entry L x iterations, at dh 96 and at the
+   group of 12), peak memory, one decode step profiled.
 2. Check the kernel path against the plain path on a small input: two
    layers of the full-width model, prefill + one decode step, on the card
    (kernels, bf16) and on the CPU (plain versions, f32); relative error of
@@ -458,7 +471,8 @@ serve_quantized: phase 8; eval_value, eval_value_q8, eval_react and
 eval_single: phase 19; train_step: phase 6; update: phase 7;
 update_moe, update_gptoss and train_step_moe: phase 13; update_gemma2,
 update_gemma3 and train_step_gemma2: phase 14; update_deepseek and
-train_step_deepseek: phase 16; serve_phi3 and serve_starcoder2: phase 17;
+train_step_deepseek: phase 16; serve_phi3, serve_starcoder2, serve_phi3_spec
+and serve_starcoder2_spec: phase 17;
 update_phi3, update_starcoder2 and train_step_phi3: phase 18; train_entry:
 phase 20; serve_http and serve_http_q8: phase 21). Prints the
 card's name and power
@@ -472,11 +486,13 @@ for the timed shape), and finally
 
 from __future__ import annotations
 
+import concurrent.futures
 import gc
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -643,14 +659,19 @@ def _ab_ms(kernel_fn, plain_fn, library_fn=None, timer=_time_ms, plain_timer=Non
     """Kernel, plain and library times, measured in turns (kernel, plain,
     library, library, plain, kernel) by ``timer`` (the plain version by
     ``plain_timer`` where given) and averaged, so drift in clocks hits all
-    alike. The library time is None without a library call."""
+    alike. The library time is None without a library call, the plain time
+    None without a plain version."""
     plain_timer = plain_timer or timer
-    k1, p1 = timer(kernel_fn), plain_timer(plain_fn)
+
+    def plain():
+        return None if plain_fn is None else plain_timer(plain_fn)
+
+    k1, p1 = timer(kernel_fn), plain()
     lib = None
     if library_fn is not None:
         lib = (timer(library_fn) + timer(library_fn)) / 2
-    p2, k2 = plain_timer(plain_fn), timer(kernel_fn)
-    return (k1 + k2) / 2, (p1 + p2) / 2, lib
+    p2, k2 = plain(), timer(kernel_fn)
+    return (k1 + k2) / 2, None if plain_fn is None else (p1 + p2) / 2, lib
 
 
 def _row(err, ms, plain_ms, library_ms, nbytes, flops) -> dict:
@@ -1951,15 +1972,18 @@ def _published_model(dev, card, hf_config, label):
     return params, head, cfg
 
 
-def serve_published(dev, card, hf_config, label, kv_modes, ref_kw, phases="2f and 12"):
+def serve_published(dev, card, hf_config, label, path, kv_modes, ref_kw, phases="2f and 12",
+                    spec=False) -> dict:
     """Phases 2f and 12 (Gemma) and 17 (Phi-3, StarCoder2) on one model
     made here from its published config and freed before the return: the
     two-layer check (``ref_kw``: its prompt and cache lengths), then serve's
     round for each KV mode in ``kv_modes``, counted, checked (the K1/K3 of
     the stack's window kinds and K4, K5 over the int8 cache, under the
     softcap's names when the model has one, and nothing else), a warm round
-    timed, peak memory, one decode step profiled. Returns the launch counts
-    of the counted rounds."""
+    timed, with ``spec`` phase 11's spec round (bf16 KV, counted), peak
+    memory, one decode step profiled. Returns the launch counts of the
+    counted rounds: the served path's as ``path``, the spec round's as
+    ``path + "_spec"``."""
     import numpy as np
     import torch
 
@@ -2022,11 +2046,25 @@ def serve_published(dev, card, hf_config, label, kv_modes, ref_kw, phases="2f an
     _report_warm(label, warm, params, P, n, new, card)
     del engines, vf, runs, warm
     torch.cuda.empty_cache()
+    paths = {path: launches}
+    if spec:  # the spec path: greedy with and without speculative decoding, bf16 KV
+        res = _spec_round(params, cfg, _spec_prompts(rng, cfg.vocab_size, 2, plen), 4, new,
+                          dict(kw, collect_h0=False), f"phase {phases}, {label} bf16 KV", card)
+        la, it = res["launches"], res["stats"]["iterations"]
+        name = "spec_verify_attention" + ("_softcap" if cap else "")
+        check(la[name] == cfg.num_hidden_layers * it,
+              f"{name} launched {la[name]} times on the {label} spec path, expected "
+              f"{cfg.num_hidden_layers} x {it} iterations")
+        for other, count in la.items():
+            check(other == name or not other.startswith("spec_verify") or count == 0,
+                  f"{other} ran {count} times on the {label} spec path")
+        paths[path + "_spec"] = la
+        del res
     _profile_served(label, params, cfg, P * n, plen, plen + 2 * new, SEED + 19, card)
     del params, head
     torch.cuda.empty_cache()
     print(f"phases {phases} ({label}) took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return paths
 
 
 def check_moe_reference(params, cfg, dev):
@@ -2459,11 +2497,120 @@ def serve_gptoss(dev, card):
     for name in ("ragged_decode_attention_sink", "spec_verify_attention"):
         check(la[name] == 0, f"{name} ran {la[name]} times on the GPT-OSS spec path")
     del spec
+    probe_c7(params, cfg, dev, card)
     _profile_served("GPT-OSS-20B", params, cfg, P * n, plen, plen + 2 * new, SEED + 16, card)
     del params, head
     torch.cuda.empty_cache()
     print(f"phases 2e and 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"serve_gptoss": launches, "serve_gptoss_spec": la}
+
+
+def probe_c7(params, cfg, dev, card, rows: int = 16, steps: int = 160, T: int = 4) -> None:
+    """ROADMAP C7, printed only: GPT-OSS's bf16 decode paths on one state.
+    ``rows`` rows of ``steps`` random tokens are written into an empty cache
+    as one block (past the 128-token window). Then, each on its own copy of
+    that cache, the next token goes through ``qwen2.decode_step`` (K5s) and
+    through ``decode_step_multi`` at T = 1 (the verify kernel's sink entry),
+    and the next ``T`` tokens through ``T`` calls of ``decode_step`` and
+    through one ``decode_step_multi`` at T (the block the spec loop
+    verifies). The router's inputs are recorded (``moe.route_topk_softmax``
+    wrapped). Per layer, for each pair and each of the block's tokens: max
+    |h_a - h_b| of the router input, max |logit_a - logit_b| of the router
+    logits, the rows whose top-k sets differ, and the 4th-5th router logit
+    gap (the smallest over the rows, and at the rows routed otherwise)."""
+    import torch
+
+    from lapha_tpu_torch.models import qwen2
+    from lapha_tpu_torch.ops import moe
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    L, nkv, dh, k = (cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_,
+                     cfg.num_experts_per_tok)
+    S = steps + 2 * T
+    ck = torch.zeros((L, rows, nkv, S, dh), dtype=torch.bfloat16, device=dev)
+    cv = torch.zeros_like(ck)
+    toks = torch.randint(2, cfg.vocab_size, (rows, steps + T), generator=gen, device=dev)
+    zeros = torch.zeros(rows, dtype=torch.int32, device=dev)
+    ar = torch.arange(S, device=dev)
+    pos_map = ar[None, :].expand(rows, S).to(torch.int32).contiguous()
+    valid = (ar < steps)[None, :].expand(rows, S).contiguous()
+    calls, route = [], moe.route_topk_softmax
+
+    def recording(x, router_w, router_b, top_k):
+        logits = moe._mm_f32(x, moe.dequant(router_w, x.dtype)) + router_b.float()
+        calls[-1].append((x.float(), logits))
+        return route(x, router_w, router_b, top_k)
+
+    def stepwise(n):  # n decode_step calls: per layer (rows, n, H) inputs, (rows, n, E) logits
+        kc, vc, per_step = ck.clone(), cv.clone(), []
+        for t in range(n):
+            calls.append([])
+            pos = torch.full((rows,), steps + t, dtype=torch.int32, device=dev)
+            qwen2.decode_step(params, cfg, toks[:, steps + t], pos, kc, vc, steps + t, zeros,
+                              zeros)
+            per_step.append(calls.pop())
+        return [tuple(torch.stack([c[l][j] for c in per_step], 1) for j in (0, 1))
+                for l in range(L)]
+
+    def block(n):  # one decode_step_multi at T = n: the same, from its (rows·n) router calls
+        calls.append([])
+        pos = steps + torch.arange(n, dtype=torch.int32, device=dev)[None, :].expand(rows, n)
+        qwen2.decode_step_multi(params, cfg, toks[:, steps:steps + n], pos, ck.clone(),
+                                cv.clone(), steps, valid, pos_map=pos_map)
+        return [(x.reshape(rows, n, -1), lg.reshape(rows, n, -1)) for x, lg in calls.pop()]
+
+    with torch.inference_mode():
+        # the state: the first `steps` tokens written as one block
+        qwen2.decode_step_multi(params, cfg, toks[:, :steps], pos_map[:, :steps], ck, cv, 0,
+                                torch.zeros((rows, S), dtype=torch.bool, device=dev),
+                                pos_map=pos_map)
+        moe.route_topk_softmax = recording
+        try:
+            pairs = {1: (stepwise(1), block(1)), T: (stepwise(T), block(T))}
+        finally:
+            moe.route_topk_softmax = route
+        torch.cuda.synchronize()
+    worst = {}
+    for n, (a, b) in pairs.items():
+        check(len(a) == len(b) == L, f"C7 probe: router calls {len(a)}, {len(b)} for {L} layers")
+        flips, firsts, near, gap_at, ldiff = 0, 0, 0, 0.0, 0.0
+        gone = torch.zeros((rows, n), dtype=torch.bool, device=dev)  # routed otherwise before
+        for l, ((xa, la), (xb, lb)) in enumerate(zip(a, b)):
+            ta, tb = la.topk(k + 1, dim=-1), lb.topk(k + 1, dim=-1)
+            gap_a = ta.values[..., k - 1] - ta.values[..., k]        # (rows, n)
+            gap_b = tb.values[..., k - 1] - tb.values[..., k]
+            other = (ta.indices[..., :k].sort(-1).values
+                     != tb.indices[..., :k].sort(-1).values).any(-1)  # (rows, n)
+            h = (xa - xb).abs().amax(dim=(0, 2))                     # by token of the block
+            d = (la - lb).abs().amax(dim=(0, 2))
+            flips += int(other.sum())
+            ldiff = max(ldiff, float(d.max()))
+            # a (row, token)'s first re-routing: its smaller gap against its
+            # own largest router-logit difference (a swap of the 4th and 5th
+            # needs gap <= 2 x that)
+            first = other & ~gone
+            if bool(first.any()):
+                gap = torch.minimum(gap_a, gap_b)[first]
+                own = (la - lb).abs().amax(-1)[first]
+                firsts += int(first.sum())
+                near += int((gap <= 2 * own).sum())
+                gap_at = max(gap_at, float(gap.max()))
+            gone |= other
+            at = (f"; at them {gap_a[other].tolist()} / {gap_b[other].tolist()}"
+                  if bool(other.any()) else "")
+            print(f"C7 probe, GPT-OSS-20B layer {l}, {n} decode_step vs decode_step_multi at "
+                  f"T={n}: router input max|h_a - h_b| by token {[f'{v:.3e}' for v in h.tolist()]}"
+                  f" (max|h| {float(xa.abs().max()):.3e}), router logits max|diff| by token "
+                  f"{[f'{v:.3e}' for v in d.tolist()]}; rows routed otherwise by token "
+                  f"{other.sum(0).tolist()} of {rows}; 4th-5th logit gap, smallest over the rows "
+                  f"{float(gap_a.min()):.3e} / {float(gap_b.min()):.3e}{at} [{card}]", flush=True)
+        worst[n] = (flips, firsts, near, gap_at, ldiff)
+    print("C7 probe, GPT-OSS-20B: " + "; ".join(
+        f"T={n}: {f} (row, token, layer) routed otherwise of {rows * n * L}; {fi} (row, token) "
+        f"re-routed a first time, {ne} of them where the 4th-5th gap is at most twice that "
+        f"token's largest router-logit difference, the largest gap there {g:.3e}; the largest "
+        f"router-logit difference {d:.3e}"
+        for n, (f, fi, ne, g, d) in worst.items()) + f" [{card}]", flush=True)
 
 
 def _sdpa_narrow(q, k, v, allowed, scale, ref):
@@ -2928,71 +3075,103 @@ def check_phi3_starcoder2_kernels(dev, card):
     return results
 
 
-# phase 1m's shapes: (family, nh, nkv, dh, window, softcap, sinks, int8 too,
-# the kernels line's rows at T = 4 by cache kind)
+# phase 1m's shapes: (family, heads, KV heads, head dim, window, softcap, sinks, int8 too, the
+# kernels line's rows: (cache kind, T) at B=24 -> row name)
 VERIFY_1M_CASES = (("Qwen2.5-1.5B", 12, 2, 128, 0, 0.0, False, True,
-                    {"": "spec_verify_attention", "_q8": "spec_verify_attention_q8"}),
+                    {("", 4): "spec_verify_attention", ("_q8", 4): "spec_verify_attention_q8",
+                     ("", 1): "spec_verify_attention_t1"}),
                    ("GPT-OSS-20B", 64, 8, 64, 128, 0.0, True, True,
-                    {"": "spec_verify_attention_sink"}),
+                    {("", 4): "spec_verify_attention_sink"}),
                    ("Gemma-2-2B", 8, 4, 256, 0, GEMMA_CAP, False, False, {}),
-                   ("Phi-3-mini", 32, 32, 96, 2047, 0.0, False, False, {}),
-                   ("StarCoder2-3B", 24, 2, 128, 4096, 0.0, False, False, {}))
+                   ("Phi-3-mini", 32, 32, 96, 2047, 0.0, False, False,
+                    {("", 1): "spec_verify_attention_t1_phi3"}),
+                   ("StarCoder2-3B", 24, 2, 128, 4096, 0.0, False, False,
+                    {("", 1): "spec_verify_attention_t1_starcoder2"}))
+# (B, T, int8 too, only the block's new columns live) of each family
+VERIFY_1M_GEOMETRIES = ((24, 1, True, False), (24, 4, True, False), (24, 8, True, False),
+                        (4, 1, False, False), (4, 4, False, False),
+                        (1, 1, False, False), (1, 4, False, False), (1, 4, False, True))
+# the merge-fault build's instances: Qwen2.5's head dim at 1 and 3 n8 tiles
+# (6 query rows at T = 1; 24 at T = 4, and at T = 8 over two CTAs)
+MERGE_FAULT_INSTANCES = ("LAPHA_SV(128, 1)", "LAPHA_SV(128, 3)")
 
 
-def _verify_geometry(gen, B: int, S: int, slot: int, T: int, dev):
-    """A spec-decode cache's validity at B rows: prompts of 300-512 columns
-    in a 512-column slab, decode columns [512, slot) of which ~65% are valid
-    (the rest are rejected drafts' holes), the position map (a prompt
-    column's position is its index; a decode column's, the row's length
-    before it) and the block's T positions after the row's tokens."""
-    import torch
+def _merge_fault_build():
+    """Phase 1m's planted merge fault: a copy of the verify kernel's source
+    whose cluster merge leaves the last rank's partial out (its sum and its
+    part of every slice get the factor 0), with only Qwen2.5's instances,
+    compiled into a library of its own under ``_build/merge_fault/``
+    (``bench_verify._build``; the bf16 entry's source only). Started beside
+    the checks of phases 1-1l (``main``), so its nvcc runs while they do.
+    Returns (library, ptxas report)."""
+    from lapha_tpu_torch import bench_verify
+    from lapha_tpu_torch.ops import _cuda
 
-    lens = torch.randint(300, 513, (B,), generator=gen, device=dev)
-    ar = torch.arange(S, device=dev)[None, :]
-    dec = (ar >= 512) & (ar < slot)
-    kept = torch.rand((B, S), generator=gen, device=dev) < 0.65
-    valid = (ar < lens[:, None]) | (dec & kept)
-    before = torch.cumsum((dec & kept).long(), dim=1) - (dec & kept).long()
-    pos_map = torch.where(ar < 512, ar, lens[:, None] + before).to(torch.int32)
-    n_dec = (dec & kept).sum(dim=1)
-    positions = (lens + n_dec)[:, None] + torch.arange(T, device=dev)[None, :]
-    return valid, pos_map, positions.to(torch.int32), dec & ~kept
+    with open(os.path.join(_cuda.CSRC, "spec_verify_attention.cuh")) as f:
+        src = f.read()
+    merge = ("        cf[k * QB + r] = f;\n        L += in_ml[2 * (k * QB + r) + 1] * f;",
+             "        cf[k * QB + r] = k < splits - 1 ? f : 0.f;\n"
+             "        L += k < splits - 1 ? in_ml[2 * (k * QB + r) + 1] * f : 0.f;")
+    check(src.count(merge[0]) == 1, "the merge-fault build: the cluster merge's lines changed")
+    src = src.replace(*merge)
+    src = re.sub(r"  LAPHA_SV\(\d+, \d+\)\n",
+                 lambda m: m.group(0) if m.group(0).strip() in MERGE_FAULT_INSTANCES else "", src)
+    out_dir = os.path.join(_cuda.BUILD_DIR, "merge_fault")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "spec_verify_attention.cuh"), "w") as f:
+        f.write(src)
+    # the bf16 entry's source alone, with the edited header beside it
+    path = os.path.join(out_dir, "spec_verify_attention.cu")
+    shutil.copyfile(os.path.join(_cuda.CSRC, "spec_verify_attention.cu"), path)
+    return bench_verify._build([path], "merge_fault")[0]
 
 
-def check_verify_kernels(dev, card):
+def check_verify_kernels(dev, card, merge_fault):
     """Phase 1m: the verify attention of speculative decoding
     (``ops/spec_verify_attention``, no Pallas kernel: JAX's dense verify in
     ``qwen2.decode_step_multi``) against its plain version on the same
     inputs, at Qwen2.5-1.5B (12/2 heads, dh 128, bf16 and int8), GPT-OSS-20B
     (64/8, dh 64, sinks, a window of 128 by position; bf16 and int8),
     Gemma-2-2B (8/4, dh 256, softcap 50, q x25 so that it bites), Phi-3-mini
-    (32/32, dh 96, W 2047) and StarCoder2-3B (24/2: a group of 12), each at
-    B=24 rows of an S=1152 cache with random holes in the decode region, T =
-    1 and T = 4 queries a row at slot 1140. Limits: phase 1's bf16 limit and
-    phase 1c's int8 rule. Two planted faults must fail each check: the holes
-    read as valid (the holes' V is x4, so reading them shows), and the
-    causal rule among the new columns off by one (query t also sees column
-    slot + t + 1, whose key is x4: the kernel run one column on with column
-    slot marked valid). Timed as CUDA-graph replays beside the plain version
+    (32/32, dh 96, W 2047) and StarCoder2-3B (24/2: a group of 12), in an
+    S=1152 cache with random holes in the decode region at slot 1140, at the
+    geometries of ``VERIFY_1M_GEOMETRIES`` (B=24 at T 1, 4, 8; B=4 and 1 at
+    T 1, 4; a row whose only live columns are the block's new ones). Limits:
+    phase 1's bf16 limit and phase 1c's int8 rule. Planted faults that must
+    fail each check: the holes read as valid (the holes' V is x4, so reading
+    them shows), and the causal rule among the new columns off by one
+    (query t also sees column slot + t + 1, whose key is x4: the kernel run
+    one column on with column slot marked valid); and where the plan splits
+    a Qwen2.5 bf16 row, ``merge_fault`` (a future of
+    :func:`_merge_fault_build`): the kernel whose merge drops the last
+    rank's partial. Timed as CUDA-graph replays beside the plain version
     and, where it computes the same function (no sinks, no softcap, bf16),
     SDPA with the boolean (B, nh, T, S) mask over the same cache views."""
     import numpy as np
     import torch
 
     from lapha_tpu_torch.bench_k6 import graph_ms
+    from lapha_tpu_torch.bench_verify import _call, verify_geometry
     from lapha_tpu_torch.models.qwen2 import _quantize_kv
+    from lapha_tpu_torch.ops import _cuda
     from lapha_tpu_torch.ops import spec_verify_attention as sva
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 41)
-    L, B, S, slot = 2, 24, 1152, 1140
+    L, S, slot = 2, 1152, 1140
     results = {}
+    bad_dll, bad_report = merge_fault.result()
+    print(f"phase 1m's merge-fault build (the last rank dropped), ptxas:\n{bad_report}",
+          flush=True)
+    merge_caught = 0
     for fam, nh, nkv, dh, W, cap, with_sinks, with_q8, rows in VERIFY_1M_CASES:
         scale = dh ** -0.5
         sinks = (torch.from_numpy(_gptoss_sinks(np.random.default_rng(SEED + 41), nh)).to(dev)
                  if with_sinks else None)
-        for T in (1, 4):
-            valid, pos_map, positions, holes = _verify_geometry(gen, B, S, slot, T, dev)
+        for B, T, geo_q8, fresh_only in VERIFY_1M_GEOMETRIES:
+            valid, pos_map, positions, holes = verify_geometry(gen, B, S, slot, T, dev)
+            if fresh_only:
+                valid.zero_()
             q = torch.randn((B, T, nh, dh), generator=gen, device=dev) * (25.0 if cap else 1.0)
             q = q.to(torch.bfloat16)
             kc = torch.randn((L, B, nkv, S, dh), generator=gen, device=dev)
@@ -3002,7 +3181,7 @@ def check_verify_kernels(dev, card):
             kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
             vis = sva.verify_visible(valid, positions, slot, pos_map, W)
             cases = [("", kc, vc, None)]
-            if with_q8:
+            if with_q8 and geo_q8:
                 (kq, ks), (vq, vs) = _quantize_kv(kc), _quantize_kv(vc)
                 cases.append(("_q8", kq, vq, (ks, vs)))
             for kind, kk, vv, scl in cases:
@@ -3022,8 +3201,12 @@ def check_verify_kernels(dev, card):
                     return float((out.float() - ref.float()).abs().max()) - KERNEL_ATOL
 
                 name = sva.launch_name(scl is not None, with_sinks, cap)
+                plan = sva.verify_plan(B, nkv, nh // nkv, T, S, _cuda.sm_count(dev), dh=dh,
+                                       int8=scl is not None,
+                                       smem=_cuda.lib().lapha_spec_verify_smem, window=W)
                 label = (f"{name} ({fam}) dh={dh} {nh}/{nkv} heads B={B} T={T} S={S} "
-                         f"slot={slot} W={W}")
+                         f"slot={slot} W={W}{' new columns only' if fresh_only else ''}, "
+                         f"plan {tuple(plan)}")
                 out, again, ref = kernel(), kernel(), plain()
                 # the planted faults: every hole read as valid; query t also
                 # sees column slot + t + 1 (one column on, column slot valid)
@@ -3033,6 +3216,11 @@ def check_verify_kernels(dev, card):
                 faults = {"the holes read as valid": kernel(vm=valid | holes),
                           "the causal rule among the new columns off by one":
                               kernel(vm=off_vm, at=slot + 1, pm=off_pm)}
+                if fam.startswith("Qwen") and scl is None and plan.splits > 1:
+                    faults["the last rank's partial dropped in the merge"] = _call(
+                        bad_dll, q, kk, vv, None, valid, positions, pos_map, W, None, scale,
+                        cap)().clone()
+                    merge_caught += 1
                 torch.cuda.synchronize()
                 err = float((out.float() - ref.float()).abs().max())
                 check(bool(torch.isfinite(out.float()).all()) and excess(out, ref) <= 0,
@@ -3048,7 +3236,10 @@ def check_verify_kernels(dev, card):
                 if scl is None and not with_sinks and not cap:
                     lib_fn = _sdpa(q, kc[1].transpose(1, 2), vc[1].transpose(1, 2), vis, scale)
                     lib = "sdpa"
-                ms, plain_ms, lib_ms = _ab_ms(kernel, plain, lib_fn, timer=graph_ms)
+                # the plain version is timed for the kernels line's rows only
+                row = rows.get((kind, T)) if B == 24 else None
+                ms, plain_ms, lib_ms = _ab_ms(kernel, plain if row else None, lib_fn,
+                                              timer=graph_ms)
                 if lib_ms is not None:
                     lib = f"{lib} {lib_ms:.4f} ms"
                 # K and V of the columns some query of the row sees (int8: +
@@ -3059,12 +3250,14 @@ def check_verify_kernels(dev, card):
                 nbytes = (n_cols * nkv * per_col + 2 * _nbytes(q) + _nbytes(valid, positions)
                           + (_nbytes(pos_map) if W else 0))
                 r = _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh * nh * int(vis.sum()))
+                plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
                 print(f"kernel {label}: max|diff| {err:.3e}, bit-equal over two launches, "
-                      f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, {lib}, bound "
+                      f"{ms:.4f} ms vs plain {plain_txt}, {lib}, bound "
                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}); {'; '.join(notes)} [{card}]",
                       flush=True)
-                if T == 4 and kind in rows:
-                    results[rows[kind]] = r
+                if row is not None:
+                    results[row] = r
+    check(merge_caught > 0, "phase 1m ran the merge fault at no split row")
     print(f"phase 1m took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return results
 
@@ -5083,7 +5276,8 @@ def train_entry(params, cfg, card) -> dict:
         t0 = time.perf_counter()
         loader.export_hf(params, cfg, start)
         hf_config = dict(QWEN25_1_5B_INSTRUCT_CONFIG,
-                         max_position_embeddings=cfg.max_position_embeddings)
+                         max_position_embeddings=cfg.max_position_embeddings,
+                         num_hidden_layers=cfg.num_hidden_layers)
         with open(os.path.join(start, "config.json"), "w") as f:
             json.dump(hf_config, f, indent=2)
         t_export = time.perf_counter() - t0
@@ -5537,7 +5731,8 @@ def serve_entry(cfg, card) -> dict:
         loader.export_hf(fresh, cfg, model)
         with open(os.path.join(model, "config.json"), "w") as f:
             json.dump(dict(QWEN25_1_5B_INSTRUCT_CONFIG,
-                           max_position_embeddings=cfg.max_position_embeddings), f, indent=2)
+                           max_position_embeddings=cfg.max_position_embeddings,
+                           num_hidden_layers=cfg.num_hidden_layers), f, indent=2)
         t_export = time.perf_counter() - t0
         args = SERVE_ARGS + ["--model", model, "--max-model-len", "2048"]
         want = dict(losses.tree_paths(fresh))
@@ -6208,6 +6403,10 @@ def main(argv=None) -> int:
     for line in _cuda.build_log.splitlines():  # ptxas: registers, smem, spills per kernel
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip(), flush=True)
+    # phase 1m's merge-fault build compiles while phases 1-1l run
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    merge_fault = pool.submit(_merge_fault_build)
+    pool.shutdown(wait=False)
     kernels = check_kernels(dev, card)
     kernels.update(check_backward_kernels(dev, card))
     kernels.update(check_quant_kernels(dev, card))
@@ -6220,7 +6419,7 @@ def main(argv=None) -> int:
     kernels.update(check_deepseek_kernels(dev, card))
     kernels.update(check_backward_deepseek_kernels(dev, card))
     kernels.update(check_phi3_starcoder2_kernels(dev, card))
-    kernels.update(check_verify_kernels(dev, card))
+    kernels.update(check_verify_kernels(dev, card, merge_fault))
     elapsed("the kernel checks (phases 1-1m)")
 
     # ---------------- MoE serving at full width, counted; freed after
@@ -6229,19 +6428,19 @@ def main(argv=None) -> int:
     launches.update(serve_gptoss(dev, card))
     # ---------------- Gemma-2-2B (bf16, then int8 KV) and Gemma-3-1B serving at
     # full width, counted; each freed after
-    launches["serve_gemma2"] = serve_published(dev, card, GEMMA2_2B_CONFIG, "Gemma-2-2B",
-                                               (None, "int8"), {})
+    launches.update(serve_published(dev, card, GEMMA2_2B_CONFIG, "Gemma-2-2B", "serve_gemma2",
+                                    (None, "int8"), {}))
     # Gemma-3's two-layer check at prompts past its 512-token window
-    launches["serve_gemma3"] = serve_published(dev, card, GEMMA3_1B_CONFIG, "Gemma-3-1B",
-                                               (None,), {"T": 560, "S": 592})
+    launches.update(serve_published(dev, card, GEMMA3_1B_CONFIG, "Gemma-3-1B", "serve_gemma3",
+                                    (None,), {"T": 560, "S": 592}))
     # ---------------- DeepSeek-V2-Lite serving at full width, counted; freed after
     launches.update(serve_deepseek(dev, card))
     # ---------------- Phi-3-mini (two-layer check past its 2047 window) and
     # StarCoder2-3B serving at full width, counted; each freed after
-    launches["serve_phi3"] = serve_published(dev, card, PHI3_MINI_4K_CONFIG, "Phi-3-mini-4k",
-                                             (None, "int8"), {"T": 2100, "S": 2176}, "17")
-    launches["serve_starcoder2"] = serve_published(dev, card, STARCODER2_3B_CONFIG,
-                                                   "StarCoder2-3B", (None, "int8"), {}, "17")
+    launches.update(serve_published(dev, card, PHI3_MINI_4K_CONFIG, "Phi-3-mini-4k", "serve_phi3",
+                                    (None, "int8"), {"T": 2100, "S": 2176}, "17", spec=True))
+    launches.update(serve_published(dev, card, STARCODER2_3B_CONFIG, "StarCoder2-3B",
+                                    "serve_starcoder2", (None, "int8"), {}, "17", spec=True))
     elapsed(f"serving at full width, {CUT_LAYERS} layers (phases 10-12, 15, 17)")
 
     cfg = qwen2.Qwen2Config(
@@ -6409,13 +6608,18 @@ def main(argv=None) -> int:
                                             "lapha_tpu/ops/flash_attention.py:165"),
         # no Pallas kernel: JAX's dense verify attention (XLA einsums) in
         # decode_step_multi, counted on the spec paths (phases 22 and 11)
-        "spec_verify_attention": ("lapha_tpu_torch/csrc/spec_verify_attention.cu",
+        "spec_verify_attention": ("lapha_tpu_torch/csrc/spec_verify_attention.cuh",
                                   "lapha_tpu/models/qwen2.py:1878"),
-        "spec_verify_attention_q8": ("lapha_tpu_torch/csrc/spec_verify_attention.cu",
+        "spec_verify_attention_q8": ("lapha_tpu_torch/csrc/spec_verify_attention.cuh",
                                      "lapha_tpu/models/qwen2.py:1878"),
-        "spec_verify_attention_sink": ("lapha_tpu_torch/csrc/spec_verify_attention.cu",
+        "spec_verify_attention_sink": ("lapha_tpu_torch/csrc/spec_verify_attention.cuh",
                                        "lapha_tpu/models/qwen2.py:1878"),
     }
+    # the verify kernel at T = 1 (Qwen2.5, Phi-3, StarCoder2's shapes, beside
+    # SDPA): its bf16 entry's launches on that model's spec path (phase 22,
+    # phase 17's for Phi-3 and StarCoder2)
+    for fam in ("", "_phi3", "_starcoder2"):
+        replaces["spec_verify_attention_t1" + fam] = replaces["spec_verify_attention"]
     # the softcapped launches (Gemma-2) are counted apart; the dh-256 rows
     # without a softcap (Gemma-3's shapes) count their kernel's launches on
     # Gemma-3's paths
@@ -6448,7 +6652,10 @@ def main(argv=None) -> int:
                  "_gptoss": ("serve_gptoss",),
                  "_deepseek_down": ("serve_deepseek",),
                  "_deepseek": ("serve_deepseek",),
-                 "_ds": ("update_deepseek", "train_step_deepseek")}
+                 "_ds": ("update_deepseek", "train_step_deepseek"),
+                 "_t1": ("serve_spec",),
+                 "_t1_phi3": ("serve_phi3_spec",),
+                 "_t1_starcoder2": ("serve_starcoder2_spec",)}
     rows = []
     for name, (src, rep) in replaces.items():
         suffix = next((x for x in row_paths if name.endswith(x)), "")

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import glob
 import hashlib
 import os
 import re
@@ -63,38 +64,47 @@ SHAPES = (("1b dh128 12/2", 4, 1024, 12, 2, 128, 128, 0, 0.0, 1.0),
           ("1l dh96 32/32 W=2047", 4, 1024, 32, 32, 96, 96, 2047, 0.0, 1.0))
 
 
-def compile_sources(srcs: list[str], subdir: str) -> list[tuple[str, str, str]]:
+def compile_sources(srcs: list[str], subdir: str, siblings: str | None = None
+                    ) -> list[tuple[str, str, str]]:
     """Compile each source into a shared library of its own under
-    ``_build/<subdir>/``, one ``nvcc`` each, all started together: (source
-    text, library path, ptxas's entry, register and spill lines)."""
+    ``_build/<subdir>/``, one ``nvcc`` a translation unit, all started
+    together: (the units' text, library path, ptxas's entry, register and
+    spill lines). With ``siblings`` (a glob pattern), a source's library
+    holds every file matching it in the source's directory, the source
+    among them (a kernel whose C entries are sources of their own). A
+    library is named by a hash of its units, the headers beside them and
+    the flags."""
     out_dir = os.path.join(_cuda.BUILD_DIR, subdir)
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _cuda._nvcc()
-    cmds, links, sos = [], [], []
+    cmds, links, builds = [], [], []
     for src in srcs:
-        with open(src, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(_cuda.NVCC_FLAGS).encode()).hexdigest()[:12]
-        so = os.path.join(out_dir, f"{subdir}_{tag}.so")
-        sos.append(so)
         here = os.path.dirname(os.path.abspath(src))
+        tus = sorted(glob.glob(os.path.join(here, siblings))) if siblings else [src]
+        text = "".join(open(p).read() for p in tus)
+        headers = "".join(open(p).read() for p in sorted(glob.glob(os.path.join(here, "*.cuh"))))
+        tag = hashlib.sha1((text + headers + " ".join(_cuda.NVCC_FLAGS)).encode()).hexdigest()[:12]
+        so = os.path.join(out_dir, f"{subdir}_{tag}.so")
+        objs = [f"{so}.{i}.o" for i in range(len(tus))]
         # compiled, then linked, as ops/_cuda.build does
-        cmds.append([nvcc, *_cuda.NVCC_FLAGS, "-c", "-I", here, "-I", _cuda.CSRC, "-o",
-                     so + ".o", src])
-        links.append([nvcc, "-shared", "-o", so, so + ".o"])
+        cmds += [[nvcc, *_cuda.NVCC_FLAGS, "-c", "-I", here, "-I", _cuda.CSRC, "-o", o, tu]
+                 for tu, o in zip(tus, objs)]
+        links.append([nvcc, "-shared", "-o", so, *objs])
+        builds.append((text, so, len(tus)))
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     logs = [p.communicate()[0] for p in procs]
-    for c, link, p, log in zip(cmds, links, procs, logs):
+    for c, p, log in zip(cmds, procs, logs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed with code {p.returncode}:\n{' '.join(c)}\n{log}")
+    for link in links:
         subprocess.run(link, check=True, capture_output=True)
-    out = []
-    for src, so, log in zip(srcs, sos, logs):
-        with open(src) as f:
-            text = f.read()
-        report = [ln.strip() for ln in log.splitlines()
+    out, at = [], 0
+    for text, so, n in builds:
+        report = [ln.strip() for log in logs[at:at + n] for ln in log.splitlines()
                   if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
         out.append((text, so, "\n".join(report)))
+        at += n
     return out
 
 

@@ -108,6 +108,16 @@ __device__ __forceinline__ void st_cluster_f32(float* p, int r, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
 }
 
+// Four f32 stored at the 16-byte aligned address `p` has in this CTA's
+// shared memory, into rank r's, as one store.
+__device__ __forceinline__ void st_cluster_f32x4(float* p, int r, float4 v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(r));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 // ---------------------------------------------------------------- mbarriers, TMA
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

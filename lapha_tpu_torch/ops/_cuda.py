@@ -112,6 +112,24 @@ def _run(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
+def bind_verify(dll: ctypes.CDLL) -> None:
+    """Give the verify attention's C entries that ``dll`` has their argument
+    types (the package's library has all; a build of the bf16 entry's
+    source alone has that entry and the shared-memory count)."""
+    # q k v [k/v scales] valid_map positions pos_map [sinks], then layer slot
+    # T window, out, B nh nkv S dh, scale, softcap, the plan: qtiles,
+    # splits, stages
+    tail = [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P]
+    for entry, ptrs in (("lapha_spec_verify", 6), ("lapha_spec_verify_q8", 8),
+                        ("lapha_spec_verify_sink", 7), ("lapha_spec_verify_q8_sink", 9)):
+        if hasattr(dll, entry):
+            getattr(dll, entry).argtypes = [_P] * ptrs + tail
+            getattr(dll, entry).restype = _I
+    # a CTA's shared memory: dh int8 rows S stages splits
+    dll.lapha_spec_verify_smem.argtypes = [_I] * 6
+    dll.lapha_spec_verify_smem.restype = _I
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call, once however many
     threads make that call together)."""
@@ -140,13 +158,7 @@ def lib() -> ctypes.CDLL:
         dll.lapha_ragged_decode_q8_sink.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                                     _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
         dll.lapha_ragged_decode_q8_sink.restype = _I
-        # the verify entries: q k v [k/v scales] valid_map positions pos_map
-        # [sinks], then layer slot T window, out, B nh nkv S dh, scale, softcap
-        tail = [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _F, _P]
-        for entry, ptrs in (("lapha_spec_verify", 6), ("lapha_spec_verify_q8", 8),
-                            ("lapha_spec_verify_sink", 7), ("lapha_spec_verify_q8_sink", 9)):
-            getattr(dll, entry).argtypes = [_P] * ptrs + tail
-            getattr(dll, entry).restype = _I
+        bind_verify(dll)
         # x packed scales out, then B IN OUT G, the plan: rows, columns, splits
         dll.lapha_int4_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         dll.lapha_int4_matmul.restype = _I

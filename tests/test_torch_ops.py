@@ -137,7 +137,7 @@ def test_package_imports_no_jax():
             "lapha_tpu_torch.models.loader, lapha_tpu_torch.models.deepseek, "
             "lapha_tpu_torch.engine.scheduler, lapha_tpu_torch.engine.server, "
             "lapha_tpu_torch.engine.client, lapha_tpu_torch.native, "
-            "lapha_tpu_torch.bench_serve; "
+            "lapha_tpu_torch.bench_serve, lapha_tpu_torch.bench_verify; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'lapha_tpu')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -18,6 +18,10 @@ jitted:
 The engine and the entries are in ``tests/test_torch_spec_engine.py``.
 """
 
+import itertools
+import math
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -251,12 +255,16 @@ def test_deepseek_decode_step_multi_matches_jax(kv, T):
 # ---------------------------------------------------------------- the verify wrapper's host path
 
 class _FakeLib:
-    """Records the C entry called and its arguments; returns cudaSuccess."""
+    """Records the C entry called and its arguments; returns cudaSuccess.
+    Its shared-memory count is the kernel's layout as :func:`_kernel_smem`
+    models it."""
 
     def __init__(self):
         self.calls = []
 
     def __getattr__(self, entry):
+        if entry == "lapha_spec_verify_smem":
+            return _kernel_smem
         return lambda *args: self.calls.append((entry, args)) or 0
 
 
@@ -267,9 +275,9 @@ def test_verify_wrapper_calls_its_entry(monkeypatch, int8, sinks, softcap, windo
     """The CUDA path up to the C call, on CPU tensors with the device checks
     stubbed: the entry of the cache kind and sinks, called once with its
     pointers (pos_map only for a windowed layer), then layer, slot, T,
-    window, out, B nh nkv S dh, scale, softcap and the stream (the C
-    entries' and ``_cuda.lib``'s argument order), counted once under its
-    name."""
+    window, out, B nh nkv S dh, scale, softcap, ``verify_plan``'s qtiles,
+    splits and stages, and the stream (the C entries' and ``_cuda.lib``'s
+    argument order), counted once under its name."""
     from lapha_tpu_torch.ops import _cuda
     from lapha_tpu_torch.ops import spec_verify_attention as sva
 
@@ -278,6 +286,7 @@ def test_verify_wrapper_calls_its_entry(monkeypatch, int8, sinks, softcap, windo
         monkeypatch.setattr(_cuda, stub, lambda *a, **k: None)
     monkeypatch.setattr(_cuda, "lib", lambda: fake)
     monkeypatch.setattr(_cuda, "stream_of", lambda t: 7)
+    monkeypatch.setattr(_cuda, "sm_count", lambda dev: SMS)
     B, T, nh, nkv, dh, S, slot = 24, 4, 12, 2, 128, 1152, 1100
     q = torch.zeros(B, T, nh, dh, dtype=torch.bfloat16)
     kc = torch.zeros(2, B, nkv, S, dh, dtype=torch.int8 if int8 else torch.bfloat16)
@@ -293,10 +302,327 @@ def test_verify_wrapper_calls_its_entry(monkeypatch, int8, sinks, softcap, windo
     name = sva.launch_name(int8, sinks, 0.0)
     assert entry == sva._ENTRIES[name]
     ptrs = 6 + 2 * int8 + int(sinks)
-    assert len(args) == ptrs + 13
+    assert len(args) == ptrs + 16
     assert (args[ptrs - 1 - int(sinks)] is None) == (window == 0)  # pos_map
     assert args[ptrs:ptrs + 4] == (1, slot, T, window)
     assert args[ptrs + 5:ptrs + 10] == (B, nh, nkv, S, dh)
-    assert args[-3:] == (0.125, softcap, 7)
+    assert args[ptrs + 10:ptrs + 12] == (0.125, softcap)
+    plan = sva.verify_plan(B, nkv, nh // nkv, T, S, SMS, dh=dh, int8=int8, smem=_kernel_smem,
+                           window=window)
+    assert args[-4:] == (*plan, 7)
     counted = sva.launch_name(int8, sinks, softcap)
     assert {k: v - before[k] for k, v in _cuda.LAUNCHES.items() if v != before[k]} == {counted: 1}
+
+
+# ---------------------------------------------------------------- the verify kernel's plan and split
+
+SMS = 132               # an H100 SXM's SMs
+PIECE, WARPS = 16, 4    # the kernel's piece of a warp and warps of a CTA
+CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                  "lapha_tpu_torch", "csrc", "spec_verify_attention.cuh")
+# (nkv, group, dh) of phase 1m's five models: Qwen2.5, GPT-OSS, Gemma-2, Phi-3, StarCoder2
+PLAN_MODELS = ((2, 6, 128), (8, 8, 64), (4, 2, 256), (32, 1, 96), (2, 12, 128))
+
+
+def _r16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _kernel_smem(dh: int, int8: bool, rows: int, S: int, stages: int, splits: int) -> int:
+    """A model of the kernel's shared memory a CTA (its ``Layout``, counted
+    on the card by ``lapha_spec_verify_smem``): the Q tile of ``rows`` rows
+    (bf16, padded by 16 bytes) and their four ints, the merge's tail, the
+    inbox with more than one split, a region that holds the list build's
+    scratch (3 ints a 32-column word), the 4 warps' rings of ``stages``
+    16-column K and V pieces (padded rows; int8 with 32 scales) or the
+    merge's accumulators, whichever is largest, and the share's list of
+    ceil(S / splits) columns and their positions."""
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    row = dh + 16 if int8 else 2 * dh + 16
+    stage = 2 * PIECE * row + (2 * PIECE * 4 if int8 else 0)
+    words = math.ceil(S / 32)
+    region = max(WARPS * stages * stage, WARPS * rows * (dh + 4) * 4, _r16((3 * words + 1) * 4))
+    head = (rows * (2 * dh + 16) + 16 * rows + (3 * WARPS + 2 + sva.MAX_SPLITS) * rows * 4
+            + ((2 * sva.MAX_SPLITS * rows + rows * dh + sva.MAX_SPLITS) * 4 if splits > 1 else 0))
+    return head + region + 2 * _r16(4 * math.ceil(S / splits))
+
+
+def _plan(*args, **kw):
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    return sva.verify_plan(*args, smem=_kernel_smem, **kw)
+
+
+def _cu_const(name: str) -> int:
+    import re
+
+    with open(CU) as f:
+        m = re.search(rf"constexpr int {name} = ([0-9 *]+);", f.read())
+    return eval(m.group(1))  # noqa: S307 (a product of literals from the source)
+
+
+def test_verify_plan_constants_match_the_kernel():
+    """The host's copies of the kernel's constants, and one instance a
+    (head dim, n8 tiles) pair the plan can give."""
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    assert (_cu_const("PIECE"), _cu_const("NW"), _cu_const("MAX_SPLITS"),
+            _cu_const("MAX_STAGES"), _cu_const("SMEM_LIMIT")) == (
+        sva.PIECE, sva.CHUNK // sva.PIECE, sva.MAX_SPLITS, sva.MAX_STAGES, sva.SMEM_LIMIT)
+    with open(CU) as f:
+        src = f.read()
+    for dh, rows in sva.MAX_ROWS.items():
+        for ntw in (1, 2, 3, 4):
+            assert (f"LAPHA_SV({dh}, {ntw})" in src) == (8 * ntw <= rows), (dh, ntw)
+
+
+@pytest.mark.parametrize("nkv,group,dh", PLAN_MODELS)
+@pytest.mark.parametrize("int8,window", [(False, 0), (True, 0), (False, 128)])
+def test_verify_plan_bounds(nkv, group, dh, int8, window):
+    """At B 1-64, T 1-8 and caches of 64 to 32768 columns: splits a power of
+    two up to 8 and no more than the live columns have 64-column chunks
+    (unless the list needs them to fit), 1-4 stages, one split where the
+    CTAs already fill the card, query rows a CTA within the instance's, no
+    empty query tile, and the CTA's shared memory within 227 KB."""
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    for B, T, S in itertools.product((1, 4, 8, 24, 64), (1, 2, 4, 8), (64, 1152, 32768)):
+        plan = _plan(B, nkv, group, T, S, SMS, dh=dh, int8=int8, window=window)
+        assert plan.splits in (1, 2, 4, 8) and 1 <= plan.stages <= sva.MAX_STAGES
+        rows = sva.cta_rows(group, T, plan.qtiles)
+        assert math.ceil(group * T / plan.qtiles) <= rows <= sva.MAX_ROWS[dh]
+        assert (plan.qtiles - 1) * math.ceil(group * T / plan.qtiles) < group * T
+        assert _kernel_smem(dh, int8, rows, S, plan.stages, plan.splits) <= 227 * 1024
+        if _kernel_smem(dh, int8, rows, S, plan.stages, 1) <= 227 * 1024:
+            live = min(S, window + T) if window else S
+            assert plan.splits <= max(1, math.ceil(live / 64)), (B, T, S)
+            if B * nkv * plan.qtiles >= SMS:
+                assert plan.splits == 1, (B, T, S)
+
+
+@pytest.mark.parametrize("B,nkv,group,T,dh,int8,window,plan", [
+    (24, 2, 6, 1, 128, False, 0, (1, 4, 2)),      # Qwen2.5 at T = 1: 48 CTAs, two an SM
+    (24, 2, 6, 4, 128, False, 0, (1, 4, 2)),      # 24 rows: one CTA a KV head
+    (24, 2, 12, 4, 128, False, 4096, (2, 2, 2)),  # StarCoder2's 48 rows: two
+    (24, 8, 8, 4, 64, True, 128, (1, 1, 2)),      # GPT-OSS: 192 CTAs fill the card
+    (4, 8, 8, 1, 64, False, 128, (1, 2, 2)),      # a window of 128: 3 chunks live at most
+    (24, 32, 1, 4, 96, False, 2047, (1, 1, 2)),   # Phi-3: 768
+    (24, 4, 2, 4, 256, False, 0, (1, 1, 2)),      # Gemma-2: one 150 KB CTA an SM
+    (8, 4, 2, 1, 256, False, 0, (1, 4, 1)),       # one stage: two CTAs an SM
+    (4, 4, 2, 1, 256, False, 0, (1, 8, 1)),
+    (1, 2, 6, 4, 128, False, 0, (1, 8, 2)),       # one row
+])
+def test_verify_plan_at_the_served_shapes(B, nkv, group, T, dh, int8, window, plan):
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    assert tuple(_plan(B, nkv, group, T, 1152, SMS, dh=dh, int8=int8, window=window)) == plan
+
+
+def test_verify_plan_refuses_what_it_cannot_hold():
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    for bad in ((0, 2, 6, 4, 1152), (24, 2, 6, 0, 1152), (24, 2, 6, 4, 0)):
+        with pytest.raises(ValueError):
+            _plan(*bad, SMS, dh=128, int8=False)
+    with pytest.raises(ValueError):
+        _plan(24, 2, 6, 4, 1152, SMS, dh=80, int8=False)
+    with pytest.raises(ValueError):
+        _plan(24, 2, 6, 4, 1152, SMS, dh=128, int8=False, window=-1)
+    with pytest.raises(ValueError):  # a list of 10^6 columns fits no 8 CTAs
+        _plan(1, 1, 1, 1, 10 ** 6, SMS, dh=256, int8=False)
+    with pytest.raises(ValueError):  # an instance the kernel does not have
+        sva.verify_plan(24, 2, 6, 4, 1152, SMS, dh=128, int8=False, smem=lambda *a: -1)
+
+
+def test_verify_plan_independent_of_slot(monkeypatch):
+    """The wrapper's plan arguments are the same whatever the slot and the
+    maps (a captured launch keeps them)."""
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    fake = _FakeLib()
+    for stub in ("require_cuda_bf16", "require_cuda"):
+        monkeypatch.setattr(_cuda, stub, lambda *a, **k: None)
+    monkeypatch.setattr(_cuda, "lib", lambda: fake)
+    monkeypatch.setattr(_cuda, "stream_of", lambda t: 7)
+    monkeypatch.setattr(_cuda, "sm_count", lambda dev: SMS)
+    B, T, nh, nkv, dh, S = 4, 4, 12, 2, 128, 1152
+    q = torch.zeros(B, T, nh, dh, dtype=torch.bfloat16)
+    kc = torch.zeros(2, B, nkv, S, dh, dtype=torch.bfloat16)
+    pos = torch.zeros(B, T, dtype=torch.int32)
+    for slot, density in ((0, 0.0), (600, 0.5), (S - T, 1.0)):
+        valid = torch.rand(B, S) < density
+        sva._verify_cuda(q, kc, kc, 1, slot, valid, pos, None, 0, 0.125, None, None, 0.0)
+    assert len({args[-4:-1] for _, args in fake.calls}) == 1
+
+
+def _live_entries(valid, positions, pos_map, slot: int, T: int, window: int):
+    """The kernel's list of row b's live columns, in column order: (column,
+    the first query t that sees it, its position). Live: a new column, or a
+    valid one inside the window of the block's earliest query."""
+    out = []
+    wmin = int(positions.min()) - window
+    for j in range(valid.shape[0]):
+        c = j - slot
+        fresh = 0 <= c < T
+        pos = int(positions[c]) if fresh else (int(pos_map[j]) if window > 0 else 0)
+        if fresh or (valid[j] and (window <= 0 or pos > wmin)):
+            out.append((j, c if fresh and not valid[j] else 0, pos))
+    return out
+
+
+def _partial(s, v):
+    """(m, l, acc) of logits s (n, R) over values v (n, R, dh) (the V scale
+    already in v), masked logits at NEG; an empty set is (NEG, 0, 0)."""
+    R, dh = s.shape[1], v.shape[-1]
+    if s.shape[0] == 0:
+        return torch.full((R,), NEG), torch.zeros(R), torch.zeros(R, dh)
+    m = s.amax(0)
+    p = torch.where(s > 0.5 * NEG, torch.exp(s - m), torch.zeros(()))
+    return m, p.sum(0), torch.einsum("nr,nrd->rd", p, v)
+
+
+def _merge(parts, sink=None):
+    """Merge (m, l, acc) partials in order; the sink column joins once."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    if sink is not None:
+        M = torch.maximum(M, sink)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    l_ = sum(l * f for (_, l, _), f in zip(parts, w))
+    acc = sum(a * f[:, None] for (_, _, a), f in zip(parts, w))
+    if sink is not None:
+        l_ = l_ + torch.exp(sink - M)
+    return M, l_, acc
+
+
+NEG = -1e30
+
+
+def verify_split_reference(q, kc, vc, layer, slot, valid, positions, pos_map, window, scale,
+                           splits, qtiles=1, *, cache_scale=None, sinks=None, softcap=0.0,
+                           fault=""):
+    """The kernel's algorithm in f32 torch ops; the arguments and result of
+    ``spec_verify_plain`` but ``splits`` (CTAs a row's live columns) and
+    ``qtiles`` (CTAs a KV head's group·T query rows). Each CTA takes its
+    share [n·r/splits, n·(r+1)/splits) of the row's live list, deals its
+    16-column pieces to 4 warps in turn, keeps a partial per warp, merges
+    the warps, then the ranks in order, and adds the sink once. ``fault``
+    plants "sink_per_split" (the sink in every CTA's partial) or
+    "drop_last_rank" (the last rank's partial left out of the merge)."""
+    B, T, nh, dh = q.shape
+    nkv = kc.shape[2]
+    G = nh // nkv
+    per_tile = math.ceil(G * T / qtiles)
+    out = torch.zeros(B, T, nh, dh)
+    for b in range(B):
+        ents = _live_entries(valid[b], positions[b], pos_map[b] if window else None, slot, T,
+                             window)
+        n = len(ents)
+        cols = torch.tensor([e[0] for e in ents], dtype=torch.long)
+        first = torch.tensor([e[1] for e in ents])
+        cpos = torch.tensor([e[2] for e in ents])
+        for hk in range(nkv):
+            k, v = kc[layer, b, hk].float(), vc[layer, b, hk].float()
+            for qt in range(qtiles):
+                rows = range(qt * per_tile, min(G * T, (qt + 1) * per_tile))
+                ts = torch.tensor([r // G for r in rows])
+                hs = [hk * G + r % G for r in rows]
+                qr = torch.stack([q[b, r // G, hk * G + r % G].float() for r in rows])  # (R, dh)
+                s = (k[cols] @ qr.T) * scale                                          # (n, R)
+                vv = v[cols][:, None, :].expand(n, len(rows), dh)
+                if cache_scale is not None:
+                    s = s * cache_scale[0][layer, b, hk][cols][:, None]
+                    vv = vv * cache_scale[1][layer, b, hk][cols][:, None, None]
+                if softcap:
+                    s = softcap * torch.tanh(s / softcap)
+                ok = first[:, None] <= ts[None, :]
+                if window:
+                    ok = ok & (cpos[:, None] > positions[b, ts][None, :] - window)
+                s = torch.where(ok, s, torch.full((), NEG))
+                sink = None if sinks is None else sinks[hs].float()
+                ctas = []
+                for r in range(splits):
+                    lo, hi = n * r // splits, n * (r + 1) // splits
+                    pieces = [np.arange(lo + PIECE * j, min(lo + PIECE * (j + 1), hi))
+                              for j in range((hi - lo + PIECE - 1) // PIECE)]
+                    warps = []
+                    for w in range(WARPS):
+                        mine = torch.from_numpy(np.concatenate(pieces[w::WARPS] or [[]])).long()
+                        warps.append(_partial(s[mine], vv[mine]))
+                    ctas.append(_merge(warps, sink if fault == "sink_per_split" else None))
+                if fault == "drop_last_rank" and splits > 1:
+                    ctas = ctas[:-1]
+                _, l_, acc = _merge(ctas, None if fault == "sink_per_split" else sink)
+                o = torch.where(l_[:, None] > 0, acc / l_[:, None], torch.zeros(()))
+                for i, r in enumerate(rows):
+                    out[b, r // G, hk * G + r % G] = o[i]
+    return out
+
+
+def _verify_inputs(int8, sinks, window, T, seed=5):
+    """Four rows of a 96-column cache at slot 80 with holes: a prompt and
+    decode columns; a row whose only live columns are the block's new ones;
+    a row with no hole; a row with the new column slot valid (it is seen by
+    every query)."""
+    from lapha_tpu_torch.models.qwen2 import _quantize_kv
+
+    rng = np.random.default_rng(seed)
+    B, S, slot, nh, nkv, dh = 4, 96, 80, 6, 2, 16
+    valid, pos_map, positions, ck, cv = _holey_cache(rng, B, 2, nkv, dh, S, slot, T)
+    valid[1] = False
+    valid[2, :slot] = True
+    valid[3, slot] = True
+    q = torch.from_numpy(rng.normal(size=(B, T, nh, dh)).astype(np.float32))
+    kc, vc = torch.from_numpy(ck), torch.from_numpy(cv)
+    scl = None
+    if int8:
+        (kc, ks), (vc, vs) = _quantize_kv(kc), _quantize_kv(vc)
+        scl = (ks, vs)
+    sk = (torch.from_numpy(rng.normal(size=nh).astype(np.float32))
+          + torch.tensor([8.0, -8.0] * (nh // 2))) if sinks else None
+    return (q, kc, vc, 1, slot, torch.from_numpy(valid), torch.from_numpy(positions),
+            torch.from_numpy(pos_map), window, dh ** -0.5), dict(cache_scale=scl, sinks=sk)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8,sinks,window,softcap,T,qtiles", [
+    (False, False, 0, 0.0, 1, 1), (False, False, 0, 0.0, 4, 2), (True, False, 0, 0.0, 4, 1),
+    (False, True, 6, 0.0, 4, 1), (True, True, 6, 0.0, 1, 1), (False, False, 0, 2.0, 3, 3)])
+def test_verify_split_matches_plain(splits, int8, sinks, window, softcap, T, qtiles):
+    """The kernel's split of the live columns, and of the query rows, gives
+    the plain version's result (to f32 order of sums), and dropping the
+    last rank's partial or counting the sink in every split does not."""
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    args, kw = _verify_inputs(int8, sinks, window, T)
+    plain = sva.spec_verify_plain(*args, softcap=softcap, **kw).float()
+    got = verify_split_reference(*args, splits, qtiles, softcap=softcap, **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-5, atol=2e-5)
+    def rel(bad):  # the largest error of a (row, query, head) output, relative to its norm
+        return float(((bad - plain).norm(dim=-1) / plain.norm(dim=-1).clamp(min=1e-6)).max())
+
+    if splits > 1:
+        assert rel(verify_split_reference(*args, splits, qtiles, softcap=softcap,
+                                          fault="drop_last_rank", **kw)) > 0.05
+        if sinks:
+            assert rel(verify_split_reference(*args, splits, qtiles, softcap=softcap,
+                                              fault="sink_per_split", **kw)) > 0.05
+
+
+def test_verify_live_list_skips_what_no_query_sees():
+    """The list holds the new columns and the valid ones in the earliest
+    query's window, nothing else: holes, padding, columns past the block and
+    (windowed) columns out of every query's window are not read."""
+    args, _ = _verify_inputs(False, False, 6, 4)
+    _, _, _, _, slot, valid, positions, pos_map, window, _ = args
+    from lapha_tpu_torch.ops import spec_verify_attention as sva
+
+    vis = sva.verify_visible(valid, positions, slot, pos_map, window)
+    for b in range(valid.shape[0]):
+        cols = [e[0] for e in _live_entries(valid[b], positions[b], pos_map[b], slot, 4, window)]
+        seen = torch.nonzero(vis[b].any(0)).flatten().tolist()
+        assert set(seen) <= set(cols)
+        assert set(cols) - set(seen) <= set(range(slot, slot + 4))  # new columns always listed
+    row1 = [e for e in _live_entries(valid[1], positions[1], pos_map[1], slot, 4, 0)]
+    assert row1 == [(slot + c, c, int(positions[1, c])) for c in range(4)]
