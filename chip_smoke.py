@@ -73,8 +73,11 @@ below are the published model's:
    scaled so that the logits reach 2-3x the cap, and the kernel run without
    it (a planted fault) must fail. The library yardstick is SDPA for the
    softcap-free shapes and the compiled ``flex_attention`` (the softcap as
-   its score_mod, a block mask) for the softcapped K1/K3/K4, held to the
-   plain version at the kernels' limit; K5 has none.
+   its score_mod, a block mask) for the softcapped K1/K3/K4 at the kernels
+   line's shapes (not at the suffix prefill's T=64: each new shape is a
+   new compile, and the phase took 56-81 s with that shape, 41-42 s
+   without, on an H100), held to the plain version at the kernels' limit;
+   K5 has none.
 1g. K8's backward (dX, ``grouped_gemm_dx``; dW, ``grouped_gemm_tgmm``; both
    wgmma kernels) against its plain versions in f32 on the same bf16 dY, at
    the training shapes of Qwen1.5-MoE (32768 pair rows over 60 experts;
@@ -144,6 +147,14 @@ below are the published model's:
    out. Timed as CUDA-graph replays beside the plain version and SDPA
    with the boolean (B, nh, T, S) mask where that computes the same
    function (bf16, no sinks, no softcap).
+1n. K3 in block diffusion's block-causal mode (qstart at the block's last
+   column, kv_valid bounded below it) at B=24, T=4, S=768, 12/2 heads of
+   dim 128, prompts of 400-512 tokens, holes up to 640, the block at 700:
+   against the plain version and an independent dense f32 softmax under
+   JAX's ``block_bidir`` mask (phase 1's limit), two launches bit-equal;
+   qstart = 700 (the causal rule) and column 704 marked valid (garbage
+   K/V) are planted faults that must fail. Timed as CUDA-graph replays
+   beside the plain version and SDPA with the boolean mask.
 2d. Two full-width Qwen1.5-MoE-A2.7B layers, card (kernels, bf16) against
    CPU (plain versions, f32): prefill + one decode step, relative error of
    the logits <= 5e-2, with the count of (token, layer) routing choices
@@ -294,6 +305,24 @@ below are the published model's:
    over prompt + completion (phase 4's limit; the bonus token's fix-up
    forward included). Last, a profiled 8-token generate with and without
    spec: device ms an iteration of the decode part.
+23. Block diffusion (``DiffusionEngine``, ``qwen2.forward(block_bidir=True)``
+   over K3 with its causal rule shifted to the block's last column) on the
+   phase-3 model (28 layers, the weights as drawn), mask id 151665, no EOS:
+   4 prompts of 512 ids x n 6, 128 new tokens, blocks of 4, 4 denoising
+   steps. (a) Greedy with each strategy: "sequential" (counted as
+   "serve_diffusion": the block-causal K3 28 x forwards, K3 once a layer for
+   the prefill, no decode kernel) and "low_confidence_static" take 32 x (4
+   + 1) = 160 forwards, "low_confidence_dynamic" 64; 128 tokens a row,
+   never the mask id. (b) The sequential round with K3 patched to its
+   plain version: the streams agree up to phase 22's near ties. (c)
+   Sampled (temperature 0.8, top-p 0.95, top-k 20, dynamic 0.9) twice with
+   one seed: the same tokens. (d) Two layers, ``forward(block_bidir=True)``
+   over phase 1n's cache with holes, card against CPU (phase 2's limit).
+   (e) ``ContinuousEngine`` of 16 rows over a dynamic engine: the 24 rows
+   at once and a late request, counted as "serve_diffusion_sched"; each
+   request's tokens agree with (a)'s up to near ties. Printed: tok/s,
+   forwards/s, tokens a forward, host ms a forward; last, a profiled
+   one-block generate gives device ms a forward.
 8. Quantized serving at bench.py's shape: the phase-3 weights quantized on
    the card (``quantize_params(bits=4)``: int4 projections, int8 embed/head)
    and ``Engine(kv_quant="int8")``; a round is 8 parents x 512 tokens with
@@ -301,8 +330,9 @@ below are the published model's:
    the root value forward and ``from_pooled`` + V. Launch counts are zeroed
    before the first round and read after it: the int4 kernel and the int8
    decode kernel ran, the bf16 decode kernel did not. Phase 4's checks
-   follow, the fused-h0 check with a tolerance for the int8 cache. A warm
-   round is timed; then the same two rounds with bf16 weights + int8 KV
+   follow, the fused-h0 check with a tolerance for the int8 cache, and the
+   round's times are printed (no second, warm round: phases 2-5 and 22 ran
+   these kernels first); then the same round with bf16 weights + int8 KV
    (bench.py's default configuration).
 9. Where one decode step's time goes at bench.py's shape (48 rows, prompts
    of 512, S=768), for bf16 weights with a bf16 cache, bf16 weights with an
@@ -1769,8 +1799,9 @@ def check_gemma_kernels(dev, card):
     so that the logits reach 1-3x the cap, and the kernel run without the
     softcap (a planted fault) must fail the check. The library call is SDPA
     for the softcap-free shapes and the compiled flex_attention (softcap as
-    its score_mod) for the softcapped ones, itself held to the plain version
-    at the kernel's limit; K5 has none (no one call reads an int8 cache)."""
+    its score_mod) for the softcapped shapes of the kernels line's rows (the
+    first shape of each), itself held to the plain version at the kernel's
+    limit; K5 has none (no one call reads an int8 cache)."""
     import numpy as np
     import torch
 
@@ -1828,7 +1859,12 @@ def check_gemma_kernels(dev, card):
                     note = (f"; max|logit| {s_max:.1f} before the cap; planted fault (softcap "
                             f"off) max|diff| {bad_err:.3e}, caught")
                 allowed = _allowed(kv_valid, qs, T, window)
-                if cap:
+                rk = key(name, window, cap)
+                if cap and rk in results:
+                    # flex_attention is timed for the kernels line's shape only:
+                    # another shape costs another compile
+                    lib_fn, lib_name = None, "flex_attention not timed at this shape"
+                elif cap:
                     lib_fn = _flex_softcap(q, k, v, allowed, scale, cap)
                     lib_err = _library_err(lib_fn, ref, allowed.any(-1), f"{label} flex_attention")
                     lib_name = f"flex_attention (max|diff| {lib_err:.3e})"
@@ -1842,10 +1878,10 @@ def check_gemma_kernels(dev, card):
                 nbytes = (_nbytes(q, out, lse, kv_valid, qs)
                           + 2 * seen_keys * nkv * dh * k.element_size())
                 row = _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh * nh * int(allowed.sum()))
+                lib_txt = lib_name if lib_ms is None else f"{lib_name} {lib_ms:.4f} ms"
                 print(f"kernel {label}: max|diff| {err:.3e}, {ms:.4f} ms vs plain {plain_ms:.4f} "
-                      f"ms, {lib_name} {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}){note} "
+                      f"ms, {lib_txt}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}){note} "
                       f"[{card}]", flush=True)
-                rk = key(name, window, cap)
                 if rk not in results:  # the table keeps the first shape of each
                     results[rk] = row
                 else:
@@ -3260,6 +3296,92 @@ def check_verify_kernels(dev, card, merge_fault):
     check(merge_caught > 0, "phase 1m ran the merge fault at no split row")
     print(f"phase 1m took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return results
+
+
+def check_block_kernels(dev, card):
+    """Phase 1n: K3 in block diffusion's block-causal mode, as
+    ``qwen2.forward(block_bidir=True)`` launches it: B=24 rows, T=4 block
+    tokens, an S=768 cache of 12/2 heads of dim 128, prompts of 400-512
+    tokens, holes up to Lp=640, the block at cp=700, kv_valid = (j < lens) |
+    (640 <= j < cp + 4), qstart = cp + 3 (every query sees the whole block
+    and the valid past). Held to the plain version with the same arguments
+    and to an independent dense f32 softmax under JAX's mask formula
+    (``lapha_tpu/models/qwen2.py:1320``: valid & (j <= cp + t | j >= cp)),
+     at phase 1's limit; two launches bit-equal. The block's keys are x4 so
+    that its columns carry the attention; the column past the block holds
+    garbage (K x4, V x8) and the holes hold noise. Planted
+    faults that must fail: qstart = cp (the causal rule), and column cp + 4
+    marked valid. Timed as CUDA-graph replays beside the plain version and
+    SDPA with the boolean (B, nh, T, S) mask."""
+    import torch
+
+    from lapha_tpu_torch.bench_k6 import graph_ms
+    from lapha_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    B, T, S, nh, nkv, dh, Lp, cp = 24, 4, 768, 12, 2, 128, 640, 700
+    scale = dh ** -0.5
+    name = "flash_attention_cached_block"
+    q = torch.randn((B, T, nh, dh), generator=gen, device=dev)
+    k = torch.randn((B, S, nkv, dh), generator=gen, device=dev)
+    v = torch.randn((B, S, nkv, dh), generator=gen, device=dev)
+    k[:, cp:cp + T] *= 4.0  # the block's columns carry the attention
+    k[:, cp + T] *= 4.0  # garbage past the block
+    v[:, cp + T] *= 8.0
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    lens = torch.randint(400, 513, (B,), generator=gen, device=dev)
+    j = torch.arange(S, device=dev)[None, :]
+    kv_valid = ((j < lens[:, None]) | ((j >= Lp) & (j < cp + T))).to(torch.int32)
+    qs = torch.full((B,), cp + T - 1, dtype=torch.int32, device=dev)
+
+    def kernel(vm=kv_valid, at=qs):
+        return fa._attention_cuda(q, k, v, vm, at, scale, name)
+
+    def plain():
+        return fa.attention_plain(q, k, v, kv_valid, qs, scale)
+
+    # the oracle: dense f32 softmax under the JAX forward's block_bidir mask
+    qpos = cp + torch.arange(T, device=dev)[None, :, None]
+    allowed_jax = (kv_valid[:, None, :] > 0) & ((j[:, None, :] <= qpos) | (j[:, None, :] >= cp))
+    logits = torch.einsum("btkgd,bskd->bkgts", q.float().reshape(B, T, nkv, nh // nkv, dh),
+                          k.float()) * scale
+    logits = logits.masked_fill(~allowed_jax[:, None, None], float("-inf"))
+    oracle = torch.einsum("bkgts,bskd->btkgd", torch.softmax(logits, dim=-1),
+                          v.float()).reshape(B, T, nh, dh)
+    out, lse = kernel()
+    ref, _ = plain()
+    _k1_repeats(kernel, out, lse, f"{name} B={B} T={T} S={S}")
+    err = float((out.float() - ref.float()).abs().max())
+    err_oracle = float((out.float() - oracle).abs().max())
+    check(bool(torch.isfinite(out.float()).all()) and err <= KERNEL_ATOL,
+          f"{name}: max|diff| {err} against the plain version")
+    check(err_oracle <= KERNEL_ATOL, f"{name}: max|diff| {err_oracle} against the dense oracle")
+    past = kv_valid.clone()
+    past[:, cp + T] = 1
+    faults = {"qstart = cp, the causal rule": kernel(at=torch.full_like(qs, cp))[0],
+              f"column {cp + T} past the block marked valid": kernel(vm=past)[0]}
+    notes = []
+    for what, bad in faults.items():
+        e = float((bad.float() - oracle).abs().max())
+        check(e > KERNEL_ATOL, f"the {name} check missed a planted fault ({what}): {e}")
+        notes.append(f"planted fault ({what}) max|diff| {e:.3e}, caught")
+    allowed = _allowed(kv_valid, qs, T)
+    check(bool(torch.equal(allowed, allowed_jax)), f"{name}: the shifted causal rule is not "
+                                                   "JAX's block-causal mask")
+    ms, plain_ms, lib_ms = _ab_ms(kernel, plain, _sdpa(q, k, v, allowed, scale), timer=graph_ms)
+    # q, K and V of the columns some query of the row sees (for each KV
+    # head), the mask, qstart, out and the LSE
+    n_cols = int(allowed.any(dim=1).sum())
+    nbytes = n_cols * nkv * dh * 2 * 2 + _nbytes(q, kv_valid, qs, out, lse)
+    r = _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh * nh * int(allowed.sum()))
+    print(f"kernel {name} (block diffusion) 12/2 heads B={B} T={T} S={S} block at {cp}, holes "
+          f"up to {Lp}: max|diff| {err:.3e} (dense oracle {err_oracle:.3e}), bit-equal over two "
+          f"launches, {ms:.4f} ms vs plain {plain_ms:.4f} ms, sdpa (boolean mask) "
+          f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {n_cols} visible "
+          f"columns x {nkv} KV heads); {'; '.join(notes)} [{card}]", flush=True)
+    print(f"phase 1n took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {name: r}
 
 
 def _deepseek_model(dev, card, layers=None):
@@ -4733,19 +4855,19 @@ def serve_quantized(params, head, cfg, card):
         else:
             check(launches["int4_matmul"] == 0, "int4_matmul ran with bf16 weights")
         _check_round(run, vf, cfg.vocab_size, cfg.hidden_size, P, n, n_kids, new, FUSED_Q8_RTOL)
-        print(f"{label}: launches {launches}; first (cold) round {run['t_all']:.2f} s [{card}]",
+        print(f"{label}: launches {launches} [{card}]", flush=True)
+        # the counted round's times (earlier phases ran these shapes' kernels)
+        tp, tk = run["t_par"], run["t_kid"]
+        print(f"{label}, counted round, parents: prefill {tp['prefill_s'] * 1e3:.1f} ms ({P} x "
+              f"{plen} tokens), decode {tp['decode_s'] * 1e3:.1f} ms for {tp['decode_steps']} "
+              f"steps x {P * n} rows = {P * n * new / tp['decode_s']:.1f} tok/s [{card}]",
               flush=True)
-        warm = _serve_round(eng, vf, sp, rng, cfg.vocab_size, P, plen, n_kids, kid_extra)
-        tp, tk = warm["t_par"], warm["t_kid"]
-        print(f"{label}, warm parents: prefill {tp['prefill_s'] * 1e3:.1f} ms ({P} x {plen} "
-              f"tokens), decode {tp['decode_s'] * 1e3:.1f} ms for {tp['decode_steps']} steps x "
-              f"{P * n} rows = {P * n * new / tp['decode_s']:.1f} tok/s [{card}]", flush=True)
-        print(f"{label}, warm children: prefix-hit prefill {tk['prefill_s'] * 1e3:.1f} ms "
-              f"({n_kids} x {kid_extra}-token suffix at qstart {plen}), decode "
+        print(f"{label}, counted round, children: prefix-hit prefill {tk['prefill_s'] * 1e3:.1f} "
+              f"ms ({n_kids} x {kid_extra}-token suffix at qstart {plen}), decode "
               f"{tk['decode_s'] * 1e3:.1f} ms = {n_kids * n * new / tk['decode_s']:.1f} tok/s; "
-              f"root value forward ({P} x {plen}) {warm['t_value'] * 1e3:.1f} ms; whole round "
-              f"{warm['t_all']:.2f} s [{card}]", flush=True)
-        del eng, vf, run, warm
+              f"root value forward ({P} x {plen}) {run['t_value'] * 1e3:.1f} ms; whole round "
+              f"{run['t_all']:.2f} s [{card}]", flush=True)
+        del eng, vf, run
         torch.cuda.empty_cache()
     del qparams
     torch.cuda.empty_cache()
@@ -6361,6 +6483,285 @@ def serve_spec(params, vf, cfg, card) -> dict:
     return out
 
 
+DIFF_MASK = 151665  # inside Qwen2.5's 151936 rows, outside its tokenizer's ids
+
+
+def _diffusion_agree(n: int, out, ref_out, margins, call_of, Tb: int, tie: float) -> dict:
+    """Phase 22's agreement rule for block diffusion: per row, the tokens
+    before the first divergence of ``out`` from ``ref_out`` (greedy, the same
+    prompts), and at a divergence the top-2 margin the reference run's
+    reveal of that token had; ``margins`` (B·Tb, sample calls) is the
+    reference run's recorded table, ``call_of(c)`` the sample call that
+    revealed token c. Raises at a margin above ``tie``."""
+    agreed = total = diverged = 0
+    worst = 0.0
+    first = None
+    for p, (ro, rr) in enumerate(zip(out, ref_out)):
+        for jj in range(len(ro.outputs)):
+            r = p * n + jj
+            a, b = ro.outputs[jj].token_ids, rr.outputs[jj].token_ids
+            c = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            agreed += c
+            total += len(b)
+            if c >= min(len(a), len(b)) and len(a) == len(b):
+                continue
+            diverged += 1
+            gap = float(margins[r * Tb + c % Tb, call_of(c)])
+            worst = max(worst, gap)
+            first = (r, c, gap) if first is None or c < first[1] else first
+            check(gap <= tie, f"block diffusion streams diverge at token {c} of row {r} where "
+                              f"the reference run's top-2 margin is {gap:.4f} > {tie}")
+    return {"agreed": agreed / max(1, total), "diverged": diverged, "max_gap": worst,
+            "first": first}
+
+
+def _check_diffusion_out(res, vocab: int, new: int, label: str) -> None:
+    import numpy as np
+
+    for ro in res:
+        for o in ro.outputs:
+            check(len(o.token_ids) == new, f"{label}: {len(o.token_ids)} tokens, expected {new}")
+            check(all(0 <= t < vocab and t != DIFF_MASK for t in o.token_ids),
+                  f"{label}: a token outside the vocabulary or the mask id")
+            check(np.isfinite(o.token_logprobs).all() and max(o.token_logprobs) <= 0.0,
+                  f"{label}: logprobs finite and <= 0")
+
+
+def _diffusion_round(eng, text, sp, label: str, card: str, margins: bool = False):
+    """One generate: its outputs, stats, tok/s, forwards/s, host ms a
+    forward (and the recorded greedy margins)."""
+    import contextlib
+
+    import torch
+
+    t0 = time.perf_counter()
+    with (_GreedyMargins() if margins else contextlib.nullcontext()) as m:
+        res = eng.generate(text, sp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st, tm = dict(eng.last_diffusion_stats), dict(eng.last_timings)
+    loop_s = tm["decode_s"]
+    print(f"{label}: last_diffusion_stats {st}; {st['tokens'] / loop_s:.1f} tok/s, "
+          f"{st['forwards'] / loop_s:.1f} forwards/s, {loop_s / st['forwards'] * 1e3:.2f} ms host "
+          f"a forward, prefill {tm['prefill_s'] * 1e3:.1f} ms, the call {wall:.2f} s [{card}]",
+          flush=True)
+    st["host_ms_a_forward"] = loop_s / st["forwards"] * 1e3
+    return res, st, (m.table() if margins else None)
+
+
+def _profile_diffusion(eng, text, sp, label: str, card: str, host_ms: float) -> None:
+    """Device busy ms a forward of one generate's block loop under
+    torch.profiler (started once the prefill is done), against ``host_ms``,
+    the host ms a forward of an unprofiled round of the same engine (the
+    profiler slows the host, so its own clock would understate the busy
+    share)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]  # the kernels' own time only
+    loop, held = eng._diffusion_impl, {}
+
+    def profiled(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            out = loop(*a, **kw)
+            torch.cuda.synchronize()
+        held["prof"], held["host"] = prof, time.perf_counter() - t0
+        return out
+
+    t0 = time.perf_counter()
+    eng._diffusion_impl = profiled
+    try:
+        eng.generate(text, sp)
+    finally:
+        del eng._diffusion_impl
+    fwd = eng.last_diffusion_stats["forwards"]
+    kernels = [ev for ev in held["prof"].events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(ev.device_time_total for ev in kernels) / 1e3 / fwd
+    print(f"profiled generate, {label}: {fwd} forwards, device busy {dev_ms:.2f} ms a forward "
+          f"against {host_ms:.2f} ms host a forward unprofiled ({100 * dev_ms / host_ms:.1f}% "
+          f"busy; {held['host'] * 1e3 / fwd:.2f} ms host a forward under the profiler, "
+          f"profiling took {time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+
+
+def check_diffusion_reference(params, cfg, dev, card) -> None:
+    """Phase 23's two-layer check: ``forward(block_bidir=True)`` at T=4 over
+    an S=768 cache with holes (phase 1n's layout, 4 rows, noise in every
+    slot), card (bf16, the block-causal K3) against CPU (f32, plain):
+    relative error of the block's logits <= REF_RTOL."""
+    import torch
+
+    from lapha_tpu_torch.models import qwen2
+
+    sub, cfg2, cpu, cfg_cpu = _two_layers(params, cfg)
+    gen = torch.Generator().manual_seed(SEED + 44)
+    B, T, S, Lp, cp = 4, 4, 768, 640, 700
+    lens = torch.randint(400, 513, (B,), generator=gen)
+    j = torch.arange(S)[None, :]
+    kv_valid = (j < lens[:, None]) | ((j >= Lp) & (j < cp + T))
+    ids = torch.randint(2, 151643, (B, T), generator=gen)
+    pos = lens[:, None] + (cp - Lp) + torch.arange(T)[None, :]
+    shape = (2, B, S, cfg.num_key_value_heads, cfg.head_dim_)
+    ck = torch.randn(shape, generator=gen).bfloat16()
+    cv = torch.randn(shape, generator=gen).bfloat16()
+
+    def run(p, c, device, dtype):
+        with torch.inference_mode():
+            cache = (ck.to(device, dtype), cv.to(device, dtype))
+            logits, _, _ = qwen2.forward(p, c, ids.to(device), positions=pos.to(device),
+                                         kv_cache=cache, cache_pos=cp,
+                                         kv_valid=kv_valid.to(device), block_bidir=True)
+        return logits.float().cpu()
+
+    e = _rel(run(sub, cfg2, dev, torch.bfloat16), run(cpu, cfg_cpu, torch.device("cpu"),
+                                                      torch.float32))
+    print(f"reference check (2 layers, forward(block_bidir=True) T={T} at cache_pos {cp}, S={S} "
+          f"with holes; card kernels bf16 vs CPU plain f32): logits rel err {e:.3e} (limit "
+          f"{REF_RTOL}) [{card}]", flush=True)
+    check(e <= REF_RTOL, f"block_bidir reference rel err {e}")
+
+
+def serve_diffusion(params, cfg, card) -> dict:
+    """Phase 23: block diffusion (``DiffusionEngine``) on phase 3's
+    Qwen2.5-1.5B model (28 layers, the weights as drawn), mask id 151665, no
+    EOS: 4 prompts of 512 ids x n 6 (24 rows), 128 new tokens, block_length
+    4, denoising_steps 4. (a) Greedy with each strategy: sequential
+    (counted as "serve_diffusion": the block-causal K3 28 x forwards, K3 for
+    the prefill, no decode kernel) and low_confidence_static take 32 blocks
+    x (4 + 1) = 160 forwards, low_confidence_dynamic 2 a block (64); 128
+    tokens a row, never the mask id. (b) The sequential round again with K3
+    patched to its plain version: the streams agree up to near ties (phase
+    22's rule on the kernel round's own margins). (c) Sampled (temperature
+    0.8, top-p 0.95, top-k 20, dynamic 0.9) twice with one seed: the same
+    tokens, never the mask id; tokens a forward. (d) The two-layer
+    reference check. (e) The scheduler: ``ContinuousEngine`` of 16 rows
+    (slab 512, S 1024) over a dynamic engine takes the 4 requests (24 rows)
+    at once and a late one (prompt 0, n 1) after its first chunk, counted
+    as "serve_diffusion_sched"; each request's greedy tokens agree with
+    (a)'s dynamic round up to near ties. Last, a profiled one-block
+    generate: device ms a forward."""
+    import numpy as np
+    import torch
+
+    from lapha_tpu_torch.engine import ContinuousEngine, DiffusionEngine, SamplingParams
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    P, n, plen, new, Tb, steps = 4, 6, 512, 128, 4, 4
+    nblocks = new // Tb
+    rng = np.random.default_rng(SEED + 23)
+    text = [_text(rng.integers(2, 151643, plen)) for _ in range(P)]
+    kw = dict(mask_token_id=DIFF_MASK, block_length=Tb, denoising_steps=steps,
+              max_model_len=plen + new + 128, max_batch=P * n, pad_multiple=128, batch_bucket=1,
+              eos_token_ids=[], seed=SEED, prefix_cache_bytes=0)
+    greedy = SamplingParams(n=n, temperature=0.0, max_tokens=new, seed=1)
+    out = {}
+    runs = {}
+    for strategy, want in (("sequential", nblocks * (steps + 1)),
+                           ("low_confidence_static", nblocks * (steps + 1)),
+                           ("low_confidence_dynamic", nblocks * 2)):
+        eng = DiffusionEngine(params, cfg, IdTok(), remasking_strategy=strategy, **kw)
+        label = f"phase 23a, Qwen2.5-1.5B greedy {strategy}"
+        if strategy == "sequential":
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+        res, st, margins = _diffusion_round(eng, text, greedy, label, card,
+                                            margins=strategy != "low_confidence_static")
+        if strategy == "sequential":
+            la = out["serve_diffusion"] = dict(_cuda.LAUNCHES)
+            check(la["flash_attention_cached_block"] == L * want,
+                  f"{label}: the block-causal K3 launched {la['flash_attention_cached_block']} "
+                  f"times, expected {L} x {want} forwards")
+            check(la["flash_attention_cached"] == L, f"{label}: K3 for the prefill "
+                                                     f"{la['flash_attention_cached']} times")
+            for other in ("ragged_decode_attention", "flash_attention", "spec_verify_attention"):
+                check(la[other] == 0, f"{label}: {other} ran {la[other]} times")
+            print(f"{label}: launches {({k: c for k, c in la.items() if c})} [{card}]",
+                  flush=True)
+        check(st["forwards"] == want, f"{label}: {st['forwards']} forwards, expected {want}")
+        check(st["tokens"] == P * n * new, f"{label}: {st['tokens']} tokens")
+        _check_diffusion_out(res, V, new, label)
+        runs[strategy] = (eng, res, margins)
+        if strategy == "sequential":
+            seq_host_ms = st["host_ms_a_forward"]
+    # (b) the sequential round with the plain attention
+    eng, res_k, margins_k = runs["sequential"]
+    real = fa._attention_cuda
+
+    def plain_flash(q, k, v, kv_valid, qstart, scale, name, window=0, softcap=0.0):
+        return fa.attention_plain(q, k, v, kv_valid, qstart, scale, window, softcap=softcap)
+
+    fa._attention_cuda = plain_flash
+    try:
+        res_p, _, _ = _diffusion_round(eng, text, greedy, "phase 23b, greedy sequential, plain "
+                                       "attention", card)
+    finally:
+        fa._attention_cuda = real
+    ag = _diffusion_agree(n, res_p, res_k, margins_k, lambda c: c, Tb, SPEC_TIE)
+    print(f"phase 23b, plain attention vs the kernel: {ag['agreed']:.4f} of tokens agreed before "
+          f"a divergence, {ag['diverged']} rows diverged, first divergence (row, token, the "
+          f"kernel round's top-2 margin) {ag['first']}, largest margin at a divergence "
+          f"{ag['max_gap']:.4f} (limit {SPEC_TIE}) [{card}]", flush=True)
+    # (c) sampled, twice with one seed
+    sampled = SamplingParams(n=n, temperature=0.8, top_p=0.95, top_k=20, max_tokens=new, seed=1)
+    eng_d = runs["low_confidence_dynamic"][0]
+    a, st_a, _ = _diffusion_round(eng_d, text, sampled, "phase 23c, sampled (temperature 0.8, "
+                                  "top-p 0.95, top-k 20), dynamic 0.9", card)
+    b, _, _ = _diffusion_round(eng_d, text, sampled, "phase 23c, the same seed again", card)
+    _check_diffusion_out(a, V, new, "phase 23c")
+    toks_a = [o.token_ids for ro in a for o in ro.outputs]
+    check(toks_a == [o.token_ids for ro in b for o in ro.outputs],
+          "phase 23c: one seed gave two token streams")
+    print(f"phase 23c: {st_a['tokens_per_forward']} tokens a forward, the same tokens twice, "
+          f"{len(set(map(tuple, toks_a)))} distinct streams of {P * n} [{card}]", flush=True)
+    # (d) two layers, card against CPU
+    check_diffusion_reference(params, cfg, eng.device, card)
+    # (e) the scheduler: the 24 rows at once, a late request after one chunk
+    _, res_d, margins_d = runs["low_confidence_dynamic"]
+    sched_eng = DiffusionEngine(params, cfg, IdTok(), **dict(kw, max_model_len=1024,
+                                                             max_batch=16))
+    ce = ContinuousEngine(sched_eng, prompt_slab=plen)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    ce.start()
+    try:
+        futs = [ce.submit(t, greedy) for t in text]
+        while ce.steps_executed < 2:
+            time.sleep(0.01)
+        late = ce.submit(text[0], SamplingParams(n=1, temperature=0.0, max_tokens=new))
+        got = [f.result(timeout=600) for f in futs]
+        got_late = late.result(timeout=600)
+    finally:
+        ce.stop()
+    wall = time.perf_counter() - t0
+    la = out["serve_diffusion_sched"] = dict(_cuda.LAUNCHES)
+    check(la["flash_attention_cached_block"] == L * ce.steps_executed,
+          f"phase 23e: the block-causal K3 launched {la['flash_attention_cached_block']} times, "
+          f"expected {L} x {ce.steps_executed} forwards")
+    _check_diffusion_out(got + [got_late], V, new, "phase 23e")
+    call_of = lambda c: c // Tb  # noqa: E731 (greedy dynamic: one reveal pass a block)
+    ag = _diffusion_agree(n, got, res_d, margins_d, call_of, Tb, SPEC_TIE)
+    ag_late = _diffusion_agree(n, [got_late], res_d[:1], margins_d, call_of, Tb, SPEC_TIE)
+    print(f"phase 23e, ContinuousEngine (16 rows, S 1024) over the dynamic engine: 24 rows at "
+          f"once + a late request; {ce.steps_executed} forwards, waves {ce.waves}, compactions "
+          f"{ce.compactions}, {(P * n + 1) * new / wall:.1f} tok/s in {wall:.2f} s; against the "
+          f"sync round: {ag['agreed']:.4f} agreed, {ag['diverged']} rows diverged (largest "
+          f"margin {ag['max_gap']:.4f}), the late request {ag_late['agreed']:.4f}; launches "
+          f"{({k: c for k, c in la.items() if c})} [{card}]", flush=True)
+    # device ms a forward, profiled last (a profiler session slows later host work)
+    _profile_diffusion(runs["sequential"][0], text, SamplingParams(
+        n=n, temperature=0.0, max_tokens=Tb, seed=1), "phase 23, greedy sequential, one block",
+        card, seq_host_ms)
+    del runs, eng, eng_d, sched_eng, ce
+    torch.cuda.empty_cache()
+    print(f"phase 23 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6420,7 +6821,8 @@ def main(argv=None) -> int:
     kernels.update(check_backward_deepseek_kernels(dev, card))
     kernels.update(check_phi3_starcoder2_kernels(dev, card))
     kernels.update(check_verify_kernels(dev, card, merge_fault))
-    elapsed("the kernel checks (phases 1-1m)")
+    kernels.update(check_block_kernels(dev, card))
+    elapsed("the kernel checks (phases 1-1n)")
 
     # ---------------- MoE serving at full width, counted; freed after
     launches = {"serve_moe": serve_moe(dev, card)}
@@ -6493,6 +6895,9 @@ def main(argv=None) -> int:
     # ---------------- speculative decoding on the same model, counted
     launches.update(serve_spec(params, vf, cfg, card))
     elapsed("speculative decoding (phase 22)")
+    # ---------------- block diffusion on the same model, counted
+    launches.update(serve_diffusion(params, cfg, card))
+    elapsed("block diffusion (phase 23)")
 
     # ---------------- quantized serving at bench.py's shape, counted
     launches["serve_quantized"] = serve_quantized(params, head, cfg, card)
@@ -6614,6 +7019,11 @@ def main(argv=None) -> int:
                                      "lapha_tpu/models/qwen2.py:1878"),
         "spec_verify_attention_sink": ("lapha_tpu_torch/csrc/spec_verify_attention.cuh",
                                        "lapha_tpu/models/qwen2.py:1878"),
+        # K3 block-causal, in place of JAX's dense block_bidir attend
+        # (qwen2.forward's mask, where its flash path cannot go), counted on
+        # the block-diffusion paths (phase 23)
+        "flash_attention_cached_block": ("lapha_tpu_torch/csrc/flash_attention.cu",
+                                         "lapha_tpu/models/qwen2.py:1314"),
     }
     # the verify kernel at T = 1 (Qwen2.5, Phi-3, StarCoder2's shapes, beside
     # SDPA): its bf16 entry's launches on that model's spec path (phase 22,
@@ -6656,11 +7066,14 @@ def main(argv=None) -> int:
                  "_t1": ("serve_spec",),
                  "_t1_phi3": ("serve_phi3_spec",),
                  "_t1_starcoder2": ("serve_starcoder2_spec",)}
+    # a counter of its own, read on the paths that launch it
+    own_paths = {"flash_attention_cached_block": ("serve_diffusion", "serve_diffusion_sched")}
     rows = []
     for name, (src, rep) in replaces.items():
         suffix = next((x for x in row_paths if name.endswith(x)), "")
         counter = name.removesuffix(suffix) if suffix else name
-        by_path = {path: launches[path][counter] for path in row_paths.get(suffix, launches)}
+        paths = own_paths.get(name) or row_paths.get(suffix, launches)
+        by_path = {path: launches[path][counter] for path in paths}
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
                      **kernels[name]})

@@ -35,7 +35,8 @@
   replaced mid-wave; it falls back to waves wherever the scheduler would
   change the request (JAX ``generate``), and always under ``spec_decode``.
   The scheduler draws its own seeds, so sampled tokens differ from the sync
-  path's; greedy tokens agree.
+  path's; greedy tokens agree. A :class:`~.diffusion.DiffusionEngine` gets
+  the scheduler's block-diffusion branch.
 - ``spec_decode="pld"``: prompt-lookup speculative decoding (``spec.py``).
   An iteration drafts ``spec_k`` tokens a row by ``spec_ngram``-gram lookup
   over the row's history and verifies them in one (K+1)-token
@@ -73,6 +74,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 class Engine:
+    # the token loop generate() runs: "ar" here, "diffusion" in
+    # :class:`~.diffusion.DiffusionEngine` (the scheduler reads it)
+    decode_kind = "ar"
+
     def __init__(
         self,
         params: Any,
@@ -493,7 +498,8 @@ class Engine:
 
     def _continuous(self):
         """The internal :class:`~.scheduler.ContinuousEngine` of
-        ``auto_continuous``, built and started on first use; None under
+        ``auto_continuous``, built and started on first use (its diffusion
+        branch for a :class:`~.diffusion.DiffusionEngine`); None under
         ``spec_decode`` (the scheduler's loop does not speculate), and the
         caller falls back to waves."""
         if self.spec_decode is not None:

@@ -1,5 +1,6 @@
 """Continuous-batching scheduler over the port's :class:`~.engine.Engine` —
-the autoregressive path of ``lapha_tpu/engine/scheduler.py``.
+the autoregressive and block-diffusion paths of
+``lapha_tpu/engine/scheduler.py``.
 
 A scheduler thread owns a persistent decode batch over the engine's
 slot-uniform KV cache (decode layout (L, B, nkv, S, dh); int8 with (L, B,
@@ -42,7 +43,16 @@ before they hold rows are failed too (JAX leaves their futures pending); a
 sampling stage no live row uses is skipped, as the sync path skips it; a
 stream event's "sample" is the sample's index within its request (JAX
 counts across the admission group).
-Not ported: the diffusion and sequence-mesh branches (ROADMAP A10, A11).
+
+Over a :class:`~.diffusion.DiffusionEngine` (``decode_kind == "diffusion"``)
+a chunk is one committed block (``DiffusionEngine._diff_chunk_impl``):
+``chunk`` is the block length, every chunk boundary is a commit boundary,
+so admission and compaction need nothing new. The persistent cache keeps
+the prefill layout (L, B, S, nkv, dh), which the block-causal forward
+reads, with no presence and no last logits; a request reserves its budget
+rounded up to whole blocks, and the host trims a row's last block to its
+budget. The chunk reads one flag back per denoise forward (its eager loop).
+Not ported: the sequence-mesh branch (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -112,6 +122,10 @@ class ContinuousEngine:
         if not 0 < self.slab < self.S:
             raise ValueError(f"prompt_slab {self.slab} must lie in (0, {self.S})")
         self.chunk = int(chunk or engine.decode_chunk)
+        # a DiffusionEngine: the batch advances one committed block a chunk
+        self.diffusion = getattr(engine, "decode_kind", "ar") == "diffusion"
+        if self.diffusion:
+            self.chunk = int(engine.block_length)
         self.slots = make_slot_allocator(self.B)
         self.kv_quant = engine.kv_quant
 
@@ -195,7 +209,9 @@ class ContinuousEngine:
         B, S = self.B, self.S
         kv_dtype = torch.int8 if self.kv_quant == "int8" else cfg.dtype
         L, nkv, dh = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_
-        kshape = (L, B, nkv, S, dh)
+        # decode layout for decode_step; diffusion keeps the prefill layout
+        # that forward(block_bidir=True) reads
+        kshape = (L, B, S, nkv, dh) if self.diffusion else (L, B, nkv, S, dh)
         self._state = dict(
             ck=torch.zeros(kshape, dtype=kv_dtype, device=dev),
             cv=torch.zeros(kshape, dtype=kv_dtype, device=dev),
@@ -215,12 +231,27 @@ class ContinuousEngine:
             min_p=np.zeros((B,), np.float32),
             rep_pen=np.full((B,), 1.0, np.float32),
             top_k=np.full((B,), -1, np.int32),
+            thr=np.full((B,), getattr(eng, "dynamic_threshold", 0.9), np.float32),
             col=self.slab,
         )
+        if self.diffusion:
+            # AR decode state: the diffusion chunk samples from its block
+            # forward and has no repetition penalty
+            self._state["presence"] = self._state["last_logits"] = None
+
+    def _budget(self, sp) -> int:
+        """The tokens a request may emit: its max_tokens, capped to the
+        decode region."""
+        return min(int(getattr(sp, "max_tokens", 256) or 256), self.S - self.slab)
 
     def _budget_cols(self, sp) -> int:
-        """Decode columns a request may consume."""
-        return min(int(getattr(sp, "max_tokens", 256) or 256), self.S - self.slab)
+        """Decode columns a request may consume: its budget, rounded up to
+        whole blocks under diffusion (columns grow a block at a time)."""
+        b = self._budget(sp)
+        if self.diffusion:
+            Tb = self.chunk
+            b = -(-b // Tb) * Tb
+        return b
 
     def _admissible(self, req: _Request) -> bool:
         return self._admissible_with(req, [])
@@ -254,16 +285,20 @@ class ContinuousEngine:
         # device-side row installs: KV copy + last logits + presence
         rows_t = eng._t(np.asarray(rows_all, np.int64))
         group_t = eng._t(np.asarray(group_of, np.int64))
-        if self.kv_quant == "int8":
+        if self.diffusion:  # the same layout on both sides: one row scatter
+            st["ck"][:, rows_t] = ck_g[:, group_t]
+            st["cv"][:, rows_t] = cv_g[:, group_t]
+        elif self.kv_quant == "int8":
             st["ck"], st["cv"], st["scale"] = _install_rows_q(
                 st["ck"], st["cv"], st["scale"], ck_g, cv_g, group_t, rows_t)
         else:
             st["ck"], st["cv"] = _install_rows(st["ck"], st["cv"], ck_g, cv_g, group_t, rows_t)
-        st["last_logits"][rows_t] = last.float()[group_t]
-        pres_rows = np.zeros((len(rows_all), eng.cfg.vocab_size), np.int8)
-        for i, gi in enumerate(group_of):
-            pres_rows[i, np.asarray(reqs[gi].enc, np.int64)] = 1
-        st["presence"][rows_t] = eng._t(pres_rows)
+        if not self.diffusion:
+            st["last_logits"][rows_t] = last.float()[group_t]
+            pres_rows = np.zeros((len(rows_all), eng.cfg.vocab_size), np.int8)
+            for i, gi in enumerate(group_of):
+                pres_rows[i, np.asarray(reqs[gi].enc, np.int64)] = 1
+            st["presence"][rows_t] = eng._t(pres_rows)
 
         for r, gi in zip(rows_all, group_of):
             req = reqs[gi]
@@ -273,7 +308,7 @@ class ContinuousEngine:
             st["dstart"][r] = st["col"]
             st["pos"][r] = L
             st["fin"][r] = False
-            st["budget"][r] = self._budget_cols(sp)
+            st["budget"][r] = self._budget(sp)
             st["emitted"][r] = 0
             st["temp"][r] = float(getattr(sp, "temperature", 1.0) or 0.0)
             st["top_p"][r] = float(getattr(sp, "top_p", 1.0) or 1.0)
@@ -281,29 +316,90 @@ class ContinuousEngine:
             st["rep_pen"][r] = float(getattr(sp, "repetition_penalty", 1.0) or 1.0)
             tk = getattr(sp, "top_k", -1)
             st["top_k"][r] = int(-1 if tk is None else tk)
+            thr = getattr(sp, "dynamic_threshold", None)
+            st["thr"][r] = float(getattr(eng, "dynamic_threshold", 0.9) if thr is None else thr)
             if eng.collect_h0:
                 self._rows[r].h_gen = h_np[gi].astype(np.float32).copy()
+
+    def _sampling_plan(self):
+        """The chunk's generator and which sampling stages it runs: a stage
+        no live row uses is skipped (the sync path's rule); the static top-k
+        candidate bound holds only if every live row has a finite top-k.
+        Returns (generator, static_top_k, use_presence, use_top_k,
+        use_top_p, use_min_p)."""
+        eng = self.engine
+        st = self._state
+        self._seed_counter += 1
+        gen = torch.Generator(device=eng.device).manual_seed(
+            self._seed_counter * 2654435761 % (2**32))
+        live = ~st["fin"]
+        tks = st["top_k"][live] if live.any() else st["top_k"]
+        static_top_k = 0 if (tks <= 0).any() else min(
+            eng.cfg.vocab_size, max(64, int(tks.max())))
+        act = live if live.any() else np.ones_like(live)
+        return (gen, static_top_k, bool((st["rep_pen"][act] != 1.0).any()),
+                bool((st["top_k"][act] > 0).any()), bool((st["top_p"][act] < 1.0).any()),
+                bool((st["min_p"][act] > 0.0).any()))
+
+    def _diffusion_chunk(self):
+        """Advance the persistent batch by one committed block
+        (``DiffusionEngine._diff_chunk_impl``): live rows gain Tb tokens each,
+        the host trims a row's last block to its budget."""
+        eng = self.engine
+        st = self._state
+        dev = eng.device
+        gen, static_top_k, _, use_top_k, use_top_p, use_min_p = self._sampling_plan()
+        em_before = st["emitted"].copy()
+        Tb = self.chunk
+
+        def t(a, dtype):
+            return torch.as_tensor(a, device=dev).to(dtype)
+
+        toks_d, lps_d, fin_d, em_d, nfwd = eng._diff_chunk_impl(
+            st["ck"], st["cv"], t(st["lens"], torch.int64), t(st["dstart"], torch.int64),
+            t(st["fin"], torch.bool), t(st["emitted"], torch.int64), t(st["budget"], torch.int64),
+            int(st["col"]), gen, t(st["temp"], torch.float32),
+            t(st["top_k"], torch.int64) if use_top_k else None,
+            t(st["top_p"], torch.float32) if use_top_p else None,
+            t(st["min_p"], torch.float32) if use_min_p else None,
+            t(st["thr"], torch.float32), Tb=Tb, steps=eng.denoising_steps,
+            strategy=eng.remasking_strategy, static_top_k=static_top_k if use_top_k else 0)
+        toks = toks_d.cpu().numpy()
+        lps = lps_d.cpu().numpy()
+        st["fin"] = fin_d.cpu().numpy().copy()
+        st["emitted"] = em_d.cpu().numpy().astype(np.int32)
+        st["col"] += Tb
+        self.steps_executed += nfwd
+
+        eos_set = set(eng.eos_token_ids)
+        done_rows = []
+        for r, row in self._rows.items():
+            if st["emitted"][r] > em_before[r]:
+                # the whole block is this row's; the budget may trim it
+                take = min(Tb, int(st["budget"][r]) - len(row.toks))
+                row.toks.extend(int(x) for x in toks[r, :take])
+                row.lps.extend(float(x) for x in lps[r, :take])
+                row.em = len(row.toks)
+                self._push_delta(row, eos_set)
+            if st["fin"][r]:
+                done_rows.append(r)
+        for r in done_rows:
+            self._finish_row(r)
+
+        if not self._rows:
+            st["col"] = self.slab
+            st["fin"][:] = True
+            self.waves += 1
 
     def _decode_chunk(self):
         eng = self.engine
         st = self._state
         if not self._rows:
             return
+        if self.diffusion:
+            return self._diffusion_chunk()
         dev = eng.device
-        self._seed_counter += 1
-        gen = torch.Generator(device=dev).manual_seed(
-            self._seed_counter * 2654435761 % (2**32))
-        live = ~st["fin"]
-        tks = st["top_k"][live] if live.any() else st["top_k"]
-        # static candidate bound only if every live row uses a finite top-k
-        static_top_k = 0 if (tks <= 0).any() else min(
-            eng.cfg.vocab_size, max(64, int(tks.max())))
-        # a stage no live row uses is skipped (the sync path's rule)
-        act = live if live.any() else np.ones_like(live)
-        use_presence = bool((st["rep_pen"][act] != 1.0).any())
-        use_top_k = bool((st["top_k"][act] > 0).any())
-        use_top_p = bool((st["top_p"][act] < 1.0).any())
-        use_min_p = bool((st["min_p"][act] > 0.0).any())
+        gen, static_top_k, use_presence, use_top_k, use_top_p, use_min_p = self._sampling_plan()
         em_before = st["emitted"].copy()
 
         def t(a, dtype):
@@ -431,7 +527,8 @@ class ContinuousEngine:
             if n_r > 0:
                 idx[r, L0:L0 + n_r] = np.arange(d0, col, dtype=np.int64)
         idx_t = self.engine._t(idx)
-        st["ck"], st["cv"] = _gather_columns(st["ck"], st["cv"], idx_t)
+        gather = _gather_columns_pf if self.diffusion else _gather_columns
+        st["ck"], st["cv"] = gather(st["ck"], st["cv"], idx_t)
         if st["scale"] is not None:
             st["scale"] = _gather_scale_columns(st["scale"], idx_t)
         for r in self._rows:
@@ -516,6 +613,14 @@ def _gather_columns(ck, cv, idx):
     ix = idx[None, :, None, :, None]
     return (torch.gather(ck, 3, ix.expand(ck.shape)),
             torch.gather(cv, 3, ix.expand(cv.shape)))
+
+
+def _gather_columns_pf(ck, cv, idx):
+    """Compaction column relocation for the prefill-layout cache (L, B, S,
+    nkv, dh) of the diffusion branch: columns on axis 2."""
+    ix = idx[None, :, :, None, None]
+    return (torch.gather(ck, 2, ix.expand(ck.shape)),
+            torch.gather(cv, 2, ix.expand(cv.shape)))
 
 
 def _install_rows(ck_big, cv_big, ck_g, cv_g, group_of, rows):

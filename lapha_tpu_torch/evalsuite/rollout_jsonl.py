@@ -7,7 +7,8 @@ first-row str sanity check 1314-1321).
 
 Port of ``lapha_tpu/evalsuite/rollout_jsonl.py``: the same flags, agents and
 rows. The engine is the port's ("tpu"; "vllm" accepted; "jet", block
-diffusion, raises: ROADMAP A10), plus "fake" for hermetic tests; value mode
+diffusion, with the SDAR knobs from the environment), plus "fake" for
+hermetic tests; value mode
 wires the port's ValueFunction + LatentBank + MCTS from
 ``lapha_tpu_torch.search``. One flag is new, ``--device`` (default "cuda":
 without a card it raises, as the loaders do; "cpu" runs on the CPU).
@@ -376,6 +377,10 @@ def main(argv=None, *, engine_override=None, value_fn_override=None, tokenizer_o
         temperature=args.temperature, top_p=args.top_p, top_k=args.top_k,
         min_p=args.min_p, repetition_penalty=args.repetition_penalty,
         max_tokens=args.max_new_tokens, seed=args.seed or None,
+        remasking_strategy=os.getenv("SDAR_REMASKING_STRATEGY", "low_confidence_dynamic"),
+        block_length=int(os.getenv("SDAR_BLOCK_LENGTH", "4")),
+        denoising_steps=int(os.getenv("SDAR_DENOISING_STEPS", "4")),
+        dynamic_threshold=float(os.getenv("SDAR_DYNAMIC_THRESHOLD", "0.9")),
     )
 
     if engine_override is not None:

@@ -31,9 +31,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
-# the attention kernels count windowed, softcapped and narrow-V launches apart
+# the attention kernels count windowed, softcapped, narrow-V and block-causal launches apart
 LAUNCHES = {name + cap: 0
-            for name in ("flash_attention", "flash_attention_cached", "flash_attention_window",
+            for name in ("flash_attention", "flash_attention_cached",
+                         "flash_attention_cached_block", "flash_attention_window",
                          "flash_attention_cached_window", "flash_attention_narrowv",
                          "flash_attention_cached_narrowv", "flash_attention_narrowv_window",
                          "flash_attention_cached_narrowv_window", "ragged_decode_attention",

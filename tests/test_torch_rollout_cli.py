@@ -12,10 +12,13 @@
   loaders are held to float32 here: the CLI loads bf16, where XLA's and
   torch's roundings differ and a greedy argmax between near-equal logits of
   a random model may flip.
-- The refusals: ``--engine jet`` (A10), ``--tensor-parallel-size 2``
-  (A11), a value device other than the engine's, and the default
-  ``--device`` without a card. (``--spec-decode pld`` runs: its rows are
-  held to JAX's in ``tests/test_torch_spec.py``.)
+- ``--engine jet --device cpu`` builds the block-diffusion engine and runs
+  single mode on the tiny checkpoint; in value mode it raises JAX's
+  refusal (the diffusion engine collects no h0). The refusals:
+  ``--tensor-parallel-size 2`` (A11), a value device other than the
+  engine's, and the default ``--device`` without a card.
+  (``--spec-decode pld`` runs: its rows are held to JAX's in
+  ``tests/test_torch_spec.py``.)
 
 The search breaks score ties by ``id(node)`` on both sides; as in
 ``tests/test_torch_search.py`` the tests replace it by first-seen order.
@@ -195,10 +198,23 @@ def _argv(tmp_path, *extra):
             "--tokenizer-path", "unused", *extra]
 
 
-def test_refusals_name_their_cause(tmp_path, monkeypatch):
+def test_refusals_name_their_cause(tmp_path, monkeypatch, tiny_model_dir):
+    from lapha_tpu_torch.engine import DiffusionEngine
+    from lapha_tpu_torch.evalsuite.adapters import build_engine_adapter
+
     tok = ChatTok()
-    with pytest.raises(ValueError, match="block-diffusion.*A10"):
-        tro.main(_argv(tmp_path, "--engine", "jet", "--device", "cpu"), tokenizer_override=tok)
+    built = []
+    monkeypatch.setattr(tro, "build_engine_adapter",
+                        lambda *a, **kw: built.append(build_engine_adapter(*a, **kw)) or built[-1])
+    monkeypatch.setenv("SDAR_MASK_TOKEN_ID", "7")
+    jet = ["--engine", "jet", "--device", "cpu", "--tokenizer-path", tiny_model_dir,
+           "--max-new-tokens", "8", "--max-model-len", "512"]
+    assert tro.main(_argv(tmp_path, "--mode", "single", *jet)) == 1
+    assert isinstance(built[-1], DiffusionEngine) and built[-1].device.type == "cpu"
+    assert built[-1].last_diffusion_stats["forwards"] >= 2
+    with pytest.raises(ValueError, match="does not collect h0"):
+        tro.main(_argv(tmp_path, "--mode", "value", "--value-device", "cpu", *jet))
+    (tmp_path / "out.jsonl").unlink()
     with pytest.raises(ValueError, match="A11"):
         tro.main(_argv(tmp_path, "--device", "cpu", "--tensor-parallel-size", "2"),
                  tokenizer_override=tok, engine_override=TFake(tok))
