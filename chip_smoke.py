@@ -147,14 +147,19 @@ below are the published model's:
    out. Timed as CUDA-graph replays beside the plain version and SDPA
    with the boolean (B, nh, T, S) mask where that computes the same
    function (bf16, no sinks, no softcap).
-1n. K3 in block diffusion's block-causal mode (qstart at the block's last
-   column, kv_valid bounded below it) at B=24, T=4, S=768, 12/2 heads of
-   dim 128, prompts of 400-512 tokens, holes up to 640, the block at 700:
-   against the plain version and an independent dense f32 softmax under
-   JAX's ``block_bidir`` mask (phase 1's limit), two launches bit-equal;
-   qstart = 700 (the causal rule) and column 704 marked valid (garbage
-   K/V) are planted faults that must fail. Timed as CUDA-graph replays
-   beside the plain version and SDPA with the boolean mask.
+1n. Block diffusion's block attention (``block_attention``: no Pallas
+   kernel, JAX's dense ``block_bidir`` attend; the verify kernel's design
+   with the prefill layout and no causal new columns) at B=24, T=4,
+   S=768, 12/2 heads of dim 128, prompts of 400-512 tokens, holes up to
+   640, the block at 700 and column 706 valid past it: against the plain
+   version and an independent dense f32 softmax under JAX's mask (phase
+   1's limit), two launches bit-equal; planted faults that must fail: the
+   holes read as valid, column 706 not read (the mask cut below the
+   block's end, as the route through K3 had it), and a build whose
+   cluster merge leaves the last rank out. Timed as CUDA-graph replays
+   beside the plain version, SDPA with the boolean mask and K3's shifted
+   launch (the kernel it replaced). Llama-3.2-1B's 32/8 heads of dim 64
+   at T=16 (two query tiles) checked the same way, untimed.
 2d. Two full-width Qwen1.5-MoE-A2.7B layers, card (kernels, bf16) against
    CPU (plain versions, f32): prefill + one decode step, relative error of
    the logits <= 5e-2, with the count of (token, layer) routing choices
@@ -306,21 +311,23 @@ below are the published model's:
    forward included). Last, a profiled 8-token generate with and without
    spec: device ms an iteration of the decode part.
 23. Block diffusion (``DiffusionEngine``, ``qwen2.forward(block_bidir=True)``
-   over K3 with its causal rule shifted to the block's last column) on the
-   phase-3 model (28 layers, the weights as drawn), mask id 151665, no EOS:
-   4 prompts of 512 ids x n 6, 128 new tokens, blocks of 4, 4 denoising
-   steps. (a) Greedy with each strategy: "sequential" (counted as
-   "serve_diffusion": the block-causal K3 28 x forwards, K3 once a layer for
-   the prefill, no decode kernel) and "low_confidence_static" take 32 x (4
-   + 1) = 160 forwards, "low_confidence_dynamic" 64; 128 tokens a row,
-   never the mask id. (b) The sequential round with K3 patched to its
-   plain version: the streams agree up to phase 22's near ties. (c)
+   over the block attention of phase 1n) on the phase-3 model (28 layers,
+   the weights as drawn), mask id 151665, no EOS: 4 prompts of 512 ids x
+   n 6, 128 new tokens, blocks of 4, 4 denoising steps. (a) Greedy with
+   each strategy: "sequential" (counted as "serve_diffusion": the block
+   attention 28 x forwards, K3 once a layer for the prefill, no decode
+   kernel) and "low_confidence_static" take 32 x (4 + 1) = 160 forwards,
+   "low_confidence_dynamic" 64; 128 tokens a row, never the mask id. (b)
+   The sequential round with the block attention patched to its plain
+   version: the streams agree up to phase 22's near ties. (c)
    Sampled (temperature 0.8, top-p 0.95, top-k 20, dynamic 0.9) twice with
    one seed: the same tokens. (d) Two layers, ``forward(block_bidir=True)``
    over phase 1n's cache with holes, card against CPU (phase 2's limit).
-   (e) ``ContinuousEngine`` of 16 rows over a dynamic engine: the 24 rows
-   at once and a late request, counted as "serve_diffusion_sched"; each
-   request's tokens agree with (a)'s up to near ties. Printed: tok/s,
+   (e) ``ContinuousEngine`` of 16 rows over a dynamic engine: the 24 rows,
+   16 at a time, and a late short request that no longer fits the columns
+   left, so the scheduler compacts (at least once), counted as
+   "serve_diffusion_sched"; each request's tokens agree with (a)'s up to
+   near ties. Printed: tok/s,
    forwards/s, tokens a forward, host ms a forward; last, a profiled
    one-block generate gives device ms a forward.
 8. Quantized serving at bench.py's shape: the phase-3 weights quantized on
@@ -3128,19 +3135,24 @@ VERIFY_1M_GEOMETRIES = ((24, 1, True, False), (24, 4, True, False), (24, 8, True
                         (4, 1, False, False), (4, 4, False, False),
                         (1, 1, False, False), (1, 4, False, False), (1, 4, False, True))
 # the merge-fault build's instances: Qwen2.5's head dim at 1 and 3 n8 tiles
-# (6 query rows at T = 1; 24 at T = 4, and at T = 8 over two CTAs)
+# (6 query rows at T = 1; 24 at T = 4, and at T = 8 over two CTAs; block
+# diffusion's 24 rows at T = 4)
 MERGE_FAULT_INSTANCES = ("LAPHA_SV(128, 1)", "LAPHA_SV(128, 3)")
 
 
 def _merge_fault_build():
-    """Phase 1m's planted merge fault: a copy of the verify kernel's source
-    whose cluster merge leaves the last rank's partial out (its sum and its
-    part of every slice get the factor 0), with only Qwen2.5's instances,
-    compiled into a library of its own under ``_build/merge_fault/``
-    (``bench_verify._build``; the bf16 entry's source only). Started beside
-    the checks of phases 1-1l (``main``), so its nvcc runs while they do.
-    Returns (library, ptxas report)."""
-    from lapha_tpu_torch import bench_verify
+    """Phases 1m and 1n's planted merge fault: a copy of the verify kernel's
+    header whose cluster merge leaves the last rank's partial out (its sum
+    and its part of every slice get the factor 0), with only Qwen2.5's
+    instances, and the verify attention's bf16 entry and block diffusion's
+    block-attention entry beside it (the same kernel), compiled into a
+    library of their own under ``_build/merge_fault/``
+    (``bench_k2.compile_sources``). Started beside the checks of phases
+    1-1l (``main``), so its nvcc runs while they do. Returns (library,
+    ptxas report)."""
+    import ctypes
+
+    from lapha_tpu_torch.bench_k2 import compile_sources
     from lapha_tpu_torch.ops import _cuda
 
     with open(os.path.join(_cuda.CSRC, "spec_verify_attention.cuh")) as f:
@@ -3156,10 +3168,14 @@ def _merge_fault_build():
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "spec_verify_attention.cuh"), "w") as f:
         f.write(src)
-    # the bf16 entry's source alone, with the edited header beside it
-    path = os.path.join(out_dir, "spec_verify_attention.cu")
-    shutil.copyfile(os.path.join(_cuda.CSRC, "spec_verify_attention.cu"), path)
-    return bench_verify._build([path], "merge_fault")[0]
+    # the two entries' sources, with the edited header beside them
+    for entry in ("spec_verify_attention.cu", "block_attention.cu"):
+        shutil.copyfile(os.path.join(_cuda.CSRC, entry), os.path.join(out_dir, entry))
+    (_, so, report), = compile_sources([os.path.join(out_dir, "spec_verify_attention.cu")],
+                                       "merge_fault", siblings="*.cu")
+    dll = ctypes.CDLL(so)
+    _cuda.bind_verify(dll)
+    return dll, report
 
 
 def check_verify_kernels(dev, card, merge_fault):
@@ -3298,90 +3314,135 @@ def check_verify_kernels(dev, card, merge_fault):
     return results
 
 
-def check_block_kernels(dev, card):
-    """Phase 1n: K3 in block diffusion's block-causal mode, as
+def check_block_kernels(dev, card, merge_fault):
+    """Phase 1n: block diffusion's block attention (``ops/block_attention``:
+    no Pallas kernel, JAX's dense ``block_bidir`` attend), as
     ``qwen2.forward(block_bidir=True)`` launches it: B=24 rows, T=4 block
     tokens, an S=768 cache of 12/2 heads of dim 128, prompts of 400-512
     tokens, holes up to Lp=640, the block at cp=700, kv_valid = (j < lens) |
-    (640 <= j < cp + 4), qstart = cp + 3 (every query sees the whole block
-    and the valid past). Held to the plain version with the same arguments
-    and to an independent dense f32 softmax under JAX's mask formula
-    (``lapha_tpu/models/qwen2.py:1320``: valid & (j <= cp + t | j >= cp)),
-     at phase 1's limit; two launches bit-equal. The block's keys are x4 so
-    that its columns carry the attention; the column past the block holds
-    garbage (K x4, V x8) and the holes hold noise. Planted
-    faults that must fail: qstart = cp (the causal rule), and column cp + 4
-    marked valid. Timed as CUDA-graph replays beside the plain version and
-    SDPA with the boolean (B, nh, T, S) mask."""
+    (640 <= j < cp + 4), and column cp + 6 valid past the block (JAX's mask
+    sees it). Held to the plain version and to an independent dense f32
+    softmax under JAX's mask formula (``lapha_tpu/models/qwen2.py:1320``:
+    valid & (j <= cp + t | j >= cp)), at phase 1's limit; two launches
+    bit-equal. The block's keys are x4 so that its columns carry the
+    attention, the column past the block weighs (K x4, V x2: outputs stay
+    small enough for bf16's rounding to keep within the limit) and the
+    holes' V is x4, so that a fault shows. Planted faults that must fail: the holes
+    read as valid, the valid column past the block not read (the mask cut
+    below cp + T, as the route through K3 had it), and ``merge_fault`` (a
+    future of :func:`_merge_fault_build`): the kernel whose cluster merge
+    drops the last rank's partial. Timed as CUDA-graph replays beside the
+    plain version, SDPA with the boolean (B, nh, T, S) mask and K3's
+    shifted launch (qstart cp + 3 over the cut mask, the kernel this one
+    replaced), all in this call. Then Llama-3.2-1B's 32/8 heads of dim 64
+    at T=16 (two query tiles a KV head): checked and printed, not timed."""
     import torch
 
     from lapha_tpu_torch.bench_k6 import graph_ms
+    from lapha_tpu_torch.ops import _cuda
+    from lapha_tpu_torch.ops import block_attention as ba
     from lapha_tpu_torch.ops import flash_attention as fa
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 43)
-    B, T, S, nh, nkv, dh, Lp, cp = 24, 4, 768, 12, 2, 128, 640, 700
-    scale = dh ** -0.5
-    name = "flash_attention_cached_block"
-    q = torch.randn((B, T, nh, dh), generator=gen, device=dev)
-    k = torch.randn((B, S, nkv, dh), generator=gen, device=dev)
-    v = torch.randn((B, S, nkv, dh), generator=gen, device=dev)
-    k[:, cp:cp + T] *= 4.0  # the block's columns carry the attention
-    k[:, cp + T] *= 4.0  # garbage past the block
-    v[:, cp + T] *= 8.0
-    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    lens = torch.randint(400, 513, (B,), generator=gen, device=dev)
-    j = torch.arange(S, device=dev)[None, :]
-    kv_valid = ((j < lens[:, None]) | ((j >= Lp) & (j < cp + T))).to(torch.int32)
-    qs = torch.full((B,), cp + T - 1, dtype=torch.int32, device=dev)
+    bad_dll, _ = merge_fault.result()
+    results = {}
+    # (model, heads, KV heads, head dim, T, timed)
+    for fam, nh, nkv, dh, T, timed in (("Qwen2.5-1.5B", 12, 2, 128, 4, True),
+                                       ("Llama-3.2-1B", 32, 8, 64, 16, False)):
+        B, S, Lp, cp = 24, 768, 640, 700
+        scale = dh ** -0.5
+        past = cp + T + 2  # a valid column past the block
+        lens = torch.randint(400, 513, (B,), generator=gen, device=dev)
+        j = torch.arange(S, device=dev)[None, :]
+        holes = (j >= lens[:, None]) & (j < Lp)
+        kv_valid = (j < lens[:, None]) | ((j >= Lp) & (j < cp + T)) | (j == past)
+        q = torch.randn((B, T, nh, dh), generator=gen, device=dev)
+        k = torch.randn((B, S, nkv, dh), generator=gen, device=dev)
+        v = torch.randn((B, S, nkv, dh), generator=gen, device=dev)
+        k[:, cp:cp + T] *= 4.0
+        k[:, past] *= 4.0
+        v[:, past] *= 2.0
+        v = torch.where(holes[:, :, None, None], v * 4.0, v)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
 
-    def kernel(vm=kv_valid, at=qs):
-        return fa._attention_cuda(q, k, v, vm, at, scale, name)
+        def kernel(vm=kv_valid):
+            return ba.block_attention(q, k, v, vm, scale)
 
-    def plain():
-        return fa.attention_plain(q, k, v, kv_valid, qs, scale)
+        def plain():
+            return ba.block_attention_plain(q, k, v, kv_valid, scale)
 
-    # the oracle: dense f32 softmax under the JAX forward's block_bidir mask
-    qpos = cp + torch.arange(T, device=dev)[None, :, None]
-    allowed_jax = (kv_valid[:, None, :] > 0) & ((j[:, None, :] <= qpos) | (j[:, None, :] >= cp))
-    logits = torch.einsum("btkgd,bskd->bkgts", q.float().reshape(B, T, nkv, nh // nkv, dh),
-                          k.float()) * scale
-    logits = logits.masked_fill(~allowed_jax[:, None, None], float("-inf"))
-    oracle = torch.einsum("bkgts,bskd->btkgd", torch.softmax(logits, dim=-1),
-                          v.float()).reshape(B, T, nh, dh)
-    out, lse = kernel()
-    ref, _ = plain()
-    _k1_repeats(kernel, out, lse, f"{name} B={B} T={T} S={S}")
-    err = float((out.float() - ref.float()).abs().max())
-    err_oracle = float((out.float() - oracle).abs().max())
-    check(bool(torch.isfinite(out.float()).all()) and err <= KERNEL_ATOL,
-          f"{name}: max|diff| {err} against the plain version")
-    check(err_oracle <= KERNEL_ATOL, f"{name}: max|diff| {err_oracle} against the dense oracle")
-    past = kv_valid.clone()
-    past[:, cp + T] = 1
-    faults = {"qstart = cp, the causal rule": kernel(at=torch.full_like(qs, cp))[0],
-              f"column {cp + T} past the block marked valid": kernel(vm=past)[0]}
-    notes = []
-    for what, bad in faults.items():
-        e = float((bad.float() - oracle).abs().max())
-        check(e > KERNEL_ATOL, f"the {name} check missed a planted fault ({what}): {e}")
-        notes.append(f"planted fault ({what}) max|diff| {e:.3e}, caught")
-    allowed = _allowed(kv_valid, qs, T)
-    check(bool(torch.equal(allowed, allowed_jax)), f"{name}: the shifted causal rule is not "
-                                                   "JAX's block-causal mask")
-    ms, plain_ms, lib_ms = _ab_ms(kernel, plain, _sdpa(q, k, v, allowed, scale), timer=graph_ms)
-    # q, K and V of the columns some query of the row sees (for each KV
-    # head), the mask, qstart, out and the LSE
-    n_cols = int(allowed.any(dim=1).sum())
-    nbytes = n_cols * nkv * dh * 2 * 2 + _nbytes(q, kv_valid, qs, out, lse)
-    r = _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh * nh * int(allowed.sum()))
-    print(f"kernel {name} (block diffusion) 12/2 heads B={B} T={T} S={S} block at {cp}, holes "
-          f"up to {Lp}: max|diff| {err:.3e} (dense oracle {err_oracle:.3e}), bit-equal over two "
-          f"launches, {ms:.4f} ms vs plain {plain_ms:.4f} ms, sdpa (boolean mask) "
-          f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {n_cols} visible "
-          f"columns x {nkv} KV heads); {'; '.join(notes)} [{card}]", flush=True)
+        # the oracle: dense f32 softmax under the JAX forward's block_bidir mask
+        qpos = cp + torch.arange(T, device=dev)[None, :, None]
+        allowed = kv_valid[:, None, :] & ((j[:, None, :] <= qpos) | (j[:, None, :] >= cp))
+        check(bool(torch.equal(allowed, kv_valid[:, None, :].expand(B, T, S))),
+              "phase 1n: JAX's block_bidir mask is not kv_valid alone")
+        logits = torch.einsum("btkgd,bskd->bkgts", q.float().reshape(B, T, nkv, nh // nkv, dh),
+                              k.float()) * scale
+        logits = logits.masked_fill(~allowed[:, None, None], float("-inf"))
+        oracle = torch.einsum("bkgts,bskd->btkgd", torch.softmax(logits, dim=-1),
+                              v.float()).reshape(B, T, nh, dh)
+        plan = ba.block_plan(B, nkv, nh // nkv, T, S, _cuda.sm_count(dev), dh=dh,
+                             smem=_cuda.lib().lapha_spec_verify_smem)
+        label = (f"block_attention ({fam}) {nh}/{nkv} heads dh={dh} B={B} T={T} S={S} block at "
+                 f"{cp}, holes up to {Lp}, column {past} valid, plan {tuple(plan)}")
+        out, again, ref = kernel(), kernel(), plain()
+        cut = kv_valid & (j < cp + T)
+        faults = {"the holes read as valid": kernel(kv_valid | holes),
+                  f"column {past} past the block not read (the mask cut below cp + T)":
+                      kernel(cut)}
+        if timed:
+            check(plan.splits > 1, f"{label}: no split, so no merge to fault")
+            bad = torch.empty_like(q)
+            err = bad_dll.lapha_block_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), T, bad.data_ptr(),
+                B, nh, nkv, S, dh, scale, 0.0, *plan, _cuda.stream_of(q))
+            check(err == 0, f"{label}: the merge-fault build refused the launch ({err})")
+            faults["the last rank's partial dropped in the merge"] = bad
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        err_oracle = float((out.float() - oracle).abs().max())
+        check(bool(torch.isfinite(out.float()).all()) and err <= KERNEL_ATOL,
+              f"{label}: max|diff| {err} against the plain version")
+        check(err_oracle <= KERNEL_ATOL, f"{label}: max|diff| {err_oracle} against the oracle")
+        check(torch.equal(out, again), f"{label}: two launches differ")
+        notes = []
+        for what, bad in faults.items():
+            e = float((bad.float() - oracle).abs().max())
+            check(not e <= KERNEL_ATOL, f"the {label} check missed a planted fault ({what}): {e}")
+            notes.append(f"planted fault ({what}) max|diff| {e:.3e}, caught")
+        head = (f"kernel {label}: max|diff| {err:.3e} (dense oracle {err_oracle:.3e}), "
+                f"bit-equal over two launches")
+        if not timed:
+            print(f"{head}; {'; '.join(notes)} [{card}]", flush=True)
+            continue
+        # K3's shifted launch over the cut mask (the route this kernel
+        # replaced): query t at cp + 3 + t sees every valid column below cp + T
+        qs = torch.full((B,), cp + T - 1, dtype=torch.int32, device=dev)
+        cut_i = cut.to(torch.int32)
+
+        def k3():
+            return fa._attention_cuda(q, k, v, cut_i, qs, scale, "flash_attention_cached")
+
+        k3_err = float((k3()[0].float() - ba.block_attention_plain(q, k, v, cut, scale).float())
+                       .abs().max())
+        k3_ms = graph_ms(k3)
+        ms, plain_ms, lib_ms = _ab_ms(kernel, plain, _sdpa(q, k, v, allowed, scale),
+                                      timer=graph_ms)
+        k3_ms = (k3_ms + graph_ms(k3)) / 2
+        # K and V of the valid columns of each row for each KV head, q,
+        # out and the map
+        n_cols = int(kv_valid.sum())
+        nbytes = n_cols * nkv * dh * 2 * 2 + _nbytes(q, out, kv_valid)
+        r = _row(err, ms, plain_ms, lib_ms, nbytes, 4 * dh * nh * T * n_cols)
+        print(f"{head}, {ms:.4f} ms vs plain {plain_ms:.4f} ms, sdpa (boolean mask) "
+              f"{lib_ms:.4f} ms, K3's shifted launch over the cut mask {k3_ms:.4f} ms (max|diff| "
+              f"{k3_err:.3e} against the plain version on that mask), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {n_cols} valid columns x {nkv} KV "
+              f"heads); {'; '.join(notes)} [{card}]", flush=True)
+        results["block_attention"] = r
     print(f"phase 1n took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {name: r}
+    return results
 
 
 def _deepseek_model(dev, card, layers=None):
@@ -6579,16 +6640,24 @@ def _profile_diffusion(eng, text, sp, label: str, card: str, host_ms: float) -> 
     kernels = [ev for ev in held["prof"].events()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(ev.device_time_total for ev in kernels) / 1e3 / fwd
+    by_name = {}
+    for ev in kernels:
+        ms, count = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (ms + ev.device_time_total / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     print(f"profiled generate, {label}: {fwd} forwards, device busy {dev_ms:.2f} ms a forward "
           f"against {host_ms:.2f} ms host a forward unprofiled ({100 * dev_ms / host_ms:.1f}% "
           f"busy; {held['host'] * 1e3 / fwd:.2f} ms host a forward under the profiler, "
-          f"profiling took {time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+          f"profiling took {time.perf_counter() - t0:.1f} s); the top kernels, ms a forward "
+          f"(launches, ms a launch): "
+          + "; ".join(f"{name[:90]} {ms / fwd:.3f} ({count}, {ms / count:.4f})"
+                      for name, (ms, count) in top) + f" [{card}]", flush=True)
 
 
 def check_diffusion_reference(params, cfg, dev, card) -> None:
     """Phase 23's two-layer check: ``forward(block_bidir=True)`` at T=4 over
     an S=768 cache with holes (phase 1n's layout, 4 rows, noise in every
-    slot), card (bf16, the block-causal K3) against CPU (f32, plain):
+    slot), card (bf16, the block attention) against CPU (f32, plain):
     relative error of the block's logits <= REF_RTOL."""
     import torch
 
@@ -6627,26 +6696,34 @@ def serve_diffusion(params, cfg, card) -> dict:
     Qwen2.5-1.5B model (28 layers, the weights as drawn), mask id 151665, no
     EOS: 4 prompts of 512 ids x n 6 (24 rows), 128 new tokens, block_length
     4, denoising_steps 4. (a) Greedy with each strategy: sequential
-    (counted as "serve_diffusion": the block-causal K3 28 x forwards, K3 for
-    the prefill, no decode kernel) and low_confidence_static take 32 blocks
-    x (4 + 1) = 160 forwards, low_confidence_dynamic 2 a block (64); 128
-    tokens a row, never the mask id. (b) The sequential round again with K3
-    patched to its plain version: the streams agree up to near ties (phase
-    22's rule on the kernel round's own margins). (c) Sampled (temperature
+    (counted as "serve_diffusion": the block attention 28 x forwards, K3
+    for the prefill, no decode kernel) and low_confidence_static take 32
+    blocks x (4 + 1) = 160 forwards, low_confidence_dynamic 2 a block (64);
+    128 tokens a row, never the mask id. (b) The sequential round again with
+    the block attention patched to its plain version: the streams agree up
+    to near ties (phase 22's rule on the kernel round's own margins). (c) Sampled (temperature
     0.8, top-p 0.95, top-k 20, dynamic 0.9) twice with one seed: the same
     tokens, never the mask id; tokens a forward. (d) The two-layer
     reference check. (e) The scheduler: ``ContinuousEngine`` of 16 rows
-    (slab 512, S 1024) over a dynamic engine takes the 4 requests (24 rows)
-    at once and a late one (prompt 0, n 1) after its first chunk, counted
-    as "serve_diffusion_sched"; each request's greedy tokens agree with
-    (a)'s dynamic round up to near ties. Last, a profiled one-block
-    generate: device ms a forward."""
+    (slab 512, S 768) over a dynamic engine takes the 4 requests (24 rows,
+    16 at a time) and a late one (prompt 0, n 1) after its first chunk, so
+    the column cursor runs on past the first wave and the second wave's
+    rows start at column 640, after a gap of holes; at column 756 a late
+    short request (16 tokens) no longer fits the columns left, so the
+    scheduler compacts (folds the live rows' committed columns into their
+    prefixes; the gathered cache is then read by the kernel) and admits it.
+    Counted as "serve_diffusion_sched", at least one compaction; each
+    request's greedy tokens agree with (a)'s dynamic round up to near ties.
+    Last, a profiled one-block generate: device ms a forward."""
+    import threading
+    import types
+
     import numpy as np
     import torch
 
     from lapha_tpu_torch.engine import ContinuousEngine, DiffusionEngine, SamplingParams
     from lapha_tpu_torch.ops import _cuda
-    from lapha_tpu_torch.ops import flash_attention as fa
+    from lapha_tpu_torch.ops import block_attention as ba
 
     t_phase = time.perf_counter()
     L, V = cfg.num_hidden_layers, cfg.vocab_size
@@ -6672,9 +6749,9 @@ def serve_diffusion(params, cfg, card) -> dict:
                                             margins=strategy != "low_confidence_static")
         if strategy == "sequential":
             la = out["serve_diffusion"] = dict(_cuda.LAUNCHES)
-            check(la["flash_attention_cached_block"] == L * want,
-                  f"{label}: the block-causal K3 launched {la['flash_attention_cached_block']} "
-                  f"times, expected {L} x {want} forwards")
+            check(la["block_attention"] == L * want,
+                  f"{label}: the block attention launched {la['block_attention']} times, "
+                  f"expected {L} x {want} forwards")
             check(la["flash_attention_cached"] == L, f"{label}: K3 for the prefill "
                                                      f"{la['flash_attention_cached']} times")
             for other in ("ragged_decode_attention", "flash_attention", "spec_verify_attention"):
@@ -6687,22 +6764,22 @@ def serve_diffusion(params, cfg, card) -> dict:
         runs[strategy] = (eng, res, margins)
         if strategy == "sequential":
             seq_host_ms = st["host_ms_a_forward"]
-    # (b) the sequential round with the plain attention
+    # (b) the sequential round with the block attention's plain version
     eng, res_k, margins_k = runs["sequential"]
-    real = fa._attention_cuda
+    real = ba._block_cuda
 
-    def plain_flash(q, k, v, kv_valid, qstart, scale, name, window=0, softcap=0.0):
-        return fa.attention_plain(q, k, v, kv_valid, qstart, scale, window, softcap=softcap)
+    def plain_block(q, k, v, kv_valid, scale, softcap):
+        return ba.block_attention_plain(q, k, v, kv_valid, scale, softcap=softcap)
 
-    fa._attention_cuda = plain_flash
+    ba._block_cuda = plain_block
     try:
         res_p, _, _ = _diffusion_round(eng, text, greedy, "phase 23b, greedy sequential, plain "
-                                       "attention", card)
+                                       "block attention", card)
     finally:
-        fa._attention_cuda = real
+        ba._block_cuda = real
     ag = _diffusion_agree(n, res_p, res_k, margins_k, lambda c: c, Tb, SPEC_TIE)
-    print(f"phase 23b, plain attention vs the kernel: {ag['agreed']:.4f} of tokens agreed before "
-          f"a divergence, {ag['diverged']} rows diverged, first divergence (row, token, the "
+    print(f"phase 23b, plain block attention vs the kernel: {ag['agreed']:.4f} of tokens agreed "
+          f"before a divergence, {ag['diverged']} rows diverged, first divergence (row, token, the "
           f"kernel round's top-2 margin) {ag['first']}, largest margin at a divergence "
           f"{ag['max_gap']:.4f} (limit {SPEC_TIE}) [{card}]", flush=True)
     # (c) sampled, twice with one seed
@@ -6719,39 +6796,73 @@ def serve_diffusion(params, cfg, card) -> dict:
           f"{len(set(map(tuple, toks_a)))} distinct streams of {P * n} [{card}]", flush=True)
     # (d) two layers, card against CPU
     check_diffusion_reference(params, cfg, eng.device, card)
-    # (e) the scheduler: the 24 rows at once, a late request after one chunk
+    # (e) the scheduler: the 24 rows (16 at a time) and a late request that
+    # keeps the column cursor going past the first wave, then a late short
+    # request that no longer fits the columns left, which forces a compaction
     _, res_d, margins_d = runs["low_confidence_dynamic"]
-    sched_eng = DiffusionEngine(params, cfg, IdTok(), **dict(kw, max_model_len=1024,
-                                                             max_batch=16))
+    late_new = 4 * Tb
+    sched_eng = DiffusionEngine(params, cfg, IdTok(), **dict(kw, max_batch=16))
     ce = ContinuousEngine(sched_eng, prompt_slab=plen)
+    # pause the loop after the first chunk, and after the second wave's 29th
+    # (the first wave's rows take 32 chunks): column 752 of 768 then
+    chunk, calls = sched_eng._diff_chunk_impl, [0]
+    pauses = {c: (threading.Event(), threading.Event()) for c in (1, nblocks + 29)}
+
+    def pause_after(*a, **kw):
+        res = chunk(*a, **kw)
+        calls[0] += 1
+        if calls[0] in pauses:
+            reached, go = pauses[calls[0]]
+            reached.set()
+            go.wait(300)
+        return res
+
+    def submit_at(c, prompt, max_tokens):  # -> (future, the column it is first considered at)
+        reached, go = pauses[c]
+        check(reached.wait(600), f"phase 23e: the scheduler never reached chunk {c}")
+        fut = ce.submit(prompt, SamplingParams(n=1, temperature=0.0, max_tokens=max_tokens))
+        at = ce._state["col"] + Tb  # the paused chunk's columns are counted after it
+        go.set()
+        return fut, at
+
+    sched_eng._diff_chunk_impl = pause_after
     torch.cuda.synchronize()
     _cuda.reset_launches()
     t0 = time.perf_counter()
     ce.start()
     try:
         futs = [ce.submit(t, greedy) for t in text]
-        while ce.steps_executed < 2:
-            time.sleep(0.01)
-        late = ce.submit(text[0], SamplingParams(n=1, temperature=0.0, max_tokens=new))
+        late, _ = submit_at(1, text[0], new)
+        short, col_at = submit_at(nblocks + 29, text[0], late_new)
         got = [f.result(timeout=600) for f in futs]
-        got_late = late.result(timeout=600)
+        got_late, got_short = late.result(timeout=600), short.result(timeout=600)
     finally:
+        for _, go in pauses.values():
+            go.set()
         ce.stop()
     wall = time.perf_counter() - t0
     la = out["serve_diffusion_sched"] = dict(_cuda.LAUNCHES)
-    check(la["flash_attention_cached_block"] == L * ce.steps_executed,
-          f"phase 23e: the block-causal K3 launched {la['flash_attention_cached_block']} times, "
-          f"expected {L} x {ce.steps_executed} forwards")
+    check(la["block_attention"] == L * ce.steps_executed,
+          f"phase 23e: the block attention launched {la['block_attention']} times, expected "
+          f"{L} x {ce.steps_executed} forwards")
+    check(ce.compactions >= 1, f"phase 23e: no compaction (the short request came at column "
+                               f"{col_at} of {ce.S})")
     _check_diffusion_out(got + [got_late], V, new, "phase 23e")
+    _check_diffusion_out([got_short], V, late_new, "phase 23e, the short request")
     call_of = lambda c: c // Tb  # noqa: E731 (greedy dynamic: one reveal pass a block)
     ag = _diffusion_agree(n, got, res_d, margins_d, call_of, Tb, SPEC_TIE)
     ag_late = _diffusion_agree(n, [got_late], res_d[:1], margins_d, call_of, Tb, SPEC_TIE)
-    print(f"phase 23e, ContinuousEngine (16 rows, S 1024) over the dynamic engine: 24 rows at "
-          f"once + a late request; {ce.steps_executed} forwards, waves {ce.waves}, compactions "
-          f"{ce.compactions}, {(P * n + 1) * new / wall:.1f} tok/s in {wall:.2f} s; against the "
-          f"sync round: {ag['agreed']:.4f} agreed, {ag['diverged']} rows diverged (largest "
-          f"margin {ag['max_gap']:.4f}), the late request {ag_late['agreed']:.4f}; launches "
-          f"{({k: c for k, c in la.items() if c})} [{card}]", flush=True)
+    head = types.SimpleNamespace(outputs=[types.SimpleNamespace(
+        token_ids=res_d[0].outputs[0].token_ids[:late_new])])
+    ag_short = _diffusion_agree(n, [got_short], [head], margins_d, call_of, Tb, SPEC_TIE)
+    print(f"phase 23e, ContinuousEngine (16 rows, S {ce.S}) over the dynamic engine: 24 rows, a "
+          f"late request after the first chunk, a late request of {late_new} tokens at column "
+          f"{col_at}; {ce.steps_executed} forwards, waves {ce.waves}, compactions "
+          f"{ce.compactions}, {((P * n + 1) * new + late_new) / wall:.1f} tok/s in {wall:.2f} s; "
+          f"against the sync round: {ag['agreed']:.4f} agreed, {ag['diverged']} rows diverged "
+          f"(largest margin {ag['max_gap']:.4f}), the late requests {ag_late['agreed']:.4f} and "
+          f"{ag_short['agreed']:.4f}; launches {({k: c for k, c in la.items() if c})} [{card}]",
+          flush=True)
     # device ms a forward, profiled last (a profiler session slows later host work)
     _profile_diffusion(runs["sequential"][0], text, SamplingParams(
         n=n, temperature=0.0, max_tokens=Tb, seed=1), "phase 23, greedy sequential, one block",
@@ -6760,6 +6871,22 @@ def serve_diffusion(params, cfg, card) -> dict:
     torch.cuda.empty_cache()
     print(f"phase 23 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+def _qwen25_model(dev):
+    """Phase 3's model: Qwen2.5-1.5B at full width and depth, random bf16
+    weights from the seed. Returns (cfg, params, the generator, which the
+    value head draws from next)."""
+    import torch
+
+    from lapha_tpu_torch.models import qwen2
+
+    cfg = qwen2.Qwen2Config(
+        vocab_size=151936, hidden_size=1536, intermediate_size=8960,
+        num_hidden_layers=28, num_attention_heads=12, num_key_value_heads=2,
+        max_position_embeddings=4096, rope_theta=1e6, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return cfg, qwen2.init_params(cfg, gen), gen
 
 
 def main(argv=None) -> int:
@@ -6774,6 +6901,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--c5", action="store_true",
                     help="run only the GPT-OSS fused-h0 probe of ROADMAP C5 (probe_c5)")
+    ap.add_argument("--diffusion", action="store_true",
+                    help="run only block diffusion's phases: 1n (its kernel) and 23 (served)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card", file=sys.stderr)
@@ -6787,7 +6916,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from lapha_tpu_torch.engine import Engine, SamplingParams
-    from lapha_tpu_torch.models import qwen2, value_model
+    from lapha_tpu_torch.models import value_model
     from lapha_tpu_torch.ops import _cuda
     from lapha_tpu_torch.search import ValueFunction
 
@@ -6801,10 +6930,18 @@ def main(argv=None) -> int:
     if args.c5:
         probe_c5(dev, card)
         return 0
+    if args.diffusion:
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        check_block_kernels(dev, card, pool.submit(_merge_fault_build))
+        pool.shutdown()
+        cfg, params, _ = _qwen25_model(dev)
+        serve_diffusion(params, cfg, card)
+        elapsed("phases 1n and 23")
+        return 0
     for line in _cuda.build_log.splitlines():  # ptxas: registers, smem, spills per kernel
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip(), flush=True)
-    # phase 1m's merge-fault build compiles while phases 1-1l run
+    # phases 1m and 1n's merge-fault build compiles while phases 1-1l run
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     merge_fault = pool.submit(_merge_fault_build)
     pool.shutdown(wait=False)
@@ -6821,7 +6958,7 @@ def main(argv=None) -> int:
     kernels.update(check_backward_deepseek_kernels(dev, card))
     kernels.update(check_phi3_starcoder2_kernels(dev, card))
     kernels.update(check_verify_kernels(dev, card, merge_fault))
-    kernels.update(check_block_kernels(dev, card))
+    kernels.update(check_block_kernels(dev, card, merge_fault))
     elapsed("the kernel checks (phases 1-1n)")
 
     # ---------------- MoE serving at full width, counted; freed after
@@ -6845,12 +6982,7 @@ def main(argv=None) -> int:
                                     "serve_starcoder2", (None, "int8"), {}, "17", spec=True))
     elapsed(f"serving at full width, {CUT_LAYERS} layers (phases 10-12, 15, 17)")
 
-    cfg = qwen2.Qwen2Config(
-        vocab_size=151936, hidden_size=1536, intermediate_size=8960,
-        num_hidden_layers=28, num_attention_heads=12, num_key_value_heads=2,
-        max_position_embeddings=4096, rope_theta=1e6, dtype=torch.bfloat16)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = qwen2.init_params(cfg, gen)
+    cfg, params, gen = _qwen25_model(dev)
     head = value_model.init_value_head(cfg.hidden_size, gen)
     check_small_reference(params, cfg, dev)
     for bits in (4, 8):
@@ -7019,11 +7151,11 @@ def main(argv=None) -> int:
                                      "lapha_tpu/models/qwen2.py:1878"),
         "spec_verify_attention_sink": ("lapha_tpu_torch/csrc/spec_verify_attention.cuh",
                                        "lapha_tpu/models/qwen2.py:1878"),
-        # K3 block-causal, in place of JAX's dense block_bidir attend
-        # (qwen2.forward's mask, where its flash path cannot go), counted on
-        # the block-diffusion paths (phase 23)
-        "flash_attention_cached_block": ("lapha_tpu_torch/csrc/flash_attention.cu",
-                                         "lapha_tpu/models/qwen2.py:1314"),
+        # no Pallas kernel: JAX's dense block_bidir attend (qwen2.forward's
+        # mask, where its flash path cannot go), counted on the
+        # block-diffusion paths (phase 23)
+        "block_attention": ("lapha_tpu_torch/csrc/block_attention.cu",
+                            "lapha_tpu/models/qwen2.py:1314"),
     }
     # the verify kernel at T = 1 (Qwen2.5, Phi-3, StarCoder2's shapes, beside
     # SDPA): its bf16 entry's launches on that model's spec path (phase 22,
@@ -7067,7 +7199,7 @@ def main(argv=None) -> int:
                  "_t1_phi3": ("serve_phi3_spec",),
                  "_t1_starcoder2": ("serve_starcoder2_spec",)}
     # a counter of its own, read on the paths that launch it
-    own_paths = {"flash_attention_cached_block": ("serve_diffusion", "serve_diffusion_sched")}
+    own_paths = {"block_attention": ("serve_diffusion", "serve_diffusion_sched")}
     rows = []
     for name, (src, rep) in replaces.items():
         suffix = next((x for x in row_paths if name.endswith(x)), "")

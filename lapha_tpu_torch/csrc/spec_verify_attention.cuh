@@ -86,6 +86,14 @@
 // This header holds the kernel and its launcher; each C entry is a source of
 // its own (spec_verify_attention{,_q8,_sink,_q8_sink}.cu, 14 instances each),
 // so that the four compile in parallel (ops/_cuda.py runs one nvcc a source).
+//
+// Two compile-time switches give block diffusion's block attention the same
+// kernel (its entry: block_attention.cu). kPf reads the prefill layout
+// (L, B, S, nkv, DH), where a column's K row lies nkv·DH elements after the
+// one before; kBidir has no causal new columns: every query of the block
+// sees every valid column, so the list holds the valid columns alone (that
+// entry passes no window, sinks or int8 cache). The verify instances have
+// both off, and the switches fold away there at compile time.
 
 #pragma once
 
@@ -179,10 +187,10 @@ __device__ __forceinline__ void wait_ring(int nst) {
   }
 }
 
-template <int DH, bool kQ8, bool kSink, int NTW>
+template <int DH, bool kQ8, bool kSink, int NTW, bool kPf, bool kBidir>
 __global__ void __launch_bounds__(NTH)
 spec_verify_kernel(const bf16* __restrict__ q,                   // (B, T, nh, DH)
-                   const void* __restrict__ kc_,                 // (L, B, nkv, S, DH)
+                   const void* __restrict__ kc_,                 // (L, B, nkv, S, DH); kPf: (L, B, S, nkv, DH)
                    const void* __restrict__ vc_,
                    const float* __restrict__ ks,                 // (L, B, nkv, S) (kQ8)
                    const float* __restrict__ vs,
@@ -193,6 +201,7 @@ spec_verify_kernel(const bf16* __restrict__ q,                   // (B, T, nh, D
                    int layer, int slot, int T, int window,
                    bf16* __restrict__ out,                       // (B, T, nh, DH)
                    int nh, int nkv, int S, float scale, float softcap, int qtiles, int nst) {
+  static_assert(!(kPf && kQ8), "the int8 cache and its scales have the decode layout only");
   using Lay = Layout<DH, kQ8, NTW>;
   constexpr int QB = Lay::QB, ROW = Lay::ROW, LDP = Lay::LDP, QROW = Lay::QROW;
   constexpr int KS = DH / 16;                       // k-steps of Sᵀ, m-tiles of Oᵀ
@@ -279,7 +288,7 @@ spec_verify_kernel(const bf16* __restrict__ q,                   // (B, T, nh, D
     for (int i = 0; i < BATCH; ++i) {
       const int w = w0 + NW * i, j = 32 * w + lane;
       if (w < words) {
-        const bool fresh = j >= slot && j < slot + T;
+        const bool fresh = !kBidir && j >= slot && j < slot + T;
         const bool live = fresh || (vb[i] && (window <= 0 || pc[i] > wmin));
         const uint32_t lm = __ballot_sync(FULL, live), vm = __ballot_sync(FULL, vb[i]);
         if (lane == 0) {
@@ -320,7 +329,7 @@ spec_verify_kernel(const bf16* __restrict__ q,                   // (B, T, nh, D
     const int idx = p0 + __popc(lm & ((1u << lane) - 1u));
     if (((lm >> lane) & 1u) && idx >= lo && idx < hi) {
       const int j = 32 * w + lane, c = j - slot;
-      const bool fresh = c >= 0 && c < T;
+      const bool fresh = !kBidir && c >= 0 && c < T;
       list[idx - lo] = fresh && !((vmask[w] >> lane) & 1u) ? -(c + 1) : j;
       if (window > 0)
         lpos[idx - lo] = fresh ? positions[static_cast<size_t>(b) * T + c] : prow[j];
@@ -333,8 +342,12 @@ spec_verify_kernel(const bf16* __restrict__ q,                   // (B, T, nh, D
   const int pieces = (cnt + PIECE - 1) / PIECE;
   const int mine = pieces > warp ? (pieces - warp + NW - 1) / NW : 0;  // pieces w, w+4, ...
   const size_t panel = (static_cast<size_t>(layer) * B + b) * nkv + hk;
-  const unsigned char* kbase = static_cast<const unsigned char*>(kc_) + panel * S * DH * ESZ;
-  const unsigned char* vbase = static_cast<const unsigned char*>(vc_) + panel * S * DH * ESZ;
+  // the head's first column and the step from one column to the next
+  const size_t first = kPf ? ((static_cast<size_t>(layer) * B + b) * S * nkv + hk) * DH * ESZ
+                           : panel * S * DH * ESZ;
+  const size_t stride = kPf ? static_cast<size_t>(nkv) * DH * ESZ : DH * ESZ;
+  const unsigned char* kbase = static_cast<const unsigned char*>(kc_) + first;
+  const unsigned char* vbase = static_cast<const unsigned char*>(vc_) + first;
   unsigned char* ring = region + warp * nst * Lay::STAGE;
 
   // piece `pc` of the share (entries 16pc ..) into stage `st` of this warp's ring
@@ -347,7 +360,7 @@ spec_verify_kernel(const bf16* __restrict__ q,                   // (B, T, nh, D
       const int u = lane + 32 * it, r = u / UPR, c = u % UPR, i = base + r;
       const bool ok = i < cnt;
       const int e = ok ? list[i] : 0;
-      const size_t off = ok ? static_cast<size_t>(e < 0 ? slot - e - 1 : e) * DH * ESZ + c * 16 : 0;
+      const size_t off = ok ? static_cast<size_t>(e < 0 ? slot - e - 1 : e) * stride + c * 16 : 0;
       cp_async16(sk + r * ROW + c * 16, kbase + off, ok);
       cp_async16(sv + r * ROW + c * 16, vbase + off, ok);
     }
@@ -670,14 +683,14 @@ spec_verify_kernel(const bf16* __restrict__ q,                   // (B, T, nh, D
   }
 }
 
-template <int DH, bool kQ8, bool kSink, int NTW>
+template <int DH, bool kQ8, bool kSink, int NTW, bool kPf, bool kBidir>
 int launch_inst(const void* q, const void* k_cache, const void* v_cache, const float* k_scale,
                 const float* v_scale, const unsigned char* valid_map, const int* positions,
                 const int* pos_map, const float* sinks, int layer, int slot, int T, int window,
                 void* out, int B, int nh, int nkv, int S, float scale, float softcap, int qtiles,
                 int splits, int nst, cudaStream_t stream) {
   using Lay = Layout<DH, kQ8, NTW>;
-  const auto kernel = spec_verify_kernel<DH, kQ8, kSink, NTW>;
+  const auto kernel = spec_verify_kernel<DH, kQ8, kSink, NTW, kPf, kBidir>;
   const int smem = Lay::smem(nst, S, splits);
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   static bool opted_in[kMaxDevices] = {};
@@ -738,7 +751,7 @@ int plan_smem(int dh, int rows, int S, int stages, int splits) {
 // live columns, one cluster, a power of two; `stages` 1..4 ring stages a
 // warp) comes from the host's ops/spec_verify_attention.verify_plan.
 // sinks (kSink): (nh,) f32 sink logits, one per query head.
-template <bool kQ8, bool kSink>
+template <bool kQ8, bool kSink, bool kPf = false, bool kBidir = false>
 int launch(const void* q, const void* k_cache, const void* v_cache, const float* k_scale,
            const float* v_scale, const void* valid_map, const int* positions, const int* pos_map,
            const float* sinks, int layer, int slot, int T, int window, void* out, int B, int nh,
@@ -758,10 +771,9 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const float*
   const unsigned char* vm = static_cast<const unsigned char*>(valid_map);
 #define LAPHA_SV(DH, NTW)                                                                      \
   if (dh == DH && ntw == NTW)                                                                  \
-    return launch_inst<DH, kQ8, kSink, NTW>(q, k_cache, v_cache, k_scale, v_scale, vm,         \
-                                            positions, pos_map, sinks, layer, slot, T, window, \
-                                            out, B, nh, nkv, S, scale, softcap, qtiles, splits, \
-                                            stages, st);
+    return launch_inst<DH, kQ8, kSink, NTW, kPf, kBidir>(                                     \
+        q, k_cache, v_cache, k_scale, v_scale, vm, positions, pos_map, sinks, layer, slot, T,  \
+        window, out, B, nh, nkv, S, scale, softcap, qtiles, splits, stages, st);
   LAPHA_SV(64, 1)
   LAPHA_SV(64, 2)
   LAPHA_SV(64, 3)

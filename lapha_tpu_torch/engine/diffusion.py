@@ -7,8 +7,8 @@ and a masked-denoising diffusion within each block: a block starts as all
 several tokens can commit per forward. The loop rides the Engine's prefill,
 prefix reuse and fan-out; each iteration forwards the current block through
 ``qwen2.forward(block_bidir=True)`` (bidirectional inside the block, causal
-over the committed past), whose attention is the cached kernel K3 with its
-causal rule shifted to the block's last column.
+over the committed past), whose attention is the block-attention kernel
+(``ops/block_attention.py``): every query of the block sees every valid column.
 
 Loop invariant (JAX's): an iteration whose block is fully revealed at entry
 is a *commit* step — its forward rewrote the block's K/V from the clean

@@ -87,6 +87,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.block_attention import block_attention
 from ..ops.flash_attention import flash_attention, flash_attention_cached
 from ..ops.int4_matmul import int4_matmul
 from ..ops.ragged_decode_attention import ragged_decode_attention, ragged_decode_plain
@@ -837,14 +838,12 @@ def _dispatch_attend(cfg: Qwen2Config, q, k, v, key_mask, win=0, sinks=None):
                            softcap=cfg.attn_softcap, sinks=sinks)
 
 
-def _dispatch_attend_cached(cfg: Qwen2Config, q, k, v, key_mask, qstart, win=0, sinks=None,
-                            block=False):
+def _dispatch_attend_cached(cfg: Qwen2Config, q, k, v, key_mask, qstart, win=0, sinks=None):
     """Cache-threaded path: T new queries at qstart[b] + t over the whole
     (B, S) cache, ``key_mask`` being the cache-column validity; window and
-    softcap and sinks as in :func:`_dispatch_attend`. ``block`` counts the
-    launch as block-causal (``forward(block_bidir=True)``)."""
+    softcap and sinks as in :func:`_dispatch_attend`."""
     return flash_attention_cached(q, k, v, key_mask, qstart, scale=cfg.attn_scale_, window=win,
-                                  softcap=cfg.attn_softcap, sinks=sinks, block=block)
+                                  softcap=cfg.attn_softcap, sinks=sinks)
 
 
 def _layer_stack(params: dict) -> list[dict]:
@@ -893,13 +892,14 @@ def _qk_norm(cfg: Qwen2Config, a: dict, key: str, t: torch.Tensor) -> torch.Tens
 
 
 def _layer_body(cfg: Qwen2Config, p: dict, x, cos, sin, key_mask,
-                cache_k=None, cache_v=None, cache_pos=None, win=0, qstart=None):
+                cache_k=None, cache_v=None, cache_pos=None, win=0, block=False):
     """One decoder layer. With ``cache_k``/``cache_v`` ((B, S, nkv, dh)
     views of one layer) the new K/V are written at ``cache_pos`` (int or
     (B,) per-row offsets) IN PLACE — the JAX model's dynamic_update_slice /
     scatter — and attention runs over the whole cache, query t at
-    ``qstart`` + t (``cache_pos`` when it is None; the block-causal forward
-    shifts it). ``win`` is the layer's attention window (0 = full)."""
+    ``cache_pos`` + t, or with ``block`` (block diffusion) every query over
+    every column ``key_mask`` holds. ``win`` is the layer's attention window
+    (0 = full)."""
     B, T, _ = x.shape
     nh, nkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     a = p["attn"]
@@ -918,9 +918,12 @@ def _layer_body(cfg: Qwen2Config, p: dict, x, cos, sin, key_mask,
             t_idx = cache_pos.long()[:, None] + torch.arange(T, device=x.device)[None, :]
             cache_k[b_idx, t_idx] = k
             cache_v[b_idx, t_idx] = v
-        att = _dispatch_attend_cached(cfg, q, cache_k, cache_v, key_mask,
-                                      cache_pos if qstart is None else qstart, win, sinks,
-                                      block=qstart is not None)
+        if block:
+            att = block_attention(q, cache_k, cache_v, key_mask, cfg.attn_scale_,
+                                  softcap=cfg.attn_softcap, sinks=sinks, window=win)
+        else:
+            att = _dispatch_attend_cached(cfg, q, cache_k, cache_v, key_mask, cache_pos, win,
+                                          sinks)
     else:
         att = _dispatch_attend(cfg, q, k, v, key_mask, win, sinks)
     return _residual(cfg, p, x, _proj(att.reshape(B, T, nh * dh), a["o_proj"]["w"],
@@ -977,13 +980,11 @@ def forward(
       where ``kv_valid`` (B,S) holds, causally by slot.
     * ``block_bidir=True`` (block diffusion, ``engine/diffusion.py``): the
       T new tokens also see each other both ways, the block-causal mask of
-      the JAX forward. The cached kernel computes it with its causal rule
-      shifted: query t sits at ``cache_pos + T - 1 + t``, so it sees every
-      valid column below ``cache_pos + T``, and the key mask drops the
-      columns at and past ``cache_pos + T`` (``kv_valid`` holds none there
-      on the engine's paths, where JAX's mask equals this one). Needs
-      ``kv_valid`` and a stack without windows; the launches count as
-      ``flash_attention_cached_block``.
+      the JAX forward, ``valid & ((j <= cache_pos + t) | (j >= cache_pos))``,
+      which is ``kv_valid`` alone: every query sees every valid column.
+      Attention goes to ``ops.block_attention`` with ``kv_valid`` as it is
+      (launches counted as ``block_attention``). Needs ``kv_valid`` and a
+      stack without windows.
 
     A windowed layer bands by index without a cache and by slot with one,
     as the JAX forward does.
@@ -1014,22 +1015,19 @@ def forward(
                 x = _layer_body(cfg, p, x, cos, sin, key_mask, win=win)
     else:
         ck, cv = kv_cache
-        S = ck.shape[2]
-        key_mask = cached_key_mask(kv_valid, cache_pos, T, B, S, dev)
-        qstart = None
         if block_bidir:
             if kv_valid is None:
                 raise ValueError("forward(block_bidir=True) needs kv_valid: the block-causal "
                                  "mask is bounded by the valid columns")
             if any(cfg.window_for_layer(l) for l in range(cfg.num_hidden_layers)):
                 raise ValueError("forward(block_bidir=True) does not take windowed layers")
-            end = torch.as_tensor(cache_pos, device=dev).reshape(-1, 1) + T
-            key_mask = key_mask * (torch.arange(S, device=dev)[None, :] < end)
-            qstart = end.reshape(-1) - 1
+            key_mask = kv_valid
+        else:
+            key_mask = cached_key_mask(kv_valid, cache_pos, T, B, ck.shape[2], dev)
         for l, p in enumerate(_layer_stack(params)):
             win = cfg.window_for_layer(l)
             x = _layer_body(cfg, p, x, *rope_of(win), key_mask, ck[l], cv[l], cache_pos, win,
-                            qstart)
+                            block_bidir)
 
     x = _norm(x, params["norm"], cfg)
     logits = _lm_head(params, cfg, x) if compute_logits else None

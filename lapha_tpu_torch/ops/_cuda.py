@@ -31,10 +31,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
-# the attention kernels count windowed, softcapped, narrow-V and block-causal launches apart
+# the attention kernels count windowed, softcapped and narrow-V launches apart
 LAUNCHES = {name + cap: 0
-            for name in ("flash_attention", "flash_attention_cached",
-                         "flash_attention_cached_block", "flash_attention_window",
+            for name in ("flash_attention", "flash_attention_cached", "flash_attention_window",
                          "flash_attention_cached_window", "flash_attention_narrowv",
                          "flash_attention_cached_narrowv", "flash_attention_narrowv_window",
                          "flash_attention_cached_narrowv_window", "ragged_decode_attention",
@@ -43,7 +42,7 @@ LAUNCHES = {name + cap: 0
                          "flash_attention_bwd_dkv", "flash_attention_bwd_dq_window",
                          "flash_attention_bwd_dkv_window", "flash_attention_bwd_dq_narrowv",
                          "flash_attention_bwd_dkv_narrowv", "flash_attention_bwd_dq_narrowv_window",
-                         "flash_attention_bwd_dkv_narrowv_window")
+                         "flash_attention_bwd_dkv_narrowv_window", "block_attention")
             for cap in ("", "_softcap")}
 # the verify attention of speculative decoding, per entry, capped or not
 LAUNCHES.update({"spec_verify_attention" + q8 + sink + cap: 0
@@ -114,9 +113,10 @@ def _run(cmds: list[list[str]]) -> str:
 
 
 def bind_verify(dll: ctypes.CDLL) -> None:
-    """Give the verify attention's C entries that ``dll`` has their argument
-    types (the package's library has all; a build of the bf16 entry's
-    source alone has that entry and the shared-memory count)."""
+    """Give the C entries of the verify header's kernel that ``dll`` has
+    their argument types: the verify attention's and block diffusion's block
+    attention (the package's library has all; a build of one entry's source
+    has that entry and the shared-memory count)."""
     # q k v [k/v scales] valid_map positions pos_map [sinks], then layer slot
     # T window, out, B nh nkv S dh, scale, softcap, the plan: qtiles,
     # splits, stages
@@ -129,6 +129,12 @@ def bind_verify(dll: ctypes.CDLL) -> None:
     # a CTA's shared memory: dh int8 rows S stages splits
     dll.lapha_spec_verify_smem.argtypes = [_I] * 6
     dll.lapha_spec_verify_smem.restype = _I
+    # block diffusion's block attention, the same kernel: q k v kv_valid, T,
+    # out, B nh nkv S dh, scale, softcap, the plan, the stream
+    if hasattr(dll, "lapha_block_attention"):
+        dll.lapha_block_attention.argtypes = [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F,
+                                              _F, _I, _I, _I, _P]
+        dll.lapha_block_attention.restype = _I
 
 
 def lib() -> ctypes.CDLL:

@@ -31,9 +31,6 @@ counted under its own name (``flash_attention_narrowv``,
 ``flash_attention_cached_narrowv``), a windowed one adds ``_window``
 (``flash_attention_window``, ``flash_attention_cached_window``) and a
 softcapped one ``_softcap`` (``flash_attention_cached_window_softcap``, ...).
-Block diffusion's block-causal forward (``qwen2.forward(block_bidir=True)``)
-runs the cached kernel with qstart at the block's last column, its launches
-counted as ``flash_attention_cached_block``.
 A row that
 sees no key gives 0 and LSE -1e30 here, never NaN. The JAX versions give a
 finite average of V there (their masked probabilities are exp(0) = 1); such
@@ -115,8 +112,7 @@ BWD_HEAD_DIMS = ((64, 64), (96, 96), (128, 128), (256, 256), (192, 128))
 
 
 def launch_name(name, window=0, softcap=0.0, narrowv=False):
-    """The launch counter of a launch: ``name`` (``flash_attention_cached_block``
-    for a block-causal cached launch), + "_narrowv" when V is narrower than
+    """The launch counter of a launch: ``name``, + "_narrowv" when V is narrower than
     Q/K, + "_window" when banded, + "_softcap" when softcapped."""
     return (name + ("_narrowv" if narrowv else "") + ("_window" if window > 0 else "")
             + ("_softcap" if softcap else ""))
@@ -382,17 +378,14 @@ def flash_attention(q, k, v, mask=None, *, causal=True, scale=None, window=0,
 
 
 def flash_attention_cached(q, k, v, kv_valid, qstart, *, scale=None, window=0,
-                           softcap=0.0, sinks=None, block=False):
+                           softcap=0.0, sinks=None):
     """Rectangular attention of T new queries (B,T,nh,dh) over the whole
     cache k (B,S,nkv,dh), v (B,S,nkv,dv) with cache-column validity kv_valid (B,S) and
     per-row query offset qstart ((B,) or scalar); ``window`` bands by cache
     slot, ``softcap`` and ``sinks`` as in :func:`flash_attention`. Forward
-    only. ``block`` marks a block-causal launch (the caller shifts qstart to
-    the block's last column and bounds kv_valid there): the same kernel,
-    counted as ``flash_attention_cached_block``."""
+    only."""
     B = q.shape[0]
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     qstart = torch.as_tensor(qstart, device=q.device).reshape(-1).expand(B)
-    name = "flash_attention_cached_block" if block else "flash_attention_cached"
-    return _forward(q, k, v, kv_valid, qstart, scale, name, int(window), sinks,
+    return _forward(q, k, v, kv_valid, qstart, scale, "flash_attention_cached", int(window), sinks,
                     float(softcap))[0]

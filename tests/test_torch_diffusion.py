@@ -5,8 +5,8 @@ tiny Qwen2 config with vocabulary 300 and [MASK] = 299, as
 - ``qwen2.forward(block_bidir=True)``: its logits within 1e-4 of JAX's over
   a cache with holes and garbage in invalid slots; the block-causal
   semantics (later in-block tokens seen, invalid slots never read); the
-  kernel's route (qstart at the block's last column, counted as a block
-  launch); the refusals.
+  kernel's route (``block_attention`` with kv_valid as it is); the
+  refusals.
 - ``DiffusionEngine``: greedy tokens, finish reasons, forwards and
   ``last_diffusion_stats`` equal JAX's for the three strategies, logprobs
   to 1e-4; a straight-line replay; batch against single; forward counts;
@@ -115,27 +115,26 @@ def test_block_bidir_forward_matches_jax(tiny, monkeypatch):
         jp, jnp.asarray(ids), jnp.asarray(pos), jnp.asarray(ck), jnp.asarray(cv),
         jnp.asarray(kvv))
     calls = []
-    real = qwen2.flash_attention_cached
+    real = qwen2.block_attention
 
-    def spy(q, k, v, kv_valid, qstart, **kw):
-        calls.append((torch.as_tensor(qstart).reshape(-1).tolist(), kw.get("block"),
-                      kv_valid.clone()))
-        return real(q, k, v, kv_valid, qstart, **kw)
+    def spy(q, k, v, kv_valid, *a, **kw):
+        calls.append((kv_valid, kv_valid.clone()))
+        return real(q, k, v, kv_valid, *a, **kw)
 
-    monkeypatch.setattr(qwen2, "flash_attention_cached", spy)
+    monkeypatch.setattr(qwen2, "block_attention", spy)
     tck, tcv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    tkvv = torch.from_numpy(kvv)
     tl, _, _ = qwen2.forward(tp, tcfg, torch.from_numpy(ids), positions=torch.from_numpy(pos),
-                             kv_cache=(tck, tcv), cache_pos=cp,
-                             kv_valid=torch.from_numpy(kvv), block_bidir=True)
+                             kv_cache=(tck, tcv), cache_pos=cp, kv_valid=tkvv, block_bidir=True)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(tck.numpy(), np.asarray(jk), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(tcv.numpy(), np.asarray(jv), rtol=TOL, atol=TOL)
-    # the kernel's route: qstart at the block's last column, a block launch,
-    # the key mask bounded below cp + T
+    # the kernel's route: every layer's attention is the block attention,
+    # given kv_valid as it is (the same tensor, unchanged)
     assert len(calls) == tcfg.num_hidden_layers
-    for qs, block, km in calls:
-        assert qs == [cp + 3] and block is True
-        np.testing.assert_array_equal(km.numpy() > 0, kvv)
+    for km, seen in calls:
+        assert km is tkvv
+        assert torch.equal(seen, tkvv)
     # the causal forward differs from it
     cl, _, _ = qwen2.forward(tp, tcfg, torch.from_numpy(ids), positions=torch.from_numpy(pos),
                              kv_cache=(torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())),

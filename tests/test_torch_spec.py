@@ -37,6 +37,9 @@ from lapha_tpu_torch.models import deepseek as td
 from lapha_tpu_torch.models import loader, qwen2
 
 from test_torch_deepseek import _pair
+from verify_smem import PIECE, WARPS
+from verify_smem import FakeLib as _FakeLib
+from verify_smem import kernel_smem as _kernel_smem
 
 V = 300
 
@@ -254,20 +257,6 @@ def test_deepseek_decode_step_multi_matches_jax(kv, T):
 
 # ---------------------------------------------------------------- the verify wrapper's host path
 
-class _FakeLib:
-    """Records the C entry called and its arguments; returns cudaSuccess.
-    Its shared-memory count is the kernel's layout as :func:`_kernel_smem`
-    models it."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, entry):
-        if entry == "lapha_spec_verify_smem":
-            return _kernel_smem
-        return lambda *args: self.calls.append((entry, args)) or 0
-
-
 @pytest.mark.parametrize("int8,sinks,softcap,window", [(False, False, 0.0, 0), (True, False, 0.0, 0),
                                                        (False, True, 0.0, 128), (True, True, 0.0, 128),
                                                        (False, False, 50.0, 0)])
@@ -317,35 +306,10 @@ def test_verify_wrapper_calls_its_entry(monkeypatch, int8, sinks, softcap, windo
 # ---------------------------------------------------------------- the verify kernel's plan and split
 
 SMS = 132               # an H100 SXM's SMs
-PIECE, WARPS = 16, 4    # the kernel's piece of a warp and warps of a CTA
 CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                   "lapha_tpu_torch", "csrc", "spec_verify_attention.cuh")
 # (nkv, group, dh) of phase 1m's five models: Qwen2.5, GPT-OSS, Gemma-2, Phi-3, StarCoder2
 PLAN_MODELS = ((2, 6, 128), (8, 8, 64), (4, 2, 256), (32, 1, 96), (2, 12, 128))
-
-
-def _r16(x: int) -> int:
-    return (x + 15) // 16 * 16
-
-
-def _kernel_smem(dh: int, int8: bool, rows: int, S: int, stages: int, splits: int) -> int:
-    """A model of the kernel's shared memory a CTA (its ``Layout``, counted
-    on the card by ``lapha_spec_verify_smem``): the Q tile of ``rows`` rows
-    (bf16, padded by 16 bytes) and their four ints, the merge's tail, the
-    inbox with more than one split, a region that holds the list build's
-    scratch (3 ints a 32-column word), the 4 warps' rings of ``stages``
-    16-column K and V pieces (padded rows; int8 with 32 scales) or the
-    merge's accumulators, whichever is largest, and the share's list of
-    ceil(S / splits) columns and their positions."""
-    from lapha_tpu_torch.ops import spec_verify_attention as sva
-
-    row = dh + 16 if int8 else 2 * dh + 16
-    stage = 2 * PIECE * row + (2 * PIECE * 4 if int8 else 0)
-    words = math.ceil(S / 32)
-    region = max(WARPS * stages * stage, WARPS * rows * (dh + 4) * 4, _r16((3 * words + 1) * 4))
-    head = (rows * (2 * dh + 16) + 16 * rows + (3 * WARPS + 2 + sva.MAX_SPLITS) * rows * 4
-            + ((2 * sva.MAX_SPLITS * rows + rows * dh + sva.MAX_SPLITS) * 4 if splits > 1 else 0))
-    return head + region + 2 * _r16(4 * math.ceil(S / splits))
 
 
 def _plan(*args, **kw):
